@@ -1,0 +1,307 @@
+"""Limb-major Pippenger MSM for BN254 G1/G2 (PyTorch, CUDA-kernel backed).
+
+The structure is the JAX package's (ops/msm_lm.py there), kept step for
+step so that every intermediate plane compares bit for bit:
+
+  * 8-bit SIGNED-DIGIT windows (e in [-128, 127], carry-recoded): bucket
+    magnitudes are 0..128, and a negative digit is a gather offset into
+    the doubled [P | -P] affine table;
+  * per window: a stable argsort of the digit magnitudes, composed with a
+    BIT-REVERSAL, so that every level of the sum tree is a contiguous
+    fold-in-half add x[..., :m/2] + x[..., m/2:] (kernels fold_padd_aa for
+    level 0, fold_padd above it);
+  * the upsweep stops at width 128; the 128 bucket-boundary prefix sums
+    come from a shifted-add prefix scan over that level plus root-to-leaf
+    walks over the retained levels (kernel padd);
+  * sum_b b*S_b = 128*total - sum_{b<128} prefix_b, computed for all 32
+    windows at once.
+
+Scalars arrive as (n, 21, B) int32 plain canonical limbs; points as
+(n, arows) int32 AFFINE rows from ec_affine.affine_table.  Results are
+projective planes.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import ec_affine, ec_lm, lm
+from .cuda import lm_kernels as K
+
+WBITS = 8
+N_WINDOWS = 32
+N_MAGS = 1 << (WBITS - 1)       # signed-digit magnitudes 1..128; prefix
+                                # queries cover 0..127 (= N_MAGS lanes)
+WFLOOR = N_MAGS                 # the sum tree stops at width 128
+MIN_CHUNK = 2048
+
+
+def _signed_digits(digits: torch.Tensor):
+    """(32, B, n) unsigned base-256 digits -> (signs, mags) of the signed
+    recoding e_w in [-128, 127]: e = d + carry; e >= 128 -> e -= 256,
+    carry out 1.  Scalars are < 2^254, so the final carry is always 0."""
+    signs, mags = [], []
+    carry = torch.zeros_like(digits[0])
+    for w in range(N_WINDOWS):
+        e = digits[w] + carry
+        hi = (e >= N_MAGS).to(torch.int32)
+        e = e - 256 * hi
+        carry = hi
+        signs.append((e < 0).to(torch.int32))
+        mags.append(e.abs())
+    return torch.stack(signs), torch.stack(mags)
+
+
+def _next_pow2(n):
+    m = 1
+    while m < n:
+        m *= 2
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _bitrev(n: int) -> np.ndarray:
+    log_n = n.bit_length() - 1
+    br = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        br[i] = int(bin(i)[2:].zfill(log_n)[::-1] or "0", 2)
+    return br
+
+
+def _bitrev_values(k: torch.Tensor, bits: int) -> torch.Tensor:
+    """Bit-reverse int values over `bits` bits."""
+    out = torch.zeros_like(k)
+    for i in range(bits):
+        out = out | (((k >> i) & 1) << (bits - 1 - i))
+    return out
+
+
+def _neg_plane(x: torch.Tensor, kind: str) -> torch.Tensor:
+    nl = lm.N_LIMBS
+    d = lm.const(lm.FQ.sub_d, x.device)
+    if kind == "g1":
+        neg_y = lm.weak_norm(d - x[..., nl:2 * nl, :])
+        return torch.cat([x[..., :nl, :], neg_y, x[..., 2 * nl:, :]], -2)
+    neg_y = lm.weak_norm(torch.cat([d, d], -2) - x[..., 2 * nl:4 * nl, :])
+    return torch.cat([x[..., :2 * nl, :], neg_y, x[..., 4 * nl:, :]], -2)
+
+
+def _tree_reduce_lanes(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """(B, rows, m) -> (B, rows, 1) sum over lanes (m a power of two)."""
+    while x.shape[-1] > 1:
+        x = K.fold_padd(x, kind)
+    return x
+
+
+def _double_k(x: torch.Tensor, k: int, kind: str) -> torch.Tensor:
+    for _ in range(k):
+        x = K.padd(x, x, kind)
+    return x
+
+
+def _lane_scan_padd(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Inclusive EC prefix sum over the last axis (width <= 128) by
+    log-step SHIFTED adds, every add at the full stored width."""
+    w = x.shape[-1]
+    s = 1
+    while s < w:
+        idp = ec_lm.identity_plane(kind, x.shape[:-2], s, x.device)
+        shifted = torch.cat([idp, x[..., :-s]], -1)
+        x = K.padd(x, shifted, kind)
+        s *= 2
+    return x
+
+
+def default_window_group(m: int, B: int, device) -> int:
+    """Windows processed together.  On the card: G*B <= 128 and
+    G*B*m <= 2^23, the caps the JAX package measured on the TPU (at
+    B = 128 and m = 32,768 a 32-window group would gather ~23 GB).  On
+    the CPU (tests, tiny sizes): one 32-window group."""
+    if torch.device(device).type != "cuda":
+        return N_WINDOWS
+    lanes_cap = max(1, (1 << 23) // m)
+    G = max(1, min(8, 128 // B, lanes_cap // B))
+    return 1 << (G.bit_length() - 1)       # a divisor of N_WINDOWS
+
+
+def chunk_window_sums(scalars_chunk: torch.Tensor, table_chunk: torch.Tensor,
+                      kind: str,
+                      window_group: int | None = None) -> torch.Tensor:
+    """Per-window signed-bucket sums for ONE pow2-sized chunk.
+    scalars_chunk: (m, 21, B) canonical plain (zero-padded to pow2 m);
+    table_chunk: (m, arows) affine rows (identity-padded).
+    Returns (32, B, rows, 1) projective planes."""
+    m = scalars_chunk.shape[0]
+    assert table_chunk.shape[0] == m and m == _next_pow2(m)
+    digits = lm.window_digits(scalars_chunk, WBITS, N_WINDOWS)  # (32, m, B)
+    signs, mags = _signed_digits(digits.transpose(-1, -2))      # (32, B, m)
+    return _window_sums(signs, mags, table_chunk, kind, window_group, m)
+
+
+def combine_horner(w_chunks: list, kind: str, B: int) -> torch.Tensor:
+    """[(32, B, rows, 1)] per-chunk window sums -> (B, rows, 1) MSM
+    result: add the window sums across chunks, then Horner over windows
+    (most significant first)."""
+    w_all = w_chunks[0]
+    for w in w_chunks[1:]:
+        w_all = K.padd(w_all, w, kind)
+    acc = ec_lm.identity_plane(kind, (B,), 1, w_all.device)
+    for wv in w_all.flip(0):
+        for _ in range(WBITS):
+            acc = K.padd(acc, acc, kind)
+        acc = K.padd(acc, wv, kind)
+    return acc
+
+
+def pad_chunk(scalars: torch.Tensor | None, table, start: int, real: int,
+              m: int, kind: str):
+    """Slice chunk [start, start+real) and pad to pow2 m (zero scalars,
+    identity points).  Either argument may be None."""
+    sc = tab = None
+    if scalars is not None:
+        sc = scalars[start:start + real]
+        if m != real:
+            sc = torch.cat([sc, sc.new_zeros((m - real, *sc.shape[1:]))], 0)
+    if table is not None:
+        tab = table[start:start + real]
+        if m != real:
+            tab = torch.cat([tab, torch.as_tensor(
+                ec_affine.identity_rows(kind, m - real), device=tab.device)],
+                0)
+    return sc, tab
+
+
+def msm(scalars_plain: torch.Tensor, table: torch.Tensor, kind: str,
+        window_group: int | None = None) -> torch.Tensor:
+    """scalars_plain: (n, 21, B) int32 canonical plain limbs;
+    table: (n, arows) int32 AFFINE point rows.
+    Returns (B, rows, 1) packed PROJECTIVE result planes."""
+    assert table.shape[-1] == ec_affine.AROWS[kind], \
+        "msm expects an AFFINE table"
+    n, B = scalars_plain.shape[0], scalars_plain.shape[-1]
+    assert table.shape[0] == n
+    ws = []
+    for start, real, m in _chunks(n):
+        sc, tab = pad_chunk(scalars_plain, table, start, real, m, kind)
+        ws.append(chunk_window_sums(sc, tab, kind, window_group))
+    return combine_horner(ws, kind, B)
+
+
+def _chunks(n: int):
+    """[(start, real, padded)].  At most ONE split, and only when the
+    padding waste is >= 25% of the padded tree: one big pow2 half plus one
+    padded remainder."""
+    m = _next_pow2(n)
+    if m - n < max(MIN_CHUNK, m // 4):
+        return [(0, n, m)]
+    c = m // 2
+    return [(0, c, c), (c, n - c, _next_pow2(n - c))]
+
+
+def _window_sums(signs, mags, table, kind, G, m):
+    """signs/mags (32, B, m); table (m, arows) affine -> (32, B, rows, 1).
+
+    Per window group: sort by magnitude -> affine gather in fold order ->
+    upsweep down to width 128 (level 0 through fold_padd_aa) -> unscramble
+    the width-128 level and take its inclusive prefix scan -> per-bucket
+    prefix = coarse prefix + fine path walk over the stored levels ->
+    u = scan over the bucket prefixes.  W = 128*total - u then runs once
+    on the stacked 32-window plane."""
+    rows = ec_lm.ROWS[kind]
+    dev = signs.device
+    B = signs.shape[1]
+    if G is None:
+        G = default_window_group(m, B, dev)
+    assert N_WINDOWS % G == 0
+    log_m = m.bit_length() - 1
+    table_ext = torch.cat(
+        [table, ec_affine.neg_affine(table.transpose(0, 1),
+                                     kind).transpose(0, 1)], 0)  # (2m, arows)
+    br = torch.as_tensor(_bitrev(m), device=dev)
+    small = m < WFLOOR                 # tiny chunks (tests): full tree
+    k = 0 if small else log_m - 7      # coarse block size 2^k
+    buckets = torch.arange(N_MAGS, dtype=torch.int32,
+                           device=dev).expand(G * B, N_MAGS).contiguous()
+
+    def sort_gather(sg, d):
+        order = torch.argsort(d, dim=-1, stable=True)
+        d_sorted = torch.take_along_dim(d, order, -1)
+        perm = order[..., br]                           # fold-order gather
+        sg_fold = torch.take_along_dim(sg, perm, -1)
+        idx = (perm + m * sg_fold).reshape(G * B, m)    # signed: 2nd half
+        x = table_ext[idx].transpose(-1, -2).contiguous()  # (G*B, arows, m)
+        counts = torch.searchsorted(d_sorted.reshape(G * B, m).contiguous(),
+                                    buckets, right=True).to(torch.int32)
+        return x, counts                                # counts (G*B, 128)
+
+    def upsweep(x, floor):
+        levels = [x]
+        if x.shape[-1] > floor:
+            x = K.fold_padd_aa(x, kind)                 # -> projective
+            levels.append(x)
+        while x.shape[-1] > floor:
+            x = K.fold_padd(x, kind)
+            levels.append(x)
+        return levels
+
+    def fine_walk(levels, acc, counts, offset, top_lvl):
+        """Root-to-leaf path adds for levels < top_lvl (width-128 ops)."""
+        for lvl in range(top_lvl - 1, -1, -1):
+            take = (counts >> lvl) & 1                  # (G*B, 128)
+            src = _bitrev_values(offset >> lvl, log_m - lvl)
+            node = torch.take_along_dim(levels[lvl], src[:, None, :].long(),
+                                        -1)             # (G*B, rows, 128)
+            if lvl == 0 and levels[0].shape[-2] != rows:
+                node = ec_affine.to_projective(node, kind)
+            added = K.padd(acc, node, kind)
+            acc = torch.where((take == 1)[:, None, :], added, acc)
+            offset = offset + (take << lvl)
+        return acc
+
+    def group_small(sg, d):
+        """Full tree to width 1 (m < 128: tests and tiny chunks)."""
+        x, counts = sort_gather(sg, d)
+        levels = upsweep(x, 1)
+        if levels[-1].shape[-2] != rows:                # m == 1
+            levels[-1] = ec_affine.to_projective(levels[-1], kind)
+        total = levels[-1]
+        acc = ec_lm.identity_plane(kind, (G * B,), N_MAGS, dev)
+        acc = fine_walk(levels, acc, counts, torch.zeros_like(counts),
+                        log_m + 1)
+        return total, _tree_reduce_lanes(acc, kind)
+
+    def group(sg, d):
+        x, counts = sort_gather(sg, d)
+        levels = upsweep(x, WFLOOR)
+        coarse = levels[-1]                             # width 128
+        if coarse.shape[-2] != rows:                    # m == 128: affine
+            coarse = ec_affine.to_projective(coarse, kind)
+        # storage position j holds sorted block bitrev7(j): unscramble,
+        # then inclusive prefix over the sorted coarse blocks
+        br7 = torch.as_tensor(_bitrev(WFLOOR), device=dev)
+        cp = _lane_scan_padd(coarse[..., br7], kind)    # (G*B, rows, 128)
+        total = cp[..., -1:]
+        q = counts >> k                                 # (G*B, 128)
+        node_c = torch.take_along_dim(
+            cp, torch.clamp(q - 1, min=0)[:, None, :].long(), -1)
+        idp = ec_lm.identity_plane(kind, (G * B,), N_MAGS, dev)
+        acc = torch.where((q >= 1)[:, None, :], node_c, idp)
+        acc = fine_walk(levels, acc, counts & ((1 << k) - 1),
+                        (q << k) if k else torch.zeros_like(q), k)
+        return total, _lane_scan_padd(acc, kind)[..., -1:]
+
+    body = group_small if small else group
+    totals, us = [], []
+    for g0 in range(0, N_WINDOWS, G):
+        total, u = body(signs[g0:g0 + G], mags[g0:g0 + G])
+        totals.append(total.reshape(G, B, rows))
+        us.append(u.reshape(G, B, rows))
+    # W_w = 128 * total_w - u_w across ALL windows at once: windows ride
+    # the lane axis (width-32 kernel launches)
+    tw = torch.cat(totals, 0).permute(1, 2, 0)          # (B, rows, 32)
+    uw = torch.cat(us, 0).permute(1, 2, 0)
+    t128 = _double_k(tw, WBITS - 1, kind)
+    w = K.padd(t128, _neg_plane(uw, kind), kind)        # (B, rows, 32)
+    return w.permute(2, 0, 1)[..., None]                # (32, B, rows, 1)
