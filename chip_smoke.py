@@ -8,15 +8,25 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
   1. prints the toolchain, the card, the build time and each kernel's
      registers and spills (from ``nvcc -Xptxas -v``);
   2. holds every kernel against its plain PyTorch version on the card at
-     the main path's shapes, with exact equality (all arithmetic is
+     the shapes its path gives it, with exact equality (all arithmetic is
      integer), and times both with CUDA events;
-  3. drives the main path at nlevels=16, batch 128: CensusCircuit(16),
+  3. folds a G1 affine plane of (128, 43, 32768) and a G2 plane of
+     (128, 85, 8192) to width 1 with ec_affine.fold_affine (one batch
+     inversion per level: the fold_mul, inv and mont_mul kernels) and
+     holds all 128 totals against the projective tree (fold_padd_aa, then
+     fold_padd), with seconds per tree for both routes;
+  4. runs the three tools (tools.verify_kernels, tools.verify_lm,
+     tools.micro_montmul) on the card against the host bigint oracle;
+  5. drives the main path at nlevels=16, batch 128: CensusCircuit(16),
      dev setup, mock_batch(16, 128, seed=7) -> batch_to_arrays ->
      DeviceProver -> prove_batch(seed=1), then a second timed prove_arrays
-     with per-stage seconds, proofs/s and peak device memory; checks that
-     all four kernels were launched on that path, and verifies sampled
-     proofs against the committed dev/16 verification key (a cross-voter
-     check and a tampered signal must be rejected).
+     with per-stage seconds, proofs/s and peak device memory, and verifies
+     sampled proofs against the committed dev/16 verification key (a
+     cross-voter check and a tampered signal must be rejected).
+
+Launch counts are set to 0 just before each of the paths 3, 4 and 5 and
+read just after it; the run fails if a kernel of a path was not launched
+on it.
 
 Every phase prints JSON lines.  The last line is
 {"ok": true, "device": {...}}; any failure exits non-zero before it.
@@ -27,7 +37,6 @@ from __future__ import annotations
 import json
 import pathlib
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +46,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the 32-bit
 # non-tensor rate (67 T op/s float32; int32 multiply-adds do not run
 # faster on Hopper), counting a multiply-add as two operations
+N_LEVELS, BATCH = 16, 128              # the main path's configuration
+
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 
@@ -51,13 +62,44 @@ MADS = {
     ("padd_aa", "g1"): 4 * MAD_MONT + 6 * MAD_WIDE + 3 * MAD_RED,   # 9114
     ("padd_aa", "g2"): 4 * MAD_FQ2 + 24 * MAD_WIDE + 6 * MAD_RED,   # 27048
 }
-SOURCE = "zkfranchise_tpu_torch/csrc/lm_kernels.cu"
-REPLACES = {
-    "mont_mul": "zkfranchise_tpu/ops/pallas/lm_kernels.py:217",
-    "padd": "zkfranchise_tpu/ops/pallas/lm_kernels.py:89",
-    "fold_padd": "zkfranchise_tpu/ops/pallas/lm_kernels.py:122",
-    "fold_padd_aa": "zkfranchise_tpu/ops/pallas/lm_kernels.py:163",
+_CSRC = "zkfranchise_tpu_torch/csrc/"
+_PALLAS = "zkfranchise_tpu/ops/pallas/lm_kernels.py"
+# kernel -> (source, the TPU kernel it replaces, the path that owns it,
+# its LAUNCHES keys)
+KERNELS = {
+    "mont_mul": (_CSRC + "lm_kernels.cu", _PALLAS + ":217", "main_path",
+                 ["mont_mul"]),
+    "padd": (_CSRC + "lm_kernels.cu", _PALLAS + ":89", "main_path",
+             ["padd/g1", "padd/g2"]),
+    "fold_padd": (_CSRC + "lm_kernels.cu", _PALLAS + ":122", "main_path",
+                  ["fold_padd/g1", "fold_padd/g2"]),
+    "fold_padd_aa": (_CSRC + "lm_kernels.cu", _PALLAS + ":163", "main_path",
+                     ["fold_padd_aa/g1", "fold_padd_aa/g2"]),
+    "fold_mul": (_CSRC + "lm_chains.cu", _PALLAS + ":269", "affine_tree",
+                 ["fold_mul"]),
+    "inv": (_CSRC + "lm_chains.cu", _PALLAS + ":316", "affine_tree",
+            ["inv"]),
+    "mont_chain": (_CSRC + "lm_chains.cu", "scripts/micro_montmul.py:36",
+                   "verify_tools", ["mont_chain"]),
+    "scalar_mul": (_CSRC + "lm_chains.cu", "scripts/verify_lm_device.py:58",
+                   "verify_tools", ["scalar_mul/g1", "scalar_mul/g2"]),
 }
+# what each path must launch at least once
+PATH_KERNELS = {
+    "main_path": ["mont_mul", "padd/g1", "padd/g2", "fold_padd/g1",
+                  "fold_padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2"],
+    "affine_tree": ["fold_mul", "inv", "mont_mul"],
+    "verify_tools": ["mont_chain", "scalar_mul/g1", "scalar_mul/g2",
+                     "fold_mul", "inv", "mont_mul", "padd/g1", "padd/g2",
+                     "fold_padd/g1", "fold_padd/g2", "fold_padd_aa/g1",
+                     "fold_padd_aa/g2"],
+}
+
+
+def require_launches(path: str, launches: dict) -> None:
+    missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {path}: {missing}")
 
 
 def emit(obj) -> None:
@@ -69,23 +111,6 @@ def bound(nbytes: float, mads: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * mads / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_ms(torch, fn, runs: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of `fn` over `runs` CUDA-event-timed calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def smi_line() -> str:
@@ -112,11 +137,12 @@ def phase_toolchain(torch, K) -> None:
     if native.returncode != 0:
         raise RuntimeError(f"make -C native failed:\n{native.stderr[-2000:]}")
     t0 = time.perf_counter()
-    lib = K.build()
-    K._lib()
+    libs = K.build()
+    K._libs()
     build_s = time.perf_counter() - t0
-    log = lib.with_suffix(".log").read_text() if \
-        lib.with_suffix(".log").exists() else ""
+    log = "\n".join(lib.with_suffix(".log").read_text()
+                    for lib in libs.values()
+                    if lib.with_suffix(".log").exists())
     resources = {}
     func = None
     for line in log.splitlines():
@@ -136,7 +162,8 @@ def phase_toolchain(torch, K) -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc[-1], "nvidia_smi": smi_line(),
           "device": torch.cuda.get_device_name(0),
-          "kernel_build_s": build_s, "library": lib.name,
+          "kernel_build_s": build_s,
+          "libraries": [lib.name for lib in libs.values()],
           "ptxas": resources})
 
 
@@ -192,18 +219,22 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
+    from zkfranchise_tpu_torch.tools import event_ms
 
     rng = np.random.default_rng(2024)
     results, table = {}, {}
+    n_set = int(lm.FQ.p_minus_2_bits.sum())              # 110 of 254
 
-    def check(name, kernel, plain, nbytes, mads, key):
+    def check(name, kernel, plain, nbytes, mads, key, plain_runs=10):
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         err = int((got.long() - want.long()).abs().max().item())
-        ms = cuda_ms(torch, kernel)
-        plain_ms = cuda_ms(torch, plain)
+        ms = event_ms(kernel)
+        # a plain version of hundreds of chained steps is timed once
+        plain_ms = event_ms(plain, runs=plain_runs,
+                            warmup=2 if plain_runs > 1 else 0)
         b_ms, b_by = bound(nbytes, mads)
         results[name] = {"equal": equal, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms}
@@ -232,7 +263,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
     for kind in ("g1", "g2"):
         rows, arows = ec_lm.ROWS[kind], ec_affine.AROWS[kind]
         p, q, a = _point_inputs(np, torch, rng, kind, B, m, dev)
-        key = (lambda k: k) if kind == "g1" else (lambda k: None)
+        key = (lambda k: k) if kind == "g1" else (lambda k: f"{k}/g2")
         check(f"padd/{kind}/{B}x{rows}x{m}", lambda: K.padd(p, q, kind),
               lambda: K.padd_ref(p, q, kind), 4 * 3 * rows * B * m,
               MADS[("padd", kind)] * B * m, key("padd"))
@@ -249,15 +280,203 @@ def phase_kernels(np, torch, K, dev) -> dict:
               MADS[("padd_aa", kind)] * B * m // 2, key("fold_padd_aa"))
         del p, q, a, x
         torch.cuda.empty_cache()
+
+    # the batch inversion at the width of the affine tree's level 0
+    x = torch.as_tensor(_random_limbs(np, rng, (B, 21, 32768)), device=dev)
+    check(f"fold_mul/fq/{B}x21x32768", lambda: K.fold_mul(x, lm.FQ),
+          lambda: K.fold_mul_ref(x, lm.FQ), 4 * 21 * (32768 + 16384) * B,
+          MAD_MONT * B * 16384, "fold_mul")
+    d = x[..., :16384].contiguous()
+    check(f"batch_inv/fq/{B}x21x16384 (composite)",
+          lambda: K.batch_inv(d, lm.FQ), lambda: K.batch_inv_ref(d, lm.FQ),
+          4 * 21 * 2 * 16384 * B, MAD_MONT * B * (3 * (16384 - 1) + 254 + n_set),
+          "batch_inv", plain_runs=3)
+    del x, d
+    # one Fermat chain over the 128 roots: 254 squares and a product per
+    # set bit of p - 2
+    a = torch.as_tensor(_random_limbs(np, rng, (21, B)), device=dev)
+    a[:, 5] = 0                                          # inv(0) = 0
+    check(f"inv/fq/21x{B}", lambda: K.inv(a, lm.FQ),
+          lambda: K.inv_ref(a, lm.FQ), 4 * (2 * 21 * B + 254),
+          MAD_MONT * (254 + n_set) * B, "inv", plain_runs=3)
+    # the chains of the tools
+    T, iters = 128 * 1024, 20
+    a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
+    b = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
+    check(f"mont_chain/fq/21x{T}x{iters}",
+          lambda: K.mont_chain(a, b, iters, lm.FQ),
+          lambda: K.mont_chain_ref(a, b, iters, lm.FQ), 4 * 3 * 21 * T,
+          MAD_MONT * iters * T, "mont_chain")
+    del a, b
+    bits = rng.integers(0, 2, size=254).astype(np.int32)
+    for kind in ("g1", "g2"):
+        rows = ec_lm.ROWS[kind]
+        p, _, _ = _point_inputs(np, torch, rng, kind, 1, B, dev)
+        pts = p[0]
+        check(f"scalar_mul/{kind}/{rows}x{B}x254bits",
+              lambda: K.scalar_mul(pts, bits, kind),
+              lambda: K.scalar_mul_ref(pts, bits, kind),
+              4 * (2 * rows * B + 254),
+              MADS[("padd", kind)] * (254 + int(bits.sum())) * B,
+              "scalar_mul" if kind == "g1" else "scalar_mul/g2",
+              plain_runs=1)
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernels": results})
     return table
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the batch-affine sum tree at the width of the MSM's chunks
 # ---------------------------------------------------------------------------
 
-N_LEVELS, BATCH = 16, 128
+TREES = {"g1": 32768, "g2": 8192}       # the C and B2 chunks at batch 128
+
+
+def _affine_plane(np, torch, rng, kind, B, m, dev):
+    """(B, arows, m) affine plane gathered from a pool of real points and
+    their negatives, with infinity lanes, equal pairs, opposite pairs and
+    infinity pairs forced at level 0 (lanes j and j + m/2)."""
+    from zkfranchise_tpu_torch.ops import ec, ec_affine
+
+    mul = ec.g1_mul if kind == "g1" else ec.g2_mul
+    grp = ec.G1 if kind == "g1" else ec.G2
+    pool = [mul(int(k)) for k in rng.integers(1, 1 << 60, size=24)]
+    pool += [grp.neg(pt) for pt in pool]
+    aff = torch.as_tensor(ec_affine.affine_table(pool, kind).T, device=dev)
+    idx = torch.as_tensor(rng.integers(0, len(pool), size=(B, m)),
+                          device=dev)
+    a = aff[:, idx].permute(1, 0, 2).contiguous()
+    del idx
+    h = m // 2
+    lanes = torch.as_tensor(rng.permutation(h)[:5 * (h // 32)], device=dev)
+    neg, dbl, inf1, inf2, both = lanes.chunk(5)
+    a[..., h + neg] = ec_affine.neg_affine(a[..., neg], kind)
+    a[..., h + dbl] = a[..., dbl]
+    inf = torch.as_tensor(ec_affine.identity_rows(kind, 1).T, device=dev)
+    a[..., inf1] = inf
+    a[..., h + inf2] = inf
+    a[..., both] = inf
+    a[..., h + both] = inf
+    return a
+
+
+def _level0_cases(torch, a, kind) -> dict:
+    """How many lanes of level 0 take each branch of fold_affine."""
+    from zkfranchise_tpu_torch.ops import ec_affine
+
+    k = 1 if kind == "g1" else 2
+    h = a.shape[-1] // 2
+    x1, y1, i1 = ec_affine._split(a[..., :h], kind)
+    x2, y2, i2 = ec_affine._split(a[..., h:], kind)
+    eq_x = ec_affine._eq_rows(x1, x2)
+    opp = ec_affine._is_neg_pair(y1, y2, k)
+    inf1, inf2 = (i1 == 1), (i2 == 1)
+    real = ~(inf1 | inf2)
+    cases = {"add": real & ~eq_x, "double": real & eq_x & ~opp,
+             "opposite": real & eq_x & opp, "inf_left": inf1 & ~inf2,
+             "inf_right": inf2 & ~inf1, "inf_both": inf1 & inf2}
+    return {name: int(mask.sum().item()) for name, mask in cases.items()}
+
+
+def phase_affine_tree(np, torch, K, dev) -> dict:
+    from zkfranchise_tpu_torch.ops import ec_affine, ec_lm
+    from zkfranchise_tpu_torch.tools.verify_kernels import \
+        affine_plane_to_host
+
+    rng = np.random.default_rng(77)
+    B = BATCH
+    report = {}
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def affine_tree(a, kind):
+        while a.shape[-1] > 1:
+            a = ec_affine.fold_affine(a, kind)
+        return a
+
+    def projective_tree(a, kind):
+        x = K.fold_padd_aa(a, kind)
+        while x.shape[-1] > 1:
+            x = K.fold_padd(x, kind)
+        return x
+
+    def timed(tree, a, kind):
+        """(result, seconds of the first and the second run, launches of
+        the second)."""
+        secs = []
+        for _ in range(2):
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tree(a, kind)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = dict(K.LAUNCHES)
+        return out, secs, counts
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kind, m in TREES.items():
+        a = _affine_plane(np, torch, rng, kind, B, m, dev)
+        cases = _level0_cases(torch, a, kind)
+        if min(cases.values()) == 0:
+            raise AssertionError(f"affine_tree {kind}: a branch of "
+                                 f"fold_affine is not taken: {cases}")
+        aff, aff_s, aff_n = timed(affine_tree, a, kind)
+        proj, proj_s, proj_n = timed(projective_tree, a, kind)
+        for k, v in aff_n.items():
+            launches[k] += v
+        to_aff = (ec_lm.g1_plane_to_affine if kind == "g1"
+                  else ec_lm.g2_plane_to_affine)
+        got = affine_plane_to_host(aff[..., 0].T.contiguous(), kind)
+        want = to_aff(proj[..., 0].T.contiguous())
+        agree = sum(g == w for g, w in zip(got, want))
+        report[kind] = {
+            "shape": list(a.shape), "levels": m.bit_length() - 1,
+            "level0_cases": cases, "totals_equal": agree, "totals": B,
+            "totals_at_infinity": sum(g is None for g in got),
+            "affine_tree_s": aff_s, "projective_tree_s": proj_s,
+            "affine_launches": {k: v for k, v in aff_n.items() if v},
+            "projective_launches": {k: v for k, v in proj_n.items() if v}}
+        del a, aff, proj
+        torch.cuda.empty_cache()
+        if agree != B or len(got) != B:
+            emit({"phase": "affine_tree", **report})
+            raise AssertionError(f"affine_tree {kind}: {agree} of {B} totals "
+                                 f"equal the projective tree's")
+    emit({"phase": "affine_tree", "nvidia_smi": smi_line(), **report,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "launches": {k: v for k, v in launches.items() if v}})
+    require_launches("affine_tree", launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the tools, against the host bigint oracle
+# ---------------------------------------------------------------------------
+
+def phase_verify_tools(torch, K, dev) -> dict:
+    from zkfranchise_tpu_torch.tools import (micro_montmul, verify_kernels,
+                                             verify_lm)
+
+    K.reset_launches()
+    seconds = {}
+    for tool in (verify_kernels, verify_lm, micro_montmul):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        t0 = time.perf_counter()
+        rc = tool.main(dev)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"tools.{name} returned {rc}")
+    launches = dict(K.LAUNCHES)
+    emit({"phase": "verify_tools", "seconds": seconds,
+          "launches": launches})
+    require_launches("verify_tools", launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path
+# ---------------------------------------------------------------------------
 
 
 def phase_main_path(np, torch, K, dev) -> dict:
@@ -305,10 +524,7 @@ def phase_main_path(np, torch, K, dev) -> dict:
     emit({"phase": "main_path", "inputs_s": inputs_s,
           "prover_init_s": prover_init_s, "first_prove_batch_s": first_s,
           "proofs": len(proofs), "launches": launches})
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    require_launches("main_path", launches)
 
     # second, timed run: per-stage seconds, launches per prove_arrays
     rng = np.random.default_rng(2)
@@ -395,13 +611,27 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_toolchain(torch, K)
     table = phase_kernels(np, torch, K, dev)
-    launches = phase_main_path(np, torch, K, dev)
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
-                    library_ms=None, **table[name])
-               for name in ("mont_mul", "padd", "fold_padd", "fold_padd_aa")]
+    launches = {"affine_tree": phase_affine_tree(np, torch, K, dev),
+                "verify_tools": phase_verify_tools(torch, K, dev),
+                "main_path": phase_main_path(np, torch, K, dev)}
+    kernels = []
+    for name, (source, replaces, path, keys) in KERNELS.items():
+        # `launches` is the count on the path that owns the kernel (G1 and
+        # G2 together); launches_by_path has every path and group
+        by_path = {pth: {k: n[k] for k in keys} for pth, n in launches.items()}
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces=replaces, path=path,
+                     launches=sum(by_path[path].values()),
+                     launches_by_path=by_path, library_ms=None,
+                     **table[name])
+        if f"{name}/g2" in table:
+            entry["g2"] = table[f"{name}/g2"]
+        kernels.append(entry)
+    composite = dict(name="batch_inv", composite_of=["fold_mul", "inv",
+                                                     "mont_mul"],
+                     replaces=_PALLAS + ":334", **table["batch_inv"])
     print(smi_line())
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "composites": [composite]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

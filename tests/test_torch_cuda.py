@@ -37,7 +37,7 @@ def test_mont_mul(dev, field):
     b = a[0, :, :, :1]                               # lane-broadcast column
     K.reset_launches()
     got = K.mont_mul(a, b, fs)
-    assert K.LAUNCHES["mont_mul"] == 1
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "mont_mul": 1}
     assert torch.equal(got, K.mont_mul_ref(a, b, fs))
     assert torch.equal(K.mont_mul(a, a.flip(-1), fs),
                        K.mont_mul_ref(a, a.flip(-1), fs))
@@ -53,7 +53,9 @@ def test_ec_kernels(dev, kind):
     q[..., 1:2] = msm_lm._neg_plane(p[..., 1:2], kind)      # P + (-P)
     q[..., 2] = p[..., 2]                                   # doubling
     p[..., 3:4] = ec_lm.identity_plane(kind, (1,), 1, dev)  # O + Q
+    K.reset_launches()
     assert torch.equal(K.padd(p, q, kind), K.padd_ref(p, q, kind))
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), f"padd/{kind}": 1}
     x = torch.cat([p, q], -1)
     for width in (x.shape[-1], 2):                          # down to h = 1
         assert torch.equal(K.fold_padd(x[..., :width].contiguous(), kind),
@@ -64,3 +66,94 @@ def test_ec_kernels(dev, kind):
                         device=dev)
     a = torch.cat([a, a.flip(-1)], -1)
     assert torch.equal(K.fold_padd_aa(a, kind), K.fold_padd_aa_ref(a, kind))
+
+
+def _limbs(rng, shape, dev):
+    x = rng.integers(0, 1 << 13, size=shape, dtype=np.int32)
+    x[..., 19:, :] = 0
+    return torch.as_tensor(x, device=dev)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_fold_mul_and_inv(dev, field):
+    fs = lm.FR if field == "fr" else lm.FQ
+    rng = np.random.default_rng(3)
+    x = _limbs(rng, (3, 21, 260), dev)
+    K.reset_launches()
+    for width in (260, 2):                                  # h = 130, h = 1
+        xw = x[..., :width].contiguous()
+        assert torch.equal(K.fold_mul(xw, fs), K.fold_mul_ref(xw, fs))
+    assert K.LAUNCHES["fold_mul"] == 2
+    a = _limbs(rng, (21, 130), dev)
+    a[:, 7] = 0                                             # inv(0) = 0
+    got = K.inv(a, fs)
+    assert K.LAUNCHES["inv"] == 1
+    assert torch.equal(got, K.inv_ref(a, fs))
+    assert not got[:, 7].any()
+    # a transposed view is read in place and gives the same limbs
+    at = a.T.contiguous().T
+    assert at.stride() == (1, 21)
+    assert torch.equal(K.inv(at, fs), got)
+    one = lm.const(fs.one_mont, dev).expand(21, 130)
+    prod = lm.from_mont(K.mont_mul(got, a, fs), fs)
+    want = lm.from_mont(one.contiguous(), fs)
+    want[:, 7] = 0
+    assert torch.equal(prod, want)
+
+
+@pytest.mark.parametrize("width", [1, 2, 256])
+def test_batch_inv(dev, width):
+    rng = np.random.default_rng(4)
+    d = _limbs(rng, (5, 21, width), dev)
+    d[..., 0, :] |= 1                                       # no zero lane
+    K.reset_launches()
+    got = K.batch_inv(d, lm.FQ)
+    levels = width.bit_length() - 1
+    assert (K.LAUNCHES["fold_mul"], K.LAUNCHES["inv"],
+            K.LAUNCHES["mont_mul"]) == (levels, 1, 2 * levels)
+    assert torch.equal(got, K.batch_inv_ref(d, lm.FQ))
+    assert torch.equal(got.cpu(), K.batch_inv(d.cpu(), lm.FQ))
+
+
+def test_mont_chain(dev):
+    rng = np.random.default_rng(5)
+    a, b = _limbs(rng, (21, 130), dev), _limbs(rng, (21, 130), dev)
+    K.reset_launches()
+    for iters in (0, 1, 5):
+        assert torch.equal(K.mont_chain(a, b, iters, lm.FQ),
+                           K.mont_chain_ref(a, b, iters, lm.FQ))
+    assert K.LAUNCHES["mont_chain"] == 3
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_scalar_mul(dev, kind):
+    rng = np.random.default_rng(6)
+    table = ec_lm.g1_table if kind == "g1" else ec_lm.g2_table
+    pool = _pool(kind, rng) * 9
+    pool[3] = None                                          # k * O = O
+    pts = torch.as_tensor(table(pool[:130]).T.copy(), device=dev)
+    pts = K.padd_ref(pts, pts.roll(1, -1), kind)            # Z != 1
+    bits = rng.integers(0, 2, size=40).astype(np.int32)
+    bits[:3] = (0, 1, 1)                                    # starts on a 0
+    K.reset_launches()
+    got = K.scalar_mul(pts, bits, kind)
+    assert K.LAUNCHES[f"scalar_mul/{kind}"] == 1
+    assert torch.equal(got, K.scalar_mul_ref(pts, bits, kind))
+    one = K.scalar_mul(pts[:, :1].contiguous(), bits, kind)  # T = 1
+    assert torch.equal(one, got[:, :1])
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_fold_affine_on_card_equals_cpu(dev, kind):
+    rng = np.random.default_rng(7)
+    pts = _pool(kind, rng)
+    grp = ec.G1 if kind == "g1" else ec.G2
+    pts[1] = None
+    pts[8 + 2] = pts[2]                                     # doubling
+    pts[8 + 3] = grp.neg(pts[3])                            # P + (-P)
+    x = torch.as_tensor(ec_affine.affine_table(pts, kind).T[None].copy())
+    y = x.to(dev)
+    while x.shape[-1] > 1:
+        x = ec_affine.fold_affine(x, kind)
+        y = ec_affine.fold_affine(y, kind)
+        assert torch.equal(y.cpu(), x)

@@ -36,398 +36,7 @@
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() of its launch.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#define NL 21
-#define WIDE 43
-#define LB 13
-#define MASK 8191
-#define THREADS 128
-
-// rows of the 189-int EC constants block (ops/ec_lm.pack_ec_consts); the
-// first six are also the 126-int field block (ops/lm.pack_consts)
-#define C_P 0
-#define C_NP 21
-#define C_SUBD 42
-#define C_ONE 63
-#define C_SUBD2 105
-#define C_B3G1 126
-#define C_B3G2 147
-#define EC_CONSTS 189
-
-typedef long long i64;
-
-// ---------------------------------------------------------------------------
-// limb arithmetic (ops/lm.py)
-// ---------------------------------------------------------------------------
-
-// t[i] <- (t[i] & MASK) + (t[i-1] >> 13); the carry out of the top limb
-// is dropped (lm.weak_norm, one round)
-template <int N>
-__device__ __forceinline__ void weak_norm(int* t) {
-#pragma unroll
-  for (int i = N - 1; i > 0; --i) t[i] = (t[i] & MASK) + (t[i - 1] >> LB);
-  t[0] = t[0] & MASK;
-}
-
-// c[0..42] = column sums of a*b (lm.wide_mul)
-__device__ __forceinline__ void wide_mul(const int* a, const int* b, int* c) {
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) c[k] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-#pragma unroll
-    for (int j = 0; j < NL; ++j) c[i + j] += a[i] * b[j];
-  }
-}
-
-// c[0..20] = low 21 columns of a*b (lm.low_mul)
-__device__ __forceinline__ void low_mul(const int* a, const int* b, int* c) {
-#pragma unroll
-  for (int k = 0; k < NL; ++k) c[k] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-#pragma unroll
-    for (int j = 0; j < NL - i; ++j) c[i + j] += a[i] * b[j];
-  }
-}
-
-// out = cols * R^-1 mod p, limbs <= 2^13 + 2 (lm.mont_reduce); cols is
-// clobbered.  pc points at p, then n' = -p^-1 mod R (21 limbs each).
-__device__ __forceinline__ void mont_reduce(int* t, const int* pc, int* out) {
-  weak_norm<WIDE>(t);
-  weak_norm<WIDE>(t);
-  int m[NL];
-  low_mul(t, pc + C_NP, m);
-  weak_norm<NL>(m);
-  weak_norm<NL>(m);
-  int mp[WIDE];
-  wide_mul(m, pc + C_P, mp);
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) t[k] += mp[k];
-  weak_norm<WIDE>(t);
-  weak_norm<WIDE>(t);
-  weak_norm<WIDE>(t);
-  // the low half is exactly 0 or R: carry one iff any low limb is nonzero
-  int nz = 0;
-#pragma unroll
-  for (int k = 0; k < NL; ++k) nz |= t[k];
-#pragma unroll
-  for (int k = 0; k < NL; ++k) out[k] = t[NL + k];
-  out[0] += (nz != 0);
-}
-
-__device__ __forceinline__ void mont_mul(const int* a, const int* b,
-                                         const int* pc, int* out) {
-  int c[WIDE];
-  wide_mul(a, b, c);
-  mont_reduce(c, pc, out);
-}
-
-// acc += weak_norm(weak_norm(wide(a, b))): one lazy term of a sum that is
-// reduced once
-__device__ __forceinline__ void add_wide_wn2(const int* a, const int* b,
-                                             int* acc) {
-  int c[WIDE];
-  wide_mul(a, b, c);
-  weak_norm<WIDE>(c);
-  weak_norm<WIDE>(c);
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] += c[k];
-}
-
-// Out-of-line forms for the EC kernels.  Inlining a whole G2 add (about
-// 40,000 multiply-adds) makes one function too large for ptxas to
-// allocate registers in reasonable time; each helper below is compiled
-// once and keeps its own limbs in registers, and only the call arguments
-// pass through local memory.
-__device__ __noinline__ void ec_reduce(int* t, const int* pc, int* out) {
-  mont_reduce(t, pc, out);
-}
-
-__device__ __noinline__ void ec_mont_mul(const int* a, const int* b,
-                                         const int* pc, int* out) {
-  mont_mul(a, b, pc, out);
-}
-
-__device__ __noinline__ void ec_add_wide(const int* a, const int* b,
-                                         int* acc) {
-  add_wide_wn2(a, b, acc);
-}
-
-// out = weak_norm(D2 - v) over one Fq component (ec_lm n2 / nb1)
-__device__ __forceinline__ void neg_d2(const int* v, const int* C, int* out) {
-#pragma unroll
-  for (int k = 0; k < NL; ++k) out[k] = C[C_SUBD2 + k] - v[k];
-  weak_norm<NL>(out);
-}
-
-// ---------------------------------------------------------------------------
-// Fq / Fq2 steps of RCB15 (ops/ec_lm.py), K = 1 (Fq) or 2 (Fq2 stacked)
-// ---------------------------------------------------------------------------
-
-// out = weak_norm(a + b) over K*21 limbs
-template <int K>
-__device__ __forceinline__ void add_n(const int* a, const int* b, int* out) {
-#pragma unroll
-  for (int k = 0; k < K * NL; ++k) out[k] = a[k] + b[k];
-  weak_norm<K * NL>(out);
-}
-
-// out = weak_norm(a + (D - b)), D = sub_d per component (_fq_sub_n,
-// _fq2_sub_n)
-template <int K>
-__device__ __forceinline__ void sub_n(const int* a, const int* b,
-                                      const int* C, int* out) {
-#pragma unroll
-  for (int k = 0; k < K * NL; ++k) out[k] = a[k] + (C[C_SUBD + k % NL] - b[k]);
-  weak_norm<K * NL>(out);
-}
-
-// Fq product (K = 1) or lazy Fq2 product (K = 2, _mul_stack_fq2):
-//   re = reduce(a0*b0 + a1*(D2 - b1)),  im = reduce(a0*b1 + a1*b0)
-template <int K>
-__device__ __forceinline__ void fmul(const int* a, const int* b,
-                                     const int* C, int* out) {
-  if constexpr (K == 1) {
-    ec_mont_mul(a, b, C, out);
-  } else {
-    int nb1[NL];
-    neg_d2(b + NL, C, nb1);
-    int acc[WIDE];
-#pragma unroll
-    for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-    ec_add_wide(a, b, acc);
-    ec_add_wide(a + NL, nb1, acc);
-    ec_reduce(acc, C, out);
-#pragma unroll
-    for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-    ec_add_wide(a, b + NL, acc);
-    ec_add_wide(a + NL, b, acc);
-    ec_reduce(acc, C, out + NL);
-  }
-}
-
-// Round 3 over Fq (_round3_fq): x3 = t3*t1 - t4*y3b, y3 = y3b*x3 + t1*z3,
-// z3 = z3*t4 + x3*t3, each as two wide products and one reduction
-__device__ __forceinline__ void round3_fq(const int* t3, const int* t4,
-                                          const int* y3b, const int* t1,
-                                          const int* z3, const int* x3,
-                                          const int* C, int* X, int* Y,
-                                          int* Z) {
-  int ny3b[NL];
-  neg_d2(y3b, C, ny3b);
-  int acc[WIDE];
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(t3, t1, acc);
-  ec_add_wide(t4, ny3b, acc);
-  ec_reduce(acc, C, X);
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(y3b, x3, acc);
-  ec_add_wide(t1, z3, acc);
-  ec_reduce(acc, C, Y);
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(z3, t4, acc);
-  ec_add_wide(x3, t3, acc);
-  ec_reduce(acc, C, Z);
-}
-
-// One Fq2 output of round 3 (_round3_fq2): A*B - C*D (minus) or A*B + C*D
-__device__ __forceinline__ void r3_fq2_term(const int* A, const int* B,
-                                            const int* Cc, const int* D,
-                                            bool minus, const int* C,
-                                            int* out) {
-  int n[NL];
-  int acc[WIDE];
-  // re: (a0b0 - a1b1) +- (c0d0 - c1d1)
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(A, B, acc);
-  neg_d2(B + NL, C, n);
-  ec_add_wide(A + NL, n, acc);
-  if (minus) {
-    neg_d2(D, C, n);
-    ec_add_wide(Cc, n, acc);
-    ec_add_wide(Cc + NL, D + NL, acc);
-  } else {
-    ec_add_wide(Cc, D, acc);
-    neg_d2(D + NL, C, n);
-    ec_add_wide(Cc + NL, n, acc);
-  }
-  ec_reduce(acc, C, out);
-  // im: (a0b1 + a1b0) +- (c0d1 + c1d0)
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(A, B + NL, acc);
-  ec_add_wide(A + NL, B, acc);
-  if (minus) {
-    neg_d2(D + NL, C, n);
-    ec_add_wide(Cc, n, acc);
-    neg_d2(D, C, n);
-    ec_add_wide(Cc + NL, n, acc);
-  } else {
-    ec_add_wide(Cc, D + NL, acc);
-    ec_add_wide(Cc + NL, D, acc);
-  }
-  ec_reduce(acc, C, out + NL);
-}
-
-template <int K>
-__device__ __forceinline__ void round3(const int* t3, const int* t4,
-                                       const int* y3b, const int* t1,
-                                       const int* z3, const int* x3,
-                                       const int* C, int* X, int* Y, int* Z) {
-  if constexpr (K == 1) {
-    round3_fq(t3, t4, y3b, t1, z3, x3, C, X, Y, Z);
-  } else {
-    r3_fq2_term(t3, t1, t4, y3b, true, C, X);
-    r3_fq2_term(y3b, x3, t1, z3, false, C, Y);
-    r3_fq2_term(z3, t4, x3, t3, false, C, Z);
-  }
-}
-
-// RCB15 Algorithm 7 (a = 0), projective + projective (ec_lm._padd).
-// P and Q point at coordinate 0 of a point: coordinate c, limb k at
-// [(c*K*21 + k) * rs]; O likewise with stride ors.
-template <int K>
-__device__ __forceinline__ void padd_point(const int* P, i64 prs,
-                                           const int* Q, i64 qrs, int* O,
-                                           i64 ors, const int* C) {
-  constexpr int W = K * NL;
-  int t0[W], t1[W], t2[W], pa[W], pb[W], pc[W];
-  {
-    int u[W], v[W], s[W], r[W];
-    // round 1: X1X2, Y1Y2, Z1Z2 and the three cross sums
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        u[k] = P[(c * W + k) * prs];
-        v[k] = Q[(c * W + k) * qrs];
-      }
-      fmul<K>(u, v, C, c == 0 ? t0 : (c == 1 ? t1 : t2));
-    }
-    // (x1 + y1)(x2 + y2)
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      s[k] = P[k * prs] + P[(W + k) * prs];
-      r[k] = Q[k * qrs] + Q[(W + k) * qrs];
-    }
-    weak_norm<W>(s);
-    weak_norm<W>(r);
-    fmul<K>(s, r, C, pa);
-    // (y1 + z1)(y2 + z2)
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      s[k] = P[(W + k) * prs] + P[(2 * W + k) * prs];
-      r[k] = Q[(W + k) * qrs] + Q[(2 * W + k) * qrs];
-    }
-    weak_norm<W>(s);
-    weak_norm<W>(r);
-    fmul<K>(s, r, C, pb);
-    // (x1 + z1)(x2 + z2)
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      s[k] = P[k * prs] + P[(2 * W + k) * prs];
-      r[k] = Q[k * qrs] + Q[(2 * W + k) * qrs];
-    }
-    weak_norm<W>(s);
-    weak_norm<W>(r);
-    fmul<K>(s, r, C, pc);
-  }
-  int t3[W], t4[W], y3[W], x3[W], tmp[W];
-  add_n<K>(t0, t1, tmp);
-  sub_n<K>(pa, tmp, C, t3);
-  add_n<K>(t1, t2, tmp);
-  sub_n<K>(pb, tmp, C, t4);
-  add_n<K>(t0, t2, tmp);
-  sub_n<K>(pc, tmp, C, y3);
-#pragma unroll
-  for (int k = 0; k < W; ++k) x3[k] = t0[k] + t0[k] + t0[k];
-  weak_norm<W>(x3);
-  // round 2: the two b3 scalings
-  const int* b3 = C + (K == 1 ? C_B3G1 : C_B3G2);
-  int t2b[W], y3b[W], z3[W];
-  fmul<K>(t2, b3, C, t2b);
-  fmul<K>(y3, b3, C, y3b);
-  add_n<K>(t1, t2b, z3);
-  sub_n<K>(t1, t2b, C, tmp);  // tmp = new t1
-  // round 3
-  int X[W], Y[W], Z[W];
-  round3<K>(t3, t4, y3b, tmp, z3, x3, C, X, Y, Z);
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    O[k * ors] = X[k];
-    O[(W + k) * ors] = Y[k];
-    O[(2 * W + k) * ors] = Z[k];
-  }
-}
-
-// RCB15 for two AFFINE inputs, Z1 = Z2 = 1, with the mask-row selection
-// of ec_lm.padd_aa.  Affine rows: x (K*21), y (K*21), inf (1).
-template <int K>
-__device__ __forceinline__ void padd_aa_point(const int* P, const int* Q,
-                                              i64 rs, int* O, i64 ors,
-                                              const int* C) {
-  constexpr int W = K * NL;
-  int x1[W], y1[W], x2[W], y2[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    x1[k] = P[k * rs];
-    y1[k] = P[(W + k) * rs];
-    x2[k] = Q[k * rs];
-    y2[k] = Q[(W + k) * rs];
-  }
-  const bool inf1 = P[2 * W * rs] == 1;
-  const bool inf2 = Q[2 * W * rs] == 1;
-  int t0[W], t1[W], pa[W], s[W], r[W];
-  fmul<K>(x1, x2, C, t0);
-  fmul<K>(y1, y2, C, t1);
-  add_n<K>(x1, y1, s);
-  add_n<K>(x2, y2, r);
-  fmul<K>(s, r, C, pa);
-  int t3[W], t4[W], y3[W], x3[W];
-  add_n<K>(t0, t1, s);
-  sub_n<K>(pa, s, C, t3);
-  add_n<K>(y1, y2, t4);
-  add_n<K>(x1, x2, y3);
-#pragma unroll
-  for (int k = 0; k < W; ++k) x3[k] = t0[k] + t0[k] + t0[k];
-  weak_norm<W>(x3);
-  const int* b3 = C + (K == 1 ? C_B3G1 : C_B3G2);
-  int y3b[W], z3[W];
-  fmul<K>(y3, b3, C, y3b);
-  add_n<K>(t1, b3, z3);
-  sub_n<K>(t1, b3, C, s);  // s = new t1
-  int X[W], Y[W], Z[W];
-  round3<K>(t3, t4, y3b, s, z3, x3, C, X, Y, Z);
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    const int onek = k < NL ? C[C_ONE + k] : 0;
-    int xo, yo, zo;
-    if (inf1 && inf2) {
-      xo = 0; yo = onek; zo = 0;
-    } else if (inf1) {
-      xo = x2[k]; yo = y2[k]; zo = onek;
-    } else if (inf2) {
-      xo = x1[k]; yo = y1[k]; zo = onek;
-    } else {
-      xo = X[k]; yo = Y[k]; zo = Z[k];
-    }
-    O[k * ors] = xo;
-    O[(W + k) * ors] = yo;
-    O[(2 * W + k) * ors] = zo;
-  }
-}
-
-__device__ __forceinline__ void stage_consts(const int* g, int* s, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = g[i];
-  __syncthreads();
-}
+#include "lm_device.cuh"
 
 // ---------------------------------------------------------------------------
 // kernels
@@ -511,7 +120,6 @@ fold_padd_aa_kernel(const int* __restrict__ x, int* __restrict__ out,
                    out + b * (3 * K * NL) * h + j, h, C);
 }
 
-static unsigned blocks_for(i64 n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
 extern "C" {
 

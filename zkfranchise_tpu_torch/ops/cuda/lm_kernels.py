@@ -1,6 +1,7 @@
 """CUDA kernels over the limb-major core: build, bind, launch, count.
 
-Four kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``:
+Eight kernels, written by hand for Hopper in ``csrc/lm_kernels.cu`` (the
+first four) and ``csrc/lm_chains.cu``, and one composite of them:
 
   ============  ============================================  =============
   wrapper       what it computes                              plain version
@@ -9,17 +10,25 @@ Four kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``:
   padd          p + q, RCB15 complete add, G1 or G2           padd_ref
   fold_padd     x[..., :m/2] + x[..., m/2:], projective       fold_padd_ref
   fold_padd_aa  the same from AFFINE planes -> projective     fold_padd_aa_ref
+  fold_mul      x[..., :m/2] * x[..., m/2:], Fr or Fq         fold_mul_ref
+  inv           a^(p-2) = 1/a (inv(0) = 0), Fr or Fq          inv_ref
+  mont_chain    a * b^iters, one product after another        mont_chain_ref
+  scalar_mul    k*P, shared scalar bits, a base per lane      scalar_mul_ref
+  batch_inv     1/d for every lane: fold_mul tree, one inv,   batch_inv_ref
+                mont_mul walk down (composite, no own kernel)
   ============  ============================================  =============
 
 Dispatch is by the tensors' device only: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, anything else raises.  There is no
-switch and no fallback: if the kernel library does not build or a launch
+switch and no fallback: if a kernel library does not build or a launch
 fails, the call raises.
 
-The library is compiled from the package's sources with ``nvcc`` at first
-use, into ``zkfranchise_tpu_torch/build/`` under a name keyed by a hash of
-the sources (an edit rebuilds), and loaded with ctypes.  Each wrapper adds
-one to ``LAUNCHES[name]`` per kernel launch and nowhere else.
+Each source is compiled on its own with ``nvcc`` at first use (all sources
+at the same time), into ``zkfranchise_tpu_torch/build/`` under a name
+keyed by a hash of the source and the shared header (an edit rebuilds),
+and loaded with ctypes.  Each wrapper adds one to its ``LAUNCHES`` entry
+per kernel launch and nowhere else; the EC kernels count G1 and G2 apart
+(``"padd/g1"``, ``"padd/g2"``).
 """
 from __future__ import annotations
 
@@ -37,12 +46,16 @@ import torch
 from .. import ec_lm, lm
 
 PKG = pathlib.Path(__file__).resolve().parents[2]
-SOURCES = [PKG / "csrc" / "lm_kernels.cu"]
+SOURCES = [PKG / "csrc" / "lm_kernels.cu", PKG / "csrc" / "lm_chains.cu"]
+HEADERS = [PKG / "csrc" / "lm_device.cuh"]
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "padd": 0, "fold_padd": 0, "fold_padd_aa": 0}
+LAUNCHES = {"mont_mul": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
+            "fold_padd/g2": 0, "fold_padd_aa/g1": 0, "fold_padd_aa/g2": 0,
+            "fold_mul": 0, "inv": 0, "mont_chain": 0, "scalar_mul/g1": 0,
+            "scalar_mul/g2": 0}
 
 
 def reset_launches() -> None:
@@ -61,46 +74,74 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> pathlib.Path:
+def library_path(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    for f in (src, *HEADERS):
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"liblm_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the kernel library if this source hash has no build yet.
-    The compiler's resource report (-Xptxas -v) is kept beside it as
+def build() -> dict:
+    """Compile every source whose hash has no library yet, all at the same
+    time, one ``nvcc`` each -> {source stem: library path}.  The compiler's
+    resource report (-Xptxas -v) is kept beside each library as
     ``<library>.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
-    return out
+    libs = {src.stem: library_path(src) for src in SOURCES}
+    jobs = []
+    for src in SOURCES:
+        out = libs[src.stem]
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        jobs.append((out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}) on {out.name}:\n"
+                          f"{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def _libs() -> tuple:
+    """(lm_kernels library, lm_chains library), built if need be."""
+    paths = build()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = ctypes.CDLL(str(paths["lm_kernels"]))
     lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 14 + [P]
     lib.zk_padd.argtypes = [I, P, P, P, P] + [L] * 6 + [P]
     lib.zk_fold_padd.argtypes = [I, P, P, P, L, L, P]
     lib.zk_fold_padd_aa.argtypes = [I, P, P, P, L, L, P]
+    chains = ctypes.CDLL(str(paths["lm_chains"]))
+    chains.zk_fold_mul.argtypes = [P, P, P, L, L, P]
+    chains.zk_inv.argtypes = [P, P, P, P, I] + [L] * 5 + [P]
+    chains.zk_mont_chain.argtypes = [P, P, P, P, L, I, P]
+    chains.zk_scalar_mul.argtypes = [I, P, P, P, P, I, L, P]
     for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd,
-               lib.zk_fold_padd_aa):
+               lib.zk_fold_padd_aa, chains.zk_fold_mul, chains.zk_inv,
+               chains.zk_mont_chain, chains.zk_scalar_mul):
         fn.restype = ctypes.c_int
-    return lib
+    return lib, chains
+
+
+def _lib() -> ctypes.CDLL:
+    return _libs()[0]
+
+
+def _chains() -> ctypes.CDLL:
+    return _libs()[1]
 
 
 def _check(rc: int, name: str) -> None:
@@ -235,7 +276,7 @@ def padd(p: torch.Tensor, q: torch.Tensor, kind: str) -> torch.Tensor:
                             consts.data_ptr(), B, T, rows * T, T, rows * T,
                             T, _stream(p.device))
         _check(rc, "padd")
-        LAUNCHES["padd"] += 1
+        LAUNCHES[f"padd/{kind}"] += 1
     return out.reshape(shape)
 
 
@@ -261,7 +302,7 @@ def fold_padd(x: torch.Tensor, kind: str) -> torch.Tensor:
         rc = _lib().zk_fold_padd(k, x.data_ptr(), out.data_ptr(),
                                  consts.data_ptr(), B, h, _stream(x.device))
         _check(rc, "fold_padd")
-        LAUNCHES["fold_padd"] += 1
+        LAUNCHES[f"fold_padd/{kind}"] += 1
     return out
 
 
@@ -281,6 +322,166 @@ def fold_padd_aa(x: torch.Tensor, kind: str) -> torch.Tensor:
                                     consts.data_ptr(), B, h,
                                     _stream(x.device))
         _check(rc, "fold_padd_aa")
-        LAUNCHES["fold_padd_aa"] += 1
+        LAUNCHES[f"fold_padd_aa/{kind}"] += 1
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# batch inversion: fold_mul, inv and the composite batch_inv
+# ---------------------------------------------------------------------------
+
+def _field_consts(name: str, fs: lm.FieldSpec, device) -> torch.Tensor:
+    if fs.p not in _FIELD_CONSTS:
+        raise ValueError(f"{name}: kernel takes Fr or Fq only")
+    return lm.const(_FIELD_CONSTS[fs.p], device)
+
+
+def fold_mul_ref(x: torch.Tensor, fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    h = x.shape[-1] // 2
+    return lm.mont_mul_ref(x[..., :h], x[..., h:], fs)
+
+
+def fold_mul(x: torch.Tensor, fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    """x: (B, 21, m), m even -> (B, 21, m/2): the Montgomery product of
+    the two halves of the lane axis.  On the card every width down to
+    m/2 = 1 runs in the kernel."""
+    if not _on_card("fold_mul", x):
+        return fold_mul_ref(x, fs)
+    x, B, h = _fold_args("fold_mul", x, lm.N_LIMBS)
+    consts = _field_consts("fold_mul", fs, x.device)
+    out = torch.empty((B, lm.N_LIMBS, h), dtype=torch.int32, device=x.device)
+    if out.numel():
+        rc = _chains().zk_fold_mul(x.data_ptr(), out.data_ptr(),
+                                   consts.data_ptr(), B, h,
+                                   _stream(x.device))
+        _check(rc, "fold_mul")
+        LAUNCHES["fold_mul"] += 1
+    return out
+
+
+inv_ref = lm.inv
+
+
+def inv(a: torch.Tensor, fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    """a: (21, T) Montgomery form -> 1/a by Fermat (inv(0) = 0).  On the
+    card `a` is read in place through its strides, whatever they are (the
+    root column of batch_inv arrives as a transposed view), and the result
+    has the same layout."""
+    if not _on_card("inv", a):
+        return inv_ref(a, fs)
+    if a.dim() != 2 or a.shape[0] != lm.N_LIMBS:
+        raise ValueError(f"inv: expected (21, T), got {tuple(a.shape)}")
+    consts = _field_consts("inv", fs, a.device)
+    bits = lm.const(fs.p_minus_2_bits, a.device)
+    out = torch.empty_like(a)
+    if out.numel():
+        rc = _chains().zk_inv(a.data_ptr(), out.data_ptr(),
+                              consts.data_ptr(), bits.data_ptr(),
+                              bits.shape[0], a.shape[1], *a.stride(),
+                              *out.stride(), _stream(a.device))
+        _check(rc, "inv")
+        LAUNCHES["inv"] += 1
+    return out
+
+
+def batch_inv_ref(d: torch.Tensor, fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    return lm.batch_inv_lanes(d, fs)
+
+
+def batch_inv(d: torch.Tensor, fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    """Montgomery batch inversion over the last axis of (B, 21, X), X a
+    power of two; zero lanes must already be mapped to one.  A composite:
+    a fold_mul tree up, one inv over the B roots, two mont_muls per level
+    down: about 3 products per lane and one Fermat chain over B lanes."""
+    if d.dim() != 3 or d.shape[-1] & (d.shape[-1] - 1) or not d.shape[-1]:
+        raise ValueError(f"batch_inv: expected (B, 21, power of two), got "
+                         f"{tuple(d.shape)}")
+    levels = [d]
+    while levels[-1].shape[-1] > 1:
+        levels.append(fold_mul(levels[-1], fs))
+    root = levels[-1][:, :, 0].T                          # (21, B) view
+    invs = inv(root, fs).T[:, :, None]                    # (B, 21, 1)
+    for cur in levels[-2::-1]:
+        h = cur.shape[-1] // 2
+        left = mont_mul(invs, cur[..., h:], fs)
+        right = mont_mul(invs, cur[..., :h], fs)
+        invs = torch.cat([left, right], -1)
+    return invs
+
+
+# ---------------------------------------------------------------------------
+# in-kernel chains: products and double-and-add
+# ---------------------------------------------------------------------------
+
+def mont_chain_ref(a: torch.Tensor, b: torch.Tensor, iters: int,
+                   fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    x = a
+    for _ in range(iters):
+        x = lm.mont_mul_ref(x, b, fs)
+    return x
+
+
+def mont_chain(a: torch.Tensor, b: torch.Tensor, iters: int,
+               fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    """a, b: (21, T) -> a * b^iters, `iters` Montgomery products one after
+    another inside one kernel (x stays in registers)."""
+    if not _on_card("mont_chain", a, b):
+        return mont_chain_ref(a, b, iters, fs)
+    if a.dim() != 2 or a.shape[0] != lm.N_LIMBS or a.shape != b.shape:
+        raise ValueError(f"mont_chain: expected two (21, T), got "
+                         f"{tuple(a.shape)} {tuple(b.shape)}")
+    consts = _field_consts("mont_chain", fs, a.device)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    if out.numel():
+        rc = _chains().zk_mont_chain(a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), consts.data_ptr(),
+                                     a.shape[1], iters, _stream(a.device))
+        _check(rc, "mont_chain")
+        LAUNCHES["mont_chain"] += 1
+    return out
+
+
+def _scalar_bits(bits, device) -> torch.Tensor:
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=device)
+    if bits.dim() != 1 or bits.shape[0] > 256:
+        raise ValueError(f"scalar_mul: expected at most 256 bits in one "
+                         f"axis, got {tuple(bits.shape)}")
+    return bits.contiguous()
+
+
+def scalar_mul_ref(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
+    bits = _scalar_bits(bits, pts.device)
+    acc = ec_lm.identity_plane(kind, (), pts.shape[-1], pts.device)
+    base = pts
+    for i in range(bits.shape[0]):
+        added = padd_ref(acc, base, kind)
+        acc = torch.where(bits[i] == 1, added, acc)
+        base = padd_ref(base, base, kind)
+    return acc
+
+
+def scalar_mul(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
+    """pts: (rows, T) projective base points, one per lane; bits: the
+    scalar k as 0/1 values, least significant first, shared by all lanes
+    -> (rows, T) k*P by double-and-add inside one kernel."""
+    k = _k(kind)
+    if not _on_card("scalar_mul", pts):
+        return scalar_mul_ref(pts, bits, kind)
+    rows = ec_lm.ROWS[kind]
+    if pts.dim() != 2 or pts.shape[0] != rows:
+        raise ValueError(f"scalar_mul: expected ({rows}, T), got "
+                         f"{tuple(pts.shape)}")
+    bits = _scalar_bits(bits, pts.device)
+    pts = pts.contiguous()
+    out = torch.empty_like(pts)
+    if out.numel():
+        consts = lm.const(_EC_CONSTS, pts.device)
+        rc = _chains().zk_scalar_mul(k, pts.data_ptr(), out.data_ptr(),
+                                     consts.data_ptr(), bits.data_ptr(),
+                                     bits.shape[0], pts.shape[1],
+                                     _stream(pts.device))
+        _check(rc, "scalar_mul")
+        LAUNCHES[f"scalar_mul/{kind}"] += 1
+    return out

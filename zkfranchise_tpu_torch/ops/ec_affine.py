@@ -1,4 +1,4 @@
-"""Affine point planes for the MSM sum-tree upsweep (main-path parts).
+"""Affine point planes and the batch-affine fold for the MSM sum tree.
 
 Every affine coordinate here is the EXACT canonical Montgomery
 representative (value < p, exact 13-bit limbs), and the point at infinity
@@ -7,9 +7,20 @@ is an explicit 0/1 mask row carried with the plane:
     G1 affine: rows [0:21) x | [21:42) y | row 42 inf mask   (43 rows)
     G2 affine: [0:42) x (re,im) | [42:84) y | row 84 inf     (85 rows)
 
-The batch-affine fold (the JAX package's ``fold_affine``, built on the
-``fold_mul``/``inv``/``batch_inv`` kernels) is not on the prover's path
-and is not ported yet.
+Canonical coordinates make the exceptional-case tests of ``fold_affine``
+pure limb comparisons: equal x is all limbs equal; opposite y is
+norm_exact(y1 + y2) == p per component (y == 0 cannot occur for real
+points, G1 and G2 have prime order; all-zero pairs count as opposite,
+which arises only on masked lanes).  Every case of a complete addition
+(add, double, P + (-P) = infinity, infinity operands) is handled exactly.
+
+``fold_affine`` is one level of a sum tree in affine coordinates: the
+division of the chord or tangent slope is shared by all lanes of a row
+through a Montgomery batch inversion (``batch_inv``: the ``fold_mul``,
+``inv`` and ``mont_mul`` kernels), one Fermat chain per level; over Fq2
+the inverse reduces to one Fq batch inversion of the norm.  The prover's
+MSM takes the projective tree (``fold_padd_aa``, ``fold_padd``); times of
+both trees on the card at the same width are in PERF.md.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ import numpy as np
 import torch
 
 from . import ff, lm
+from .cuda import lm_kernels as K
 
 NL = lm.N_LIMBS
 FQ = lm.FQ
@@ -112,3 +124,112 @@ def neg_affine(a: torch.Tensor, kind: str) -> torch.Tensor:
     dk = d if k == 1 else torch.cat([d, d], -2)
     ny = _canon_k(lm.weak_norm(dk - y), k)
     return torch.cat([x, ny, inf], -2)
+
+
+# ---------------------------------------------------------------------------
+# exact tests on canonical planes
+# ---------------------------------------------------------------------------
+
+def _eq_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """exact canonical planes -> (..., 1, T) bool: all limbs equal."""
+    return (a == b).all(dim=-2, keepdim=True)
+
+
+def _is_neg_pair(y1: torch.Tensor, y2: torch.Tensor, k: int) -> torch.Tensor:
+    """y2 == -y1 mod p per component, for exact canonical y.  All-zero
+    component pairs count as opposite (only masked lanes)."""
+    p_col = lm.const(FQ.p_limbs, y1.device)
+    s = lm.norm_exact(y1 + y2)
+    out = None
+    for i in range(k):
+        rows = slice(i * NL, (i + 1) * NL)
+        zero = ((y1[..., rows, :] == 0) &
+                (y2[..., rows, :] == 0)).all(dim=-2, keepdim=True)
+        isp = (s[..., rows, :] == p_col).all(dim=-2, keepdim=True)
+        o = isp | zero
+        out = o if out is None else (out & o)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fq2 helpers (products through the mont_mul kernel)
+# ---------------------------------------------------------------------------
+
+def _fq2_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 42, T) x (..., 42, T) -> (..., 42, T); re < 2^256 (the tight
+    sub_d1 constant: same budget rules as ec_lm._mul_stack_fq2)."""
+    a0, a1 = a[..., :NL, :], a[..., NL:, :]
+    b0, b1 = b[..., :NL, :], b[..., NL:, :]
+    v = K.mont_mul(torch.stack([a0, a1, a0, a1], -3),
+                   torch.stack([b0, b1, b1, b0], -3), FQ)
+    re = lm.weak_norm(v[..., 0, :, :] +
+                      (lm.const(FQ.sub_d1, a.device) - v[..., 1, :, :]))
+    im = lm.weak_norm(v[..., 2, :, :] + v[..., 3, :, :])
+    return torch.cat([re, im], -2)
+
+
+def _fq2_sub_n(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = lm.const(FQ.sub_d, a.device)
+    return lm.weak_norm(a + (torch.cat([d, d], -2) - b))
+
+
+# ---------------------------------------------------------------------------
+# batch-affine fold: out[j] = x[j] (+) x[j + m/2]
+# ---------------------------------------------------------------------------
+
+def fold_affine(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """(B, arows, m) affine planes (exact canonical coords) ->
+    (B, arows, m/2) affine, exact canonical.  Complete."""
+    k = 1 if kind == "g1" else 2
+    dev = x.device
+    h = x.shape[-1] // 2
+    x1, y1, i1 = _split(x[..., :h], kind)
+    x2, y2, i2 = _split(x[..., h:], kind)
+
+    eq_x = _eq_rows(x1, x2)
+    opp = _is_neg_pair(y1, y2, k)
+    inf1, inf2 = (i1 == 1), (i2 == 1)
+    either_inf = inf1 | inf2
+    dbl = eq_x & ~opp & ~either_inf
+    degen = either_inf | (eq_x & opp)
+
+    one = lm.const(FQ.one_mont, dev)
+    one1 = one.expand(*y1.shape[:-2], NL, y1.shape[-1])
+    if k == 1:
+        def sub_c(u, v):
+            return lm.sub_n(u, v, FQ)
+
+        def mul(u, v):
+            return K.mont_mul(u, v, FQ)
+        one_k = one1
+    else:
+        sub_c, mul = _fq2_sub_n, _fq2_mul
+        one_k = torch.cat([one1, torch.zeros_like(one1)], -2)
+
+    sqr = mul(x1, x1)
+    num = torch.where(dbl, lm.weak_norm(sqr + sqr + sqr), sub_c(y2, y1))
+    den = torch.where(dbl, lm.weak_norm(y1 + y1), sub_c(x2, x1))
+    den = torch.where(degen, one_k, den)
+
+    if k == 1:
+        dinv = K.batch_inv(den, FQ)
+    else:
+        d0, d1 = den[..., :NL, :], den[..., NL:, :]
+        nrm = lm.weak_norm(K.mont_mul(d0, d0, FQ) + K.mont_mul(d1, d1, FQ))
+        nrm = torch.where(degen, one, nrm)
+        ninv = K.batch_inv(nrm, FQ)
+        dinv = torch.cat([K.mont_mul(d0, ninv, FQ),
+                          lm.neg_n(K.mont_mul(d1, ninv, FQ), FQ)], -2)
+
+    lam = mul(num, dinv)
+    lam2 = mul(lam, lam)
+    x3 = _canon_k(sub_c(sub_c(lam2, x1), x2), k)
+    y3 = _canon_k(sub_c(mul(lam, sub_c(x1, x3)), y1), k)
+
+    out_i = (inf1 & inf2) | (eq_x & opp & ~either_inf)
+    zero = torch.zeros((), dtype=lm.DTYPE, device=dev)
+    out_x = torch.where(out_i, zero,
+                        torch.where(inf1, x2, torch.where(inf2, x1, x3)))
+    out_y = torch.where(out_i, zero,
+                        torch.where(inf1, y2, torch.where(inf2, y1, y3)))
+    return torch.cat([out_x, out_y, out_i.to(lm.DTYPE)], -2)

@@ -43,7 +43,9 @@ def big_to_ff(x: int, p: int = P_FR) -> int:
 def inv_mod(a: int, p: int) -> int:
     if a % p == 0:
         raise ZeroDivisionError("inverse of zero")
-    return pow(a, p - 2, p)
+    # extended Euclid: about ten times faster than a^(p-2) on these
+    # sizes, and the host oracle inverts once per affine addition
+    return pow(a, -1, p)
 
 
 def sqrt_mod(a: int, p: int) -> int | None:

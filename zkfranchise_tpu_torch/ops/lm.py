@@ -98,6 +98,7 @@ class FieldSpec(NamedTuple):
     r2_limbs: np.ndarray         # (21, 1): R^2 mod p
     one_mont: np.ndarray         # (21, 1): R mod p
     p_comp_limbs: np.ndarray     # (21, 1): 2^273 - p
+    p_minus_2_bits: np.ndarray   # (bits of p,) int32 0/1, LSB first
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,6 +109,8 @@ def make_field(p: int) -> FieldSpec:
     def col(v):
         return int_to_limbs(v)[:, None]
 
+    bits = np.array([((p - 2) >> i) & 1 for i in range(p.bit_length())],
+                    dtype=np.int32)
     return FieldSpec(
         p=p,
         p_limbs=col(p),
@@ -119,6 +122,7 @@ def make_field(p: int) -> FieldSpec:
         r2_limbs=col(r * r % p),
         one_mont=col(r % p),
         p_comp_limbs=col(r - p),
+        p_minus_2_bits=bits,
     )
 
 
@@ -261,6 +265,10 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
     return lm_kernels.mont_mul(a, b, fs)
 
 
+def mont_sqr(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:
+    return mont_mul(a, a, fs)
+
+
 def to_mont(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:
     return mont_mul(a, const(fs.r2_limbs, a.device), fs)
 
@@ -297,6 +305,50 @@ def from_mont(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:
 
 def canon(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:
     return from_mont(to_mont(a, fs), fs)
+
+
+# ---------------------------------------------------------------------------
+# powers and inverses (plain PyTorch on either device: mont_mul_ref only)
+# ---------------------------------------------------------------------------
+
+def pow_bits(a: torch.Tensor, bits: np.ndarray,
+             fs: FieldSpec = FR) -> torch.Tensor:
+    """a^e for e given as a little-endian 0/1 array shared by all lanes:
+    square-and-multiply, LSB first."""
+    bits_t = torch.as_tensor(np.asarray(bits, dtype=np.int32),
+                             device=a.device)
+    acc = const(fs.one_mont, a.device).expand(a.shape)
+    base = a
+    for i in range(bits_t.shape[0]):
+        mult = mont_mul_ref(acc, base, fs)
+        acc = torch.where(bits_t[i] == 1, mult, acc)
+        base = mont_mul_ref(base, base, fs)
+    return acc
+
+
+def inv(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:
+    """Montgomery inverse via Fermat, a^(p-2) (inv(0) = 0)."""
+    return pow_bits(a, fs.p_minus_2_bits, fs)
+
+
+def batch_inv_lanes(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:
+    """Montgomery batch inversion across the LANE axis of (..., 21, X), X a
+    power of two: one Fermat inversion in all and about 3 products per
+    lane.  Zero lanes must have been mapped to one by the caller."""
+    x = a
+    levels = [x]
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = mont_mul_ref(x[..., :half], x[..., half:], fs)
+        levels.append(x)
+    invs = inv(x, fs)                           # (..., 21, 1)
+    # walk down: the inverse of each half from the inverse of the product
+    for cur in levels[-2::-1]:
+        half = cur.shape[-1] // 2
+        left = mont_mul_ref(invs, cur[..., half:], fs)
+        right = mont_mul_ref(invs, cur[..., :half], fs)
+        invs = torch.cat([left, right], -1)
+    return invs
 
 
 # ---------------------------------------------------------------------------

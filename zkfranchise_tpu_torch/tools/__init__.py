@@ -1,0 +1,56 @@
+"""Checks of the port's kernels against the host bigint oracle.
+
+    python -m zkfranchise_tpu_torch.tools.verify_kernels [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.verify_lm [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.micro_montmul [--device cpu] [--small]
+
+Each has a ``main(device=None, ...) -> int`` that prints PASS/FAIL lines and
+returns non-zero on any FAIL.  They run on the card unless another device
+is named; on the CPU the kernels' plain versions run (``--small`` keeps
+that short).
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+
+import torch
+
+
+def check(failed: list, name: str, ok: bool) -> None:
+    print(f"{'PASS' if ok else 'FAIL'}  {name}", flush=True)
+    if not ok:
+        failed.append(name)
+
+
+def verdict(failed: list) -> int:
+    print("VERDICT:", "PASS" if not failed else f"FAIL {failed}", flush=True)
+    return 1 if failed else 0
+
+
+def cli(main, doc: str) -> int:
+    """Parse --device / --small and call main(device, small=...)."""
+    ap = argparse.ArgumentParser(description=doc)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--small", action="store_true",
+                    help="reduced sizes, for the plain versions on a CPU")
+    args = ap.parse_args()
+    return main(args.device, small=args.small)
+
+
+def event_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of `fn` over `runs` CUDA-event-timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
