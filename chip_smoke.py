@@ -17,14 +17,24 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      fold_padd), with seconds per tree for both routes;
   4. runs the three tools (tools.verify_kernels, tools.verify_lm,
      tools.micro_montmul) on the card against the host bigint oracle;
-  5. drives the main path at nlevels=16, batch 128: CensusCircuit(16),
+  5. runs the two layout experiments (tools.layout_expt,
+     tools.layout_expt2) on the card at full size: every geometry held
+     against its plain version, then timed;
+  6. drives the main path at nlevels=16, batch 128: CensusCircuit(16),
      dev setup, mock_batch(16, 128, seed=7) -> batch_to_arrays ->
      DeviceProver -> prove_batch(seed=1), then a second timed prove_arrays
      with per-stage seconds, proofs/s and peak device memory, and verifies
      sampled proofs against the committed dev/16 verification key (a
-     cross-voter check and a tampered signal must be rejected).
+     cross-voter check and a tampered signal must be rejected);
+  7. drives the serving path at the same width: the dev key is exported
+     as a producer-ordered snarkjs zkey, written to bytes, read back and
+     ingested (A and B matrices only), and a DeviceProver keyed from it
+     alone serves mock_batch(16, 300, seed=7) through ProofStream at
+     batch 128 with a crash injected after the second batch (cursor 256)
+     and a resume over the tail slices 32, 8, 4; sampled proof files
+     verify against the committed dev/16 key.
 
-Launch counts are set to 0 just before each of the paths 3, 4 and 5 and
+Launch counts are set to 0 just before each of the paths 3 to 7 and
 read just after it; the run fails if a kernel of a path was not launched
 on it.
 
@@ -64,6 +74,7 @@ MADS = {
 }
 _CSRC = "zkfranchise_tpu_torch/csrc/"
 _PALLAS = "zkfranchise_tpu/ops/pallas/lm_kernels.py"
+_EXPT = "scripts/layout_expt"
 # kernel -> (source, the TPU kernel it replaces, the path that owns it,
 # its LAUNCHES keys)
 KERNELS = {
@@ -83,6 +94,16 @@ KERNELS = {
                    "verify_tools", ["mont_chain"]),
     "scalar_mul": (_CSRC + "lm_chains.cu", "scripts/verify_lm_device.py:58",
                    "verify_tools", ["scalar_mul/g1", "scalar_mul/g2"]),
+    "mm2d": (_CSRC + "lm_layout.cu", _EXPT + ".py:56", "layout_tools",
+             ["mm2d"]),
+    "mm3d": (_CSRC + "lm_layout.cu", _EXPT + ".py:83", "layout_tools",
+             ["mm3d"]),
+    "fold2d": (_CSRC + "lm_layout.cu", _EXPT + ".py:111", "layout_tools",
+               ["fold2d/g1", "fold2d/g2"]),
+    "add_one": (_CSRC + "lm_layout.cu", _EXPT + "2.py:50", "layout_tools",
+                ["add_one"]),
+    "fused_upsweep": (_CSRC + "lm_layout.cu", _EXPT + "2.py:86",
+                      "layout_tools", ["fused_upsweep"]),
 }
 # what each path must launch at least once
 PATH_KERNELS = {
@@ -93,7 +114,10 @@ PATH_KERNELS = {
                      "fold_mul", "inv", "mont_mul", "padd/g1", "padd/g2",
                      "fold_padd/g1", "fold_padd/g2", "fold_padd_aa/g1",
                      "fold_padd_aa/g2"],
+    "layout_tools": ["mm2d", "mm3d", "fold2d/g1", "add_one", "fused_upsweep",
+                     "mont_mul", "fold_padd/g1"],
 }
+PATH_KERNELS["stream"] = PATH_KERNELS["main_path"]
 
 
 def require_launches(path: str, launches: dict) -> None:
@@ -225,23 +249,34 @@ def phase_kernels(np, torch, K, dev) -> dict:
     results, table = {}, {}
     n_set = int(lm.FQ.p_minus_2_bits.sum())              # 110 of 254
 
-    def check(name, kernel, plain, nbytes, mads, key, plain_runs=10):
+    def check(name, kernel, plain, nbytes, mads, key, plain_runs=10,
+              library=None):
+        """library: one PyTorch call (or the honest chain of them) that
+        computes the same function; timed beside the kernel, held against
+        the plain version too, and used nowhere in the port."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         err = int((got.long() - want.long()).abs().max().item())
+        del got
         ms = event_ms(kernel)
         # a plain version of hundreds of chained steps is timed once
         plain_ms = event_ms(plain, runs=plain_runs,
                             warmup=2 if plain_runs > 1 else 0)
+        library_ms = None
+        if library is not None:
+            if not torch.equal(library(), want):
+                raise AssertionError(f"{name}: the library call differs "
+                                     f"from the plain version")
+            library_ms = event_ms(library)
         b_ms, b_by = bound(nbytes, mads)
         results[name] = {"equal": equal, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms}
+                         "bound_ms": b_ms, "library_ms": library_ms}
         if key is not None:
             table[key] = {"shape": name, "max_abs_err": err, "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by}
+                          "bound_by": b_by, "library_ms": library_ms}
         if not equal:
             raise AssertionError(f"{name}: kernel differs from plain version "
                                  f"(max abs err {err})")
@@ -321,8 +356,66 @@ def phase_kernels(np, torch, K, dev) -> dict:
               "scalar_mul" if kind == "g1" else "scalar_mul/g2",
               plain_runs=1)
     torch.cuda.empty_cache()
+    _layout_kernels(np, torch, K, dev, rng, check)
     emit({"phase": "kernels", "kernels": results})
     return table
+
+
+def _layout_kernels(np, torch, K, dev, rng, check) -> None:
+    """The five kernels of the layout experiments at the experiments'
+    sizes, at two geometries each (the first is the table's row)."""
+    from zkfranchise_tpu_torch.ops import ec_lm, lm
+    from zkfranchise_tpu_torch.tools.layout_expt2 import level_adds
+
+    T = 1 << 20
+    a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
+    b = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
+    for chain, tiles in ((1, (512, 8192)), (8, (512, 2048))):
+        for i, tile in enumerate(tiles):
+            key = None if i else ("mm2d" if chain == 1 else "mm2d/chain8")
+            check(f"mm2d/fq/21x{T}/chain{chain}/tile{tile}",
+                  lambda: K.mm2d(a, b, tile, chain),
+                  lambda: K.mm2d_ref(a, b, tile, chain), 4 * 3 * 21 * T,
+                  MAD_MONT * chain * T, key, plain_runs=3)
+    a3, b3 = a.reshape(128, 21, T // 128), b.reshape(128, 21, T // 128)
+    for i, (tile, blk) in enumerate(((512, 1), (512, 8), (8192, 1))):
+        check(f"mm3d/fq/128x21x{T // 128}/tile{tile}/blk{blk}",
+              lambda: K.mm3d(a3, b3, tile, blk),
+              lambda: K.mm3d_ref(a3, b3, tile, blk), 4 * 3 * 21 * T,
+              MAD_MONT * T, None if i else "mm3d")
+    check(f"mont_mul/fq/128x21x{T // 128} (beside mm3d)",
+          lambda: K.mont_mul(a3, b3, lm.FQ),
+          lambda: K.mont_mul_ref(a3, b3, lm.FQ), 4 * 3 * 21 * T,
+          MAD_MONT * T, None)
+    for i, tile in enumerate((512, 8192)):
+        check(f"add_one/21x{T}/tile{tile}", lambda: K.add_one(a, tile),
+              lambda: K.add_one_ref(a, tile), 4 * 2 * 21 * T, 0,
+              None if i else "add_one", library=lambda: a + 1)
+    del a, b, a3, b3
+    x = torch.as_tensor(rng.integers(0, 1 << 13, (63, 1 << 16),
+                                     dtype=np.int32), device=dev)
+    check("fused_upsweep/63x65536", lambda: K.fused_upsweep(x, 512),
+          lambda: K.fused_upsweep_ref(x, 512), 4 * 63 * (2 * 65536 - 1), 0,
+          "fused_upsweep", library=lambda: level_adds(x))
+    del x
+    # one fold level of real points on the flat lane axis: segment b of
+    # the flat plane is row b of the (B, rows, m) plane
+    B, m = 128, 8192
+    for kind in ("g1", "g2"):
+        rows = ec_lm.ROWS[kind]
+        p, q, _ = _point_inputs(np, torch, rng, kind, B, m, dev)
+        x = torch.cat([p[..., :m // 2], q[..., :m // 2]], -1)
+        del p, q
+        x = x.permute(1, 0, 2).reshape(rows, B * m).contiguous()
+        for i, tile in enumerate((512, 4096)):
+            key = None if i else ("fold2d" if kind == "g1" else "fold2d/g2")
+            check(f"fold2d/{kind}/{rows}x{B * m}/m{m}/tile{tile}",
+                  lambda: K.fold2d(x, tile, kind, m),
+                  lambda: K.fold2d_ref(x, tile, kind, m),
+                  4 * rows * (B * m + B * m // 2),
+                  MADS[("padd", kind)] * B * m // 2, key, plain_runs=3)
+        del x
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -450,17 +543,19 @@ def phase_affine_tree(np, torch, K, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the tools, against the host bigint oracle
+# phases 4 and 5: the tools against the host bigint oracle, and the layout
+# experiments against the plain versions
 # ---------------------------------------------------------------------------
 
-def phase_verify_tools(torch, K, dev) -> dict:
-    from zkfranchise_tpu_torch.tools import (micro_montmul, verify_kernels,
-                                             verify_lm)
+def phase_tools(torch, K, dev, path: str, names: list) -> dict:
+    """Run the named tools on the card at full size as the path `path`;
+    a tool that returns non-zero ends the run."""
+    import importlib
 
     K.reset_launches()
     seconds = {}
-    for tool in (verify_kernels, verify_lm, micro_montmul):
-        name = tool.__name__.rsplit(".", 1)[-1]
+    for name in names:
+        tool = importlib.import_module(f"zkfranchise_tpu_torch.tools.{name}")
         t0 = time.perf_counter()
         rc = tool.main(dev)
         torch.cuda.synchronize()
@@ -468,18 +563,20 @@ def phase_verify_tools(torch, K, dev) -> dict:
         if rc != 0:
             raise AssertionError(f"tools.{name} returned {rc}")
     launches = dict(K.LAUNCHES)
-    emit({"phase": "verify_tools", "seconds": seconds,
-          "launches": launches})
-    require_launches("verify_tools", launches)
+    emit({"phase": path, "nvidia_smi": smi_line(), "seconds": seconds,
+          "launches": {k: v for k, v in launches.items() if v}})
+    require_launches(path, launches)
     return launches
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phase 6: the main path
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path(np, torch, K, dev) -> dict:
+def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
+    """-> (launches of the main path, (circuit, dev-setup pk, committed
+    vk) for the serving path)."""
     from zkfranchise_tpu_torch import inputs as inp
     from zkfranchise_tpu_torch.groth16 import setup as gsetup
     from zkfranchise_tpu_torch.groth16 import verify as gverify
@@ -560,7 +657,7 @@ def phase_main_path(np, torch, K, dev) -> dict:
     if not all(ok.values()) or cross or tampered:
         raise AssertionError("proof verification failed")
     phase_profile(torch, prover, arrs, r, s, stages)
-    return launches
+    return launches, (circuit, pk, vk)
 
 
 def phase_profile(torch, prover, arrs, r, s, stages) -> None:
@@ -594,6 +691,154 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
           "top_kernels_s": {k: v / 1e6 for k, v in top}})
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving path: a zkey-keyed prover behind ProofStream
+# ---------------------------------------------------------------------------
+
+N_VOTERS = 300                          # 2 x 128, then the ladder 32, 8, 4
+
+
+class _RecordingProver:
+    """Stands between ProofStream and the DeviceProver: records each
+    slice's size and kernel launches, and raises in place of slice number
+    `fail_after` (a crash between two batches)."""
+
+    def __init__(self, prover, K, fail_after=None):
+        self.prover, self.K, self.fail_after = prover, K, fail_after
+        self.circuit, self.device = prover.circuit, prover.device
+        self.slices = []
+
+    def prove_batch(self, arrs, seed=0):
+        if self.fail_after is not None and \
+                len(self.slices) >= self.fail_after:
+            raise RuntimeError("injected crash")
+        before = dict(self.K.LAUNCHES)
+        out = self.prover.prove_batch(arrs, seed=seed)
+        self.slices.append({
+            "batch": len(out[0]), "seed": seed,
+            "launches": {k: v - before[k] for k, v in self.K.LAUNCHES.items()
+                         if v != before[k]}})
+        return out
+
+
+def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
+    import io
+    import tempfile
+
+    from zkfranchise_tpu_torch import inputs as inp
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
+    from zkfranchise_tpu_torch.stream import ProofStream
+    from zkfranchise_tpu_torch.utils import serialize, zkey_compat
+    from zkfranchise_tpu_torch.utils.metrics import Metrics
+
+    vk_path = ROOT / "artifacts" / "zkCensus" / "dev" / str(N_LEVELS) / \
+        "verification_key.json"
+    # (a) the dev key as a producer-ordered zkey, through bytes and back
+    seconds = {}
+    t0 = time.perf_counter()
+    z = zkey_compat.export_in_ordering(
+        zkey_compat.zkey_from_pk(circuit.cs, pk, vk),
+        zkey_compat.census_circom_perm(circuit.cs))
+    seconds["zkey_export"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = serialize.write_zkey(z)
+    seconds["zkey_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = serialize.read_zkey(data)
+    seconds["zkey_read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zpk, zvk, arrays = zkey_compat.ingest_zkey(data, cs=circuit.cs,
+                                               ordering="census-circom")
+    seconds["zkey_ingest"] = time.perf_counter() - t0   # reads again
+    if "c" in arrays:
+        raise AssertionError("an ingested zkey carries no C matrix")
+    if raw.a_g1 == zpk.a_g1:
+        raise AssertionError("the producer ordering did not reorder A")
+    if zvk.to_dict() != json.loads(vk_path.read_text()):
+        raise AssertionError("ingested vk differs from the committed vk")
+    t0 = time.perf_counter()
+    prover = DeviceProver(circuit, zpk, arrays=arrays, device=dev)
+    seconds["prover_init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    voters = inp.mock_batch(N_LEVELS, N_VOTERS, seed=7, device=dev)
+    seconds["mock_batch"] = time.perf_counter() - t0
+    emit({"phase": "stream_setup", "zkey_bytes": len(data),
+          "zkey_points": sum(len(t) for t in (z.a_g1, z.b_g1, z.b_g2,
+                                              z.c_g1, z.h_g1, z.ic)),
+          "zkey_coeffs": len(z.coeffs),
+          "nnz": {k: int(arrays[k][0].shape[0]) for k in ("a", "b")},
+          "seconds": seconds})
+    del z, raw, data
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "proofs"
+        sink = io.StringIO()
+        # (b) the stream crashes in place of its third batch; counts
+        # start at 0 here and are read right after the resumed run
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = _RecordingProver(prover, K, fail_after=2)
+        s1 = ProofStream(first, out, batch_size=BATCH,
+                         metrics=Metrics(sink=sink))
+        crashed = False
+        t0 = time.perf_counter()
+        try:
+            s1.run(voters, seed=1)
+        except RuntimeError as e:
+            crashed = str(e) == "injected crash"
+        if not crashed or s1.cursor != 2 * BATCH:
+            raise AssertionError(f"stream: expected a crash at cursor "
+                                 f"{2 * BATCH}, got cursor {s1.cursor}")
+        # (c) a fresh stream on the same directory resumes over the tail
+        second = _RecordingProver(prover, K)
+        s2 = ProofStream(second, out, batch_size=BATCH,
+                         metrics=Metrics(sink=sink))
+        produced = s2.run(voters, seed=1)
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        sizes = [x["batch"] for x in second.slices]
+        done = sorted(d.name for d in out.iterdir() if d.is_dir())
+        if (produced, sizes, s2.cursor) != (44, [32, 8, 4], N_VOTERS) or \
+                done != [f"proof_{i:08d}" for i in range(N_VOTERS)]:
+            raise AssertionError(f"stream resume: produced {produced}, "
+                                 f"slices {sizes}, cursor {s2.cursor}, "
+                                 f"{len(done)} proof directories")
+        third = _RecordingProver(prover, K)
+        if ProofStream(third, out, batch_size=BATCH,
+                       metrics=Metrics(sink=sink)).run(voters, seed=1) or \
+                third.slices or dict(K.LAUNCHES) != launches:
+            raise AssertionError("stream: a third run was not a no-op")
+        # (d) sampled proof files against the committed key: first batch,
+        # the batch before the crash, and each slice of the resumed tail
+        def files(i):
+            d = out / f"proof_{i:08d}"
+            return str(d / "proof.json"), str(d / "signals.json")
+
+        t0 = time.perf_counter()
+        accepted = {f"voter_{i}": gverify.verify_files(str(vk_path),
+                                                       *files(i))
+                    for i in (0, 200, 256, 287, 288, 295, 296, 299)}
+        cross = gverify.verify_files(str(vk_path), files(0)[0], files(1)[1])
+        verify_s = time.perf_counter() - t0
+    records = [json.loads(line) for line in sink.getvalue().splitlines()]
+    rates = [{"batch": r["items"], "seconds": r["seconds"],
+              "proofs_per_s": r["per_second"]}
+             for r in records if r["kind"] == "throughput"]
+    emit({"phase": "stream", "nvidia_smi": smi_line(), "voters": N_VOTERS,
+          "slices": first.slices + second.slices, "rates": rates,
+          "stream_s": stream_s, "proofs_per_s": N_VOTERS / stream_s,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "launches": {k: v for k, v in launches.items() if v},
+          "accepted": accepted, "cross_voter_accepted": cross,
+          "verify_s": verify_s})
+    if not all(accepted.values()) or cross:
+        raise AssertionError("stream: proof verification failed")
+    require_launches("stream", launches)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -612,8 +857,14 @@ def main() -> int:
     phase_toolchain(torch, K)
     table = phase_kernels(np, torch, K, dev)
     launches = {"affine_tree": phase_affine_tree(np, torch, K, dev),
-                "verify_tools": phase_verify_tools(torch, K, dev),
-                "main_path": phase_main_path(np, torch, K, dev)}
+                "verify_tools": phase_tools(
+                    torch, K, dev, "verify_tools",
+                    ["verify_kernels", "verify_lm", "micro_montmul"]),
+                "layout_tools": phase_tools(
+                    torch, K, dev, "layout_tools",
+                    ["layout_expt", "layout_expt2"])}
+    launches["main_path"], keys = phase_main_path(np, torch, K, dev)
+    launches["stream"] = phase_stream(torch, K, dev, *keys)
     kernels = []
     for name, (source, replaces, path, keys) in KERNELS.items():
         # `launches` is the count on the path that owns the kernel (G1 and
@@ -622,10 +873,11 @@ def main() -> int:
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, path=path,
                      launches=sum(by_path[path].values()),
-                     launches_by_path=by_path, library_ms=None,
-                     **table[name])
-        if f"{name}/g2" in table:
-            entry["g2"] = table[f"{name}/g2"]
+                     launches_by_path=by_path, **table[name])
+        # further rows of the same kernel: its G2 form, a longer chain
+        for key in table:
+            if key.startswith(name + "/"):
+                entry[key.split("/", 1)[1]] = table[key]
         kernels.append(entry)
     composite = dict(name="batch_inv", composite_of=["fold_mul", "inv",
                                                      "mont_mul"],

@@ -157,3 +157,86 @@ def test_fold_affine_on_card_equals_cpu(dev, kind):
         x = ec_affine.fold_affine(x, kind)
         y = ec_affine.fold_affine(y, kind)
         assert torch.equal(y.cpu(), x)
+
+
+@pytest.mark.parametrize("tile,chain", [(512, 1), (100, 3), (4096, 8)])
+def test_mm2d(dev, tile, chain):
+    """Ragged edge (T not a multiple of tile), tile above and below T."""
+    rng = np.random.default_rng(8)
+    a, b = _limbs(rng, (21, 1300), dev), _limbs(rng, (21, 1300), dev)
+    K.reset_launches()
+    assert torch.equal(K.mm2d(a, b, tile, chain),
+                       K.mm2d_ref(a, b, tile, chain))
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "mm2d": 1}
+
+
+@pytest.mark.parametrize("tile,blk", [(512, 1), (100, 2), (2048, 8)])
+def test_mm3d(dev, tile, blk):
+    rng = np.random.default_rng(9)
+    a, b = _limbs(rng, (5, 21, 700), dev), _limbs(rng, (5, 21, 700), dev)
+    K.reset_launches()
+    got = K.mm3d(a, b, tile, blk)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "mm3d": 1}
+    assert torch.equal(got, K.mm3d_ref(a, b, tile, blk))
+    assert torch.equal(got, K.mont_mul(a, b, lm.FQ))
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("tile", [3, 512])
+def test_fold2d(dev, kind, tile):
+    """Flat lane axis of B = 5 segments of m = 32 real points, with an
+    identity lane, a doubling pair and an opposite pair."""
+    rng = np.random.default_rng(10)
+    B, m = 5, 32
+    table = ec_lm.g1_table if kind == "g1" else ec_lm.g2_table
+    grp = ec.G1 if kind == "g1" else ec.G2
+    pts = (_pool(kind, rng) * 10)[:B * m]
+    pts[1] = None
+    pts[16 + 2] = pts[2]
+    pts[16 + 3] = grp.neg(pts[3])
+    x = torch.as_tensor(table(pts).T.copy(), device=dev)
+    K.reset_launches()
+    got = K.fold2d(x, tile, kind, m)
+    assert K.LAUNCHES[f"fold2d/{kind}"] == 1
+    assert torch.equal(got, K.fold2d_ref(x, tile, kind, m))
+    seg = x.reshape(-1, B, m).permute(1, 0, 2).contiguous()
+    assert torch.equal(K.fold_padd(seg, kind).permute(1, 0, 2)
+                       .reshape(-1, B * m // 2), got)
+
+
+@pytest.mark.parametrize("rows,tile", [(21, 512), (24, 100), (8, 8192)])
+def test_add_one(dev, rows, tile):
+    rng = np.random.default_rng(11)
+    a = torch.as_tensor(rng.integers(-2**31, 2**31, (rows, 3000),
+                                     dtype=np.int64).astype(np.int32),
+                        device=dev)
+    a[0, 0] = 2**31 - 1                                     # wraps
+    K.reset_launches()
+    assert torch.equal(K.add_one(a, tile), K.add_one_ref(a, tile))
+    assert K.LAUNCHES["add_one"] == 1
+
+
+@pytest.mark.parametrize("m", [2, 1024, 1 << 16, 1 << 18])
+def test_fused_upsweep_is_one_launch(dev, m):
+    """Below, at and above the width that fits in shared memory."""
+    rng = np.random.default_rng(12)
+    x = torch.as_tensor(rng.integers(-2**31, 2**31, (7, m),
+                                     dtype=np.int64).astype(np.int32),
+                        device=dev)
+    K.reset_launches()
+    got = K.fused_upsweep(x)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "fused_upsweep": 1}
+    assert got.shape == (7, m - 1)
+    assert torch.equal(got, K.fused_upsweep_ref(x))
+
+
+def test_layout_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    a = _limbs(np.random.default_rng(13), (21, 64), dev)
+    with pytest.raises(ValueError):
+        K.mm2d(a, a[:, :32], 16, 1)
+    with pytest.raises(ValueError):
+        K.mm3d(a, a, 16, 1)                                 # not (B, 21, T)
+    with pytest.raises(ValueError):
+        K.mm2d(a, a.cpu(), 16, 1)
+    with pytest.raises(TypeError):
+        K.fused_upsweep(a[:, :16].float())

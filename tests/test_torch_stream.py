@@ -1,0 +1,150 @@
+"""The port's ProofStream (stream.py) with a stub prover, mirroring the JAX
+package's stream tests (crash after two batches, resume, no-op third run,
+the power-of-two tail ladder), and file by file against the JAX package's
+ProofStream driven by the same stub.  (A real run on the CPU is in
+test_torch_stream_prove.py.)"""
+import io
+import json
+
+import pytest
+
+from zkfranchise_tpu import inputs as jinputs
+from zkfranchise_tpu.stream import ProofStream as JaxProofStream
+from zkfranchise_tpu_torch import inputs as tinputs
+from zkfranchise_tpu_torch.stream import ProofStream, _prev_pow2
+from zkfranchise_tpu_torch.utils.metrics import Metrics
+
+
+class _StubProver:
+    """Duck-typed stand-in for DeviceProver: ProofStream only touches
+    .circuit.n_levels and .prove_batch.  Counts calls so the resume test
+    can assert no batch is re-proved."""
+
+    class _C:
+        n_levels = 16
+
+    circuit = _C()
+
+    def __init__(self, fail_after_batches=None):
+        self.calls = 0
+        self.sizes = []
+        self.seeds = []
+        self.fail_after = fail_after_batches
+
+    def prove_batch(self, arrs, seed=0):
+        if self.fail_after is not None and self.calls >= self.fail_after:
+            raise RuntimeError("injected crash")
+        self.calls += 1
+        B = arrs["address"].shape[-1]
+        self.sizes.append(B)
+        self.seeds.append(seed)
+        first = int(arrs["address"][0, 0])
+        proofs = [type("P", (), {"to_dict": lambda self, i=i: {
+            "pi_a": [str(seed), str(i), str(first)]}})() for i in range(B)]
+        pubs = [[seed, i] for i in range(B)]
+        return proofs, pubs
+
+
+def _tree(root):
+    """{relative path: bytes} of every file under root."""
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+@pytest.fixture(scope="module")
+def voters():
+    return tinputs.mock_batch(16, 11, seed=6, device="cpu")
+
+
+def test_stream_checkpoint_resume(tmp_path, voters):
+    """Kill the stream mid-run; a fresh ProofStream must resume from the
+    cursor without duplicating or losing proofs."""
+    voters = voters[:7]
+    out = tmp_path / "proofs"
+
+    # first run crashes after 2 batches (batch_size=2 -> 4 proofs done)
+    p1 = _StubProver(fail_after_batches=2)
+    s1 = ProofStream(p1, out, batch_size=2, metrics=Metrics(io.StringIO()))
+    with pytest.raises(RuntimeError):
+        s1.run(voters)
+    assert s1.cursor == 4 and p1.calls == 2
+
+    # resume with a new process-equivalent: picks up at the cursor
+    p2 = _StubProver()
+    s2 = ProofStream(p2, out, batch_size=2, metrics=Metrics(io.StringIO()))
+    produced = s2.run(voters, seed=3)
+    assert produced == 3                       # voters 4..6 only
+    assert p2.calls == 2 and p2.sizes == [2, 1]
+    assert p2.seeds == [3 + 4, 3 + 6]          # seed + base
+    assert s2.cursor == 7
+    done = sorted(d.name for d in out.iterdir() if d.is_dir())
+    assert done == [f"proof_{i:08d}" for i in range(7)]  # no dup/loss
+    assert not (out / "stream_checkpoint.tmp").exists()  # atomic replace
+    # a third run is a no-op
+    p3 = _StubProver()
+    assert ProofStream(p3, out, batch_size=2,
+                       metrics=Metrics(io.StringIO())).run(voters) == 0
+    assert p3.calls == 0
+
+
+def test_stream_tail_ladder(tmp_path, voters):
+    """The final partial batch runs as a pow2 ladder (11 @ batch 8 ->
+    8 + 2 + 1), never padded by repetition: a 1-voter tail must not pay
+    a full-batch MSM."""
+    assert [_prev_pow2(n) for n in (1, 2, 3, 7, 8, 37, 44)] == \
+        [1, 2, 2, 4, 8, 32, 32]
+    p = _StubProver()
+    sink = io.StringIO()
+    s = ProofStream(p, tmp_path / "proofs", batch_size=8,
+                    metrics=Metrics(sink))
+    assert s.run(voters) == 11
+    assert p.sizes == [8, 2, 1]
+    assert s.cursor == 11
+    done = sorted(d.name for d in (tmp_path / "proofs").iterdir()
+                  if d.is_dir())
+    assert done == [f"proof_{i:08d}" for i in range(11)]
+    records = [json.loads(line) for line in sink.getvalue().splitlines()]
+    assert [(r["base"], r["batch"]) for r in records
+            if r["kind"] == "stage"] == [(0, 8), (8, 2), (10, 1)]
+    assert [r["items"] for r in records if r["kind"] == "throughput"] == \
+        [8, 2, 1]
+
+
+def test_stream_300_at_128_is_the_card_phase_ladder(tmp_path, voters):
+    """The slices of the serving phase on the card: 300 voters at batch
+    128 with a crash in place of the third batch, then 32, 8, 4."""
+    many = (voters * 28)[:300]
+    out = tmp_path / "proofs"
+    p1 = _StubProver(fail_after_batches=2)
+    with pytest.raises(RuntimeError):
+        ProofStream(p1, out, batch_size=128,
+                    metrics=Metrics(io.StringIO())).run(many, seed=1)
+    p2 = _StubProver()
+    s2 = ProofStream(p2, out, batch_size=128, metrics=Metrics(io.StringIO()))
+    assert s2.run(many, seed=1) == 44
+    assert p1.sizes == [128, 128] and p2.sizes == [32, 8, 4]
+    assert p2.seeds == [257, 289, 297] and s2.cursor == 300
+
+
+def test_stream_files_and_cursor_match_jax(tmp_path, voters):
+    """The same stub behind the JAX package's ProofStream and the port's,
+    a crash and a resume each: the same files with the same bytes."""
+    jvoters = jinputs.mock_batch(16, 11, seed=6)
+    assert [v.to_json() for v in voters] == [v.to_json() for v in jvoters]
+    trees = []
+    for cls, vs, name in ((JaxProofStream, jvoters, "jax"),
+                          (ProofStream, voters, "torch")):
+        out = tmp_path / name
+        with pytest.raises(RuntimeError):
+            cls(_StubProver(fail_after_batches=1), out, batch_size=4,
+                metrics=Metrics(io.StringIO())).run(vs, seed=9)
+        resumed = cls(_StubProver(), out, batch_size=4,
+                      metrics=Metrics(io.StringIO()))
+        assert resumed.cursor == 4
+        assert resumed.run(vs, seed=9) == 7
+        assert resumed.cursor == 11
+        trees.append(_tree(out))
+    assert trees[0] == trees[1]
+    assert len(trees[0]) == 2 * 11 + 1
+    assert json.loads(trees[1]["stream_checkpoint.json"]) == \
+        {"cursor": 11, "batch_size": 4}

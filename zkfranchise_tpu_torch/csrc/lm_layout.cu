@@ -1,0 +1,259 @@
+// Hand-written Hopper (sm_90a) kernels of the layout experiments over the
+// limb-major BN254 core (layout and device functions: lm_device.cuh).
+//
+// Kernels and the TPU kernels they replace:
+//   zk_mm2d           <- mm2d (scripts/layout_expt.py): `chain` Montgomery
+//                        products x <- x*b on a flat (21, T) lane axis
+//   zk_mm3d           <- mm3d (scripts/layout_expt.py): one product on
+//                        (B, 21, T), a block owning a (blk, tile) patch of
+//                        the (batch, lane) plane
+//   zk_fold2d         <- fold2d (scripts/layout_expt.py): one projective
+//                        fold level on a FLAT lane axis (rows, B*m): lane
+//                        b*m + j plus lane b*m + m/2 + j, per segment b
+//   zk_add_one        <- pallas_id (scripts/layout_expt2.py): o = a + 1,
+//                        the launch-and-copy floor of this binding
+//   zk_fused_upsweep  <- fused_upsweep (scripts/layout_expt2.py, its
+//                        mono_kernel): every level of a halving int32 sum
+//                        tree in ONE launch; the output row is the
+//                        concatenation of the levels of width m/2 ... 1
+//
+// What the experiments vary on the TPU is how many lanes one grid step
+// owns and how the lane axis is laid out.  Here `tile` is the number of
+// lanes one BLOCK owns: a block has a fixed number of threads (THREADS for
+// the arithmetic kernels, COPY_THREADS for the two int32 controls) and each
+// thread walks tile / threads lanes, neighbouring threads on neighbouring
+// lanes (every limb-row access coalesced).  A small tile gives many blocks
+// of little work each, a large one few blocks of long loops: a tile of
+// 32,768 lanes over 2^20 lanes is 32 blocks on 132 SMs.  The blocks cover
+// the lane axis by ceiling division and mask the ragged edge, so any
+// positive tile is legal.  None of the kernels divides: the block indices
+// carry the (batch, tile) coordinates that zk_mont_mul and zk_fold_mul
+// recover from a flat index with 64-bit divisions.
+//
+// What bounds them on an H100: mm2d, mm3d and fold2d are bound by integer
+// multiply-adds like the production kernels (1,113 per product, 13,566 per
+// G1 add, 39,480 per G2 add); add_one and fused_upsweep by bytes.
+// fused_upsweep gives one block to each row: level 1 is read straight
+// from device memory (a 65,536-lane int32 row is 256 KB, more than a
+// block's 227 KB of shared memory), its 128 KB result is kept in dynamic
+// shared memory, and the remaining levels fold it in place there with one
+// __syncthreads() per level, each level also written out.  63 rows are 63
+// blocks, so fewer than half the SMs pull on device memory: the price of
+// one launch.
+//
+// Every entry point launches on the caller's stream, allocates nothing,
+// and returns cudaGetLastError() of its launch.
+
+#include "lm_device.cuh"
+
+#define COPY_THREADS 256
+#define UPSWEEP_THREADS 1024
+// widest level kept in shared memory: 32,768 ints = 128 KB
+#define UPSWEEP_SMEM_INTS 32768
+#define MAX_GRID_Y 65535
+
+static unsigned tiles_for(i64 n, i64 tile) {
+  return (unsigned)((n + tile - 1) / tile);
+}
+
+// out (21, T) = a * b^chain, a and b (21, T) contiguous; block i owns lanes
+// [i*tile, (i+1)*tile)
+__global__ void __launch_bounds__(THREADS)
+mm2d_kernel(const int* __restrict__ a, const int* __restrict__ b,
+            int* __restrict__ out, const int* __restrict__ consts, i64 T,
+            i64 tile, int chain) {
+  __shared__ int C[2 * NL];
+  stage_consts(consts, C, 2 * NL);
+  const i64 base = (i64)blockIdx.x * tile;
+#pragma unroll 1
+  for (i64 l = threadIdx.x; l < tile; l += blockDim.x) {
+    const i64 t = base + l;
+    if (t >= T) break;
+    int x[NL], y[NL], z[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+      x[k] = a[k * T + t];
+      y[k] = b[k * T + t];
+    }
+#pragma unroll 1
+    for (int i = 0; i < chain; ++i) {
+      mont_mul(x, y, C, z);
+#pragma unroll
+      for (int k = 0; k < NL; ++k) x[k] = z[k];
+    }
+#pragma unroll
+    for (int k = 0; k < NL; ++k) out[k * T + t] = x[k];
+  }
+}
+
+// out (B, 21, T) = a * b, all three contiguous; block (i, j) owns batch
+// rows [j*blk, (j+1)*blk) and lanes [i*tile, (i+1)*tile).  Lane stride 1,
+// limb stride T, batch stride 21*T: no stride arguments, no division.
+__global__ void __launch_bounds__(THREADS)
+mm3d_kernel(const int* __restrict__ a, const int* __restrict__ b,
+            int* __restrict__ out, const int* __restrict__ consts, i64 B,
+            i64 T, i64 tile, i64 blk) {
+  __shared__ int C[2 * NL];
+  stage_consts(consts, C, 2 * NL);
+  const i64 lane0 = (i64)blockIdx.x * tile;
+  const i64 row0 = (i64)blockIdx.y * blk;
+#pragma unroll 1
+  for (i64 r = 0; r < blk && row0 + r < B; ++r) {
+    const i64 off = (row0 + r) * NL * T;
+#pragma unroll 1
+    for (i64 l = threadIdx.x; l < tile; l += blockDim.x) {
+      const i64 t = lane0 + l;
+      if (t >= T) break;
+      int x[NL], y[NL], z[NL];
+#pragma unroll
+      for (int k = 0; k < NL; ++k) {
+        x[k] = a[off + k * T + t];
+        y[k] = b[off + k * T + t];
+      }
+      mont_mul(x, y, C, z);
+#pragma unroll
+      for (int k = 0; k < NL; ++k) out[off + k * T + t] = z[k];
+    }
+  }
+}
+
+// out (rows, B*h) = per segment b: x[:, b*2h + j] + x[:, b*2h + h + j],
+// x (rows, B*2h) contiguous; block (i, b) owns lanes [i*tile, (i+1)*tile)
+// of segment b's output half
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+fold2d_kernel(const int* __restrict__ x, int* __restrict__ out,
+              const int* __restrict__ consts, i64 B, i64 h, i64 tile) {
+  __shared__ int C[EC_CONSTS];
+  stage_consts(consts, C, EC_CONSTS);
+  const i64 b = blockIdx.y;
+  const i64 lane0 = (i64)blockIdx.x * tile;
+  const i64 L = B * 2 * h;
+#pragma unroll 1
+  for (i64 l = threadIdx.x; l < tile; l += blockDim.x) {
+    const i64 j = lane0 + l;
+    if (j >= h) break;
+    const int* p = x + b * 2 * h + j;
+    padd_point<K>(p, L, p + h, L, out + b * h + j, B * h, C);
+  }
+}
+
+// o (R, T) = a + 1 (wrapping), both contiguous; block i owns the (R, tile)
+// column block of lanes [i*tile, (i+1)*tile)
+__global__ void __launch_bounds__(COPY_THREADS)
+add_one_kernel(const int* __restrict__ a, int* __restrict__ o, i64 R, i64 T,
+               i64 tile) {
+  const i64 lane0 = (i64)blockIdx.x * tile;
+  for (i64 r = 0; r < R; ++r) {
+    for (i64 l = threadIdx.x; l < tile; l += blockDim.x) {
+      const i64 t = lane0 + l;
+      if (t >= T) break;
+      o[r * T + t] = (int)((unsigned)a[r * T + t] + 1u);
+    }
+  }
+}
+
+__device__ __forceinline__ int wrap_add(int u, int v) {
+  return (int)((unsigned)u + (unsigned)v);
+}
+
+// out (R, m-1) = [level 1 | level 2 | ... | level log2(m)] of the halving
+// sum tree over x (R, m), m a power of two: level k+1 [j] = level k [j] +
+// level k [j + width/2], level 0 = x.  One block per row.  Levels too wide
+// for shared memory read their source from device memory (x, or the level
+// this block has just written to out); the first level that fits is kept
+// in shared memory and folded in place from there on.
+__global__ void __launch_bounds__(UPSWEEP_THREADS)
+fused_upsweep_kernel(const int* x, int* out, i64 m) {
+  extern __shared__ int s[];
+  const int* src = x + (i64)blockIdx.x * m;
+  int* dst = out + (i64)blockIdx.x * (m - 1);
+  i64 w = m;
+  while (w / 2 > UPSWEEP_SMEM_INTS) {
+    const i64 h = w / 2;
+    for (i64 j = threadIdx.x; j < h; j += blockDim.x)
+      dst[j] = wrap_add(src[j], src[j + h]);
+    __syncthreads();
+    src = dst;
+    dst += h;
+    w = h;
+  }
+  if (w > 1) {
+    const i64 h = w / 2;
+    for (i64 j = threadIdx.x; j < h; j += blockDim.x) {
+      const int v = wrap_add(src[j], src[j + h]);
+      s[j] = v;
+      dst[j] = v;
+    }
+    __syncthreads();
+    dst += h;
+    w = h;
+  }
+  // in place: position j is read and written by the one thread that owns
+  // j; position j + h is only read
+  while (w > 1) {
+    const i64 h = w / 2;
+    for (i64 j = threadIdx.x; j < h; j += blockDim.x) {
+      const int v = wrap_add(s[j], s[j + h]);
+      s[j] = v;
+      dst[j] = v;
+    }
+    __syncthreads();
+    dst += h;
+    w = h;
+  }
+}
+
+extern "C" {
+
+int zk_mm2d(const int* a, const int* b, int* out, const int* consts, i64 T,
+            i64 tile, int chain, void* stream) {
+  if (tile < 1 || chain < 0) return (int)cudaErrorInvalidValue;
+  mm2d_kernel<<<tiles_for(T, tile), THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, out, consts, T, tile, chain);
+  return (int)cudaGetLastError();
+}
+
+int zk_mm3d(const int* a, const int* b, int* out, const int* consts, i64 B,
+            i64 T, i64 tile, i64 blk, void* stream) {
+  if (tile < 1 || blk < 1 || (B + blk - 1) / blk > MAX_GRID_Y)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles_for(T, tile), tiles_for(B, blk));
+  mm3d_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a, b, out, consts,
+                                                          B, T, tile, blk);
+  return (int)cudaGetLastError();
+}
+
+int zk_fold2d(int k, const int* x, int* out, const int* consts, i64 B, i64 h,
+              i64 tile, void* stream) {
+  if (tile < 1 || B > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles_for(h, tile), (unsigned)B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k == 1)
+    fold2d_kernel<1><<<grid, THREADS, 0, s>>>(x, out, consts, B, h, tile);
+  else
+    fold2d_kernel<2><<<grid, THREADS, 0, s>>>(x, out, consts, B, h, tile);
+  return (int)cudaGetLastError();
+}
+
+int zk_add_one(const int* a, int* o, i64 R, i64 T, i64 tile, void* stream) {
+  if (tile < 1) return (int)cudaErrorInvalidValue;
+  add_one_kernel<<<tiles_for(T, tile), COPY_THREADS, 0,
+                   (cudaStream_t)stream>>>(a, o, R, T, tile);
+  return (int)cudaGetLastError();
+}
+
+int zk_fused_upsweep(const int* x, int* out, i64 R, i64 m, void* stream) {
+  if (m < 2 || (m & (m - 1))) return (int)cudaErrorInvalidValue;
+  const i64 ints = m / 2 < UPSWEEP_SMEM_INTS ? m / 2 : UPSWEEP_SMEM_INTS;
+  const int smem = (int)(ints * sizeof(int));
+  cudaError_t rc = cudaFuncSetAttribute(
+      fused_upsweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (rc != cudaSuccess) return (int)rc;
+  fused_upsweep_kernel<<<(unsigned)R, UPSWEEP_THREADS, smem,
+                         (cudaStream_t)stream>>>(x, out, m);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,7 +1,9 @@
 """CUDA kernels over the limb-major core: build, bind, launch, count.
 
-Eight kernels, written by hand for Hopper in ``csrc/lm_kernels.cu`` (the
-first four) and ``csrc/lm_chains.cu``, and one composite of them:
+Thirteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
+(the first four), ``csrc/lm_chains.cu`` (the next four) and
+``csrc/lm_layout.cu`` (the five of the layout experiments), and one
+composite of them:
 
   ============  ============================================  =============
   wrapper       what it computes                              plain version
@@ -14,6 +16,13 @@ first four) and ``csrc/lm_chains.cu``, and one composite of them:
   inv           a^(p-2) = 1/a (inv(0) = 0), Fr or Fq          inv_ref
   mont_chain    a * b^iters, one product after another        mont_chain_ref
   scalar_mul    k*P, shared scalar bits, a base per lane      scalar_mul_ref
+  mm2d          a * b^chain on a flat (21, T) lane axis,      mm2d_ref
+                `tile` lanes per block
+  mm3d          a * b on (B, 21, T), (blk, tile) per block    mm3d_ref
+  fold2d        fold_padd on a flat (rows, B*m) lane axis     fold2d_ref
+  add_one       a + 1, int32 (launch-and-copy floor)          add_one_ref
+  fused_upsweep every level of a halving int32 sum tree in    fused_upsweep_ref
+                one launch
   batch_inv     1/d for every lane: fold_mul tree, one inv,   batch_inv_ref
                 mont_mul walk down (composite, no own kernel)
   ============  ============================================  =============
@@ -46,7 +55,8 @@ import torch
 from .. import ec_lm, lm
 
 PKG = pathlib.Path(__file__).resolve().parents[2]
-SOURCES = [PKG / "csrc" / "lm_kernels.cu", PKG / "csrc" / "lm_chains.cu"]
+SOURCES = [PKG / "csrc" / "lm_kernels.cu", PKG / "csrc" / "lm_chains.cu",
+           PKG / "csrc" / "lm_layout.cu"]
 HEADERS = [PKG / "csrc" / "lm_device.cuh"]
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,7 +65,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"mont_mul": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
             "fold_padd/g2": 0, "fold_padd_aa/g1": 0, "fold_padd_aa/g2": 0,
             "fold_mul": 0, "inv": 0, "mont_chain": 0, "scalar_mul/g1": 0,
-            "scalar_mul/g2": 0}
+            "scalar_mul/g2": 0, "mm2d": 0, "mm3d": 0, "fold2d/g1": 0,
+            "fold2d/g2": 0, "add_one": 0, "fused_upsweep": 0}
 
 
 def reset_launches() -> None:
@@ -116,7 +127,7 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _libs() -> tuple:
-    """(lm_kernels library, lm_chains library), built if need be."""
+    """(lm_kernels, lm_chains, lm_layout) libraries, built if need be."""
     paths = build()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = ctypes.CDLL(str(paths["lm_kernels"]))
@@ -129,11 +140,19 @@ def _libs() -> tuple:
     chains.zk_inv.argtypes = [P, P, P, P, I] + [L] * 5 + [P]
     chains.zk_mont_chain.argtypes = [P, P, P, P, L, I, P]
     chains.zk_scalar_mul.argtypes = [I, P, P, P, P, I, L, P]
+    layout = ctypes.CDLL(str(paths["lm_layout"]))
+    layout.zk_mm2d.argtypes = [P, P, P, P, L, L, I, P]
+    layout.zk_mm3d.argtypes = [P, P, P, P, L, L, L, L, P]
+    layout.zk_fold2d.argtypes = [I, P, P, P, L, L, L, P]
+    layout.zk_add_one.argtypes = [P, P, L, L, L, P]
+    layout.zk_fused_upsweep.argtypes = [P, P, L, L, P]
     for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd,
                lib.zk_fold_padd_aa, chains.zk_fold_mul, chains.zk_inv,
-               chains.zk_mont_chain, chains.zk_scalar_mul):
+               chains.zk_mont_chain, chains.zk_scalar_mul, layout.zk_mm2d,
+               layout.zk_mm3d, layout.zk_fold2d, layout.zk_add_one,
+               layout.zk_fused_upsweep):
         fn.restype = ctypes.c_int
-    return lib, chains
+    return lib, chains, layout
 
 
 def _lib() -> ctypes.CDLL:
@@ -142,6 +161,10 @@ def _lib() -> ctypes.CDLL:
 
 def _chains() -> ctypes.CDLL:
     return _libs()[1]
+
+
+def _layout() -> ctypes.CDLL:
+    return _libs()[2]
 
 
 def _check(rc: int, name: str) -> None:
@@ -484,4 +507,181 @@ def scalar_mul(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
                                      _stream(pts.device))
         _check(rc, "scalar_mul")
         LAUNCHES[f"scalar_mul/{kind}"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the layout experiments: geometry sweeps of the product and the fold, and
+# the two int32 controls
+# ---------------------------------------------------------------------------
+# `tile`, `blk` and `chain` keep the names of the TPU experiments.  On the
+# card `tile` is the number of lanes one BLOCK owns (128 threads for the
+# arithmetic kernels, 256 for the controls, each thread walking
+# tile / threads lanes), `blk` the number of batch rows a block owns, and
+# `chain` a run-time count of products.  Any positive tile is legal: the
+# blocks cover the lane axis by ceiling division and mask the edge.  The
+# plain versions take the same arguments and ignore the geometry.
+
+def _geometry(name: str, **values) -> None:
+    for k, v in values.items():
+        if int(v) != v or v < 1:
+            raise ValueError(f"{name}: {k} must be a positive integer, got "
+                             f"{v!r}")
+
+
+def mm2d_ref(a: torch.Tensor, b: torch.Tensor, tile: int, chain: int,
+             fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    return mont_chain_ref(a, b, chain, fs)
+
+
+def mm2d(a: torch.Tensor, b: torch.Tensor, tile: int, chain: int,
+         fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    """a, b: (21, T) flat lane axis -> a * b^chain, `chain` Montgomery
+    products x <- x*b in one pass (x stays in registers).  tile: lanes per
+    block of 128 threads; the grid has ceil(T / tile) blocks."""
+    _geometry("mm2d", tile=tile)
+    if chain < 0:
+        raise ValueError(f"mm2d: chain must be >= 0, got {chain}")
+    if not _on_card("mm2d", a, b):
+        return mm2d_ref(a, b, tile, chain, fs)
+    if a.dim() != 2 or a.shape[0] != lm.N_LIMBS or a.shape != b.shape:
+        raise ValueError(f"mm2d: expected two (21, T), got {tuple(a.shape)} "
+                         f"{tuple(b.shape)}")
+    consts = _field_consts("mm2d", fs, a.device)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    if out.numel():
+        rc = _layout().zk_mm2d(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               consts.data_ptr(), a.shape[1], tile, chain,
+                               _stream(a.device))
+        _check(rc, "mm2d")
+        LAUNCHES["mm2d"] += 1
+    return out
+
+
+def mm3d_ref(a: torch.Tensor, b: torch.Tensor, tile: int, blk: int,
+             fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    return lm.mont_mul_ref(a, b, fs)
+
+
+def mm3d(a: torch.Tensor, b: torch.Tensor, tile: int, blk: int,
+         fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
+    """a, b: (B, 21, T), same shape -> a * b, one Montgomery product per
+    lane.  A block of 128 threads owns `blk` batch rows by `tile` lanes;
+    the grid is (ceil(T / tile), ceil(B / blk)).  Both operands are read
+    contiguous (lane stride 1, limb stride T), with no stride arguments
+    and no integer division, unlike mont_mul."""
+    _geometry("mm3d", tile=tile, blk=blk)
+    if not _on_card("mm3d", a, b):
+        return mm3d_ref(a, b, tile, blk, fs)
+    if a.dim() != 3 or a.shape[1] != lm.N_LIMBS or a.shape != b.shape:
+        raise ValueError(f"mm3d: expected two (B, 21, T), got "
+                         f"{tuple(a.shape)} {tuple(b.shape)}")
+    consts = _field_consts("mm3d", fs, a.device)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    if out.numel():
+        rc = _layout().zk_mm3d(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               consts.data_ptr(), a.shape[0], a.shape[2],
+                               tile, blk, _stream(a.device))
+        _check(rc, "mm3d")
+        LAUNCHES["mm3d"] += 1
+    return out
+
+
+def _fold2d_args(x: torch.Tensor, kind: str, m: int):
+    rows = ec_lm.ROWS[kind]
+    if x.dim() != 2 or x.shape[0] != rows or m < 2 or m % 2 or \
+            x.shape[1] % m:
+        raise ValueError(f"fold2d: expected ({rows}, B*m) with m even, got "
+                         f"{tuple(x.shape)}, m={m}")
+    return rows, x.shape[1] // m, m // 2
+
+
+def fold2d_ref(x: torch.Tensor, tile: int, kind: str,
+               m: int) -> torch.Tensor:
+    rows, B, h = _fold2d_args(x, kind, m)
+    seg = x.reshape(rows, B, m)
+    return padd_ref(seg[..., :h].reshape(rows, B * h),
+                    seg[..., h:].reshape(rows, B * h), kind)
+
+
+def fold2d(x: torch.Tensor, tile: int, kind: str, m: int) -> torch.Tensor:
+    """x: (rows, B*m) projective points on a FLAT lane axis, B segments of
+    m lanes -> (rows, B*m/2): within each segment b, lane b*m + j is added
+    to lane b*m + m/2 + j (one level of the sum tree).  tile: output lanes
+    per block of 128 threads; the grid is (ceil(m/2 / tile), B)."""
+    k = _k(kind)
+    _geometry("fold2d", tile=tile)
+    rows, B, h = _fold2d_args(x, kind, m)
+    if not _on_card("fold2d", x):
+        return fold2d_ref(x, tile, kind, m)
+    x = x.contiguous()
+    out = torch.empty((rows, B * h), dtype=torch.int32, device=x.device)
+    if out.numel():
+        consts = lm.const(_EC_CONSTS, x.device)
+        rc = _layout().zk_fold2d(k, x.data_ptr(), out.data_ptr(),
+                                 consts.data_ptr(), B, h, tile,
+                                 _stream(x.device))
+        _check(rc, "fold2d")
+        LAUNCHES[f"fold2d/{kind}"] += 1
+    return out
+
+
+def add_one_ref(a: torch.Tensor, tile: int) -> torch.Tensor:
+    return a + 1
+
+
+def add_one(a: torch.Tensor, tile: int) -> torch.Tensor:
+    """a: (R, T) int32 -> a + 1 (wrapping): no arithmetic to speak of, so
+    its time is what a launch through this binding and one pass over
+    device memory cost.  tile: lanes per block of 256 threads, each block
+    owning an (R, tile) column block."""
+    _geometry("add_one", tile=tile)
+    if not _on_card("add_one", a):
+        return add_one_ref(a, tile)
+    if a.dim() != 2:
+        raise ValueError(f"add_one: expected (R, T), got {tuple(a.shape)}")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    if out.numel():
+        rc = _layout().zk_add_one(a.data_ptr(), out.data_ptr(), a.shape[0],
+                                  a.shape[1], tile, _stream(a.device))
+        _check(rc, "add_one")
+        LAUNCHES["add_one"] += 1
+    return out
+
+
+def _upsweep_args(x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.shape[1] < 2 or x.shape[1] & (x.shape[1] - 1):
+        raise ValueError(f"fused_upsweep: expected (R, power of two >= 2), "
+                         f"got {tuple(x.shape)}")
+
+
+def fused_upsweep_ref(x: torch.Tensor, tile: int = 512) -> torch.Tensor:
+    _upsweep_args(x)
+    outs = []
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+        outs.append(x)
+    return torch.cat(outs, -1)
+
+
+def fused_upsweep(x: torch.Tensor, tile: int = 512) -> torch.Tensor:
+    """x: (R, m) int32, m a power of two -> (R, m - 1): every level of
+    the halving sum tree (widths m/2, m/4, ..., 1, wrapping adds) side by
+    side, in ONE kernel launch, one block per row.  `tile` is unused, as
+    in the TPU experiment's kernel; it is kept so the call reads the same."""
+    if not _on_card("fused_upsweep", x):
+        return fused_upsweep_ref(x, tile)
+    _upsweep_args(x)
+    x = x.contiguous()
+    R, m = x.shape
+    out = torch.empty((R, m - 1), dtype=torch.int32, device=x.device)
+    if out.numel():
+        rc = _layout().zk_fused_upsweep(x.data_ptr(), out.data_ptr(), R, m,
+                                        _stream(x.device))
+        _check(rc, "fused_upsweep")
+        LAUNCHES["fused_upsweep"] += 1
     return out

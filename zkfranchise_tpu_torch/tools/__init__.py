@@ -1,11 +1,16 @@
-"""Checks of the port's kernels against the host bigint oracle.
+"""Checks of the port's kernels against the host bigint oracle, and the
+layout experiments (geometry sweeps held against the plain versions).
 
     python -m zkfranchise_tpu_torch.tools.verify_kernels [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.verify_lm [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.micro_montmul [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.layout_expt [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.layout_expt2 [--device cpu] [--small]
 
-Each has a ``main(device=None, ...) -> int`` that prints PASS/FAIL lines and
-returns non-zero on any FAIL.  They run on the card unless another device
+    python -m zkfranchise_tpu_torch.tools.prove_from_zkey --zkey F --vk F --nlevels N
+
+Each has a ``main(..., device=None, ...) -> int`` that prints PASS/FAIL lines
+and returns non-zero on any FAIL.  They run on the card unless another device
 is named; on the CPU the kernels' plain versions run (``--small`` keeps
 that short).
 """
@@ -54,3 +59,13 @@ def event_ms(fn, runs: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def check_and_time(failed: list, dev: torch.device, name: str, fn, want,
+                   rate) -> None:
+    """Hold fn() against `want` (exact equality), then, on the card, print
+    its median milliseconds and `rate(ms)`, the tool's own unit."""
+    check(failed, name, torch.equal(fn(), want))
+    if dev.type == "cuda":
+        ms = event_ms(fn)
+        print(f"{name:44s} {ms:9.4f} ms   {rate(ms)}", flush=True)
