@@ -8,8 +8,10 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
   1. prints the toolchain, the card, the build time and each kernel's
      registers and spills (from ``nvcc -Xptxas -v``);
   2. holds every kernel against its plain PyTorch version on the card at
-     the shapes its path gives it, with exact equality (all arithmetic is
-     integer), and times both with CUDA events;
+     the shapes its path gives it (padd at the five plane shapes of
+     tools.padd_shapes), with exact equality (all arithmetic is integer),
+     and times both: whole calls with CUDA events, and the kernel's own
+     device time with torch.profiler;
   3. folds a G1 affine plane of (128, 43, 32768) and a G2 plane of
      (128, 85, 8192) to width 1 with ec_affine.fold_affine (one batch
      inversion per level: the fold_mul, inv and mont_mul kernels) and
@@ -23,7 +25,8 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
   6. drives the main path at nlevels=16, batch 128: CensusCircuit(16),
      dev setup, mock_batch(16, 128, seed=7) -> batch_to_arrays ->
      DeviceProver -> prove_batch(seed=1), then a second timed prove_arrays
-     with per-stage seconds, proofs/s and peak device memory, and verifies
+     with per-stage seconds, proofs/s and peak device memory (and padd's
+     launches by plane shape in the first), and verifies
      sampled proofs against the committed dev/16 verification key (a
      cross-voter check and a tampered signal must be rejected);
   7. drives the serving path at the same width: the dev key is exported
@@ -243,7 +246,8 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
-    from zkfranchise_tpu_torch.tools import event_ms
+    from zkfranchise_tpu_torch.tools import device_ms, event_ms
+    from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
 
     rng = np.random.default_rng(2024)
     results, table = {}, {}
@@ -253,7 +257,9 @@ def phase_kernels(np, torch, K, dev) -> dict:
               library=None):
         """library: one PyTorch call (or the honest chain of them) that
         computes the same function; timed beside the kernel, held against
-        the plain version too, and used nowhere in the port."""
+        the plain version too, and used nowhere in the port.  ms is a whole
+        call (CUDA events, the wrapper's host time included), device_ms
+        the kernels' own time per call (torch.profiler)."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -261,22 +267,28 @@ def phase_kernels(np, torch, K, dev) -> dict:
         err = int((got.long() - want.long()).abs().max().item())
         del got
         ms = event_ms(kernel)
+        dev_ms = device_ms(kernel)
         # a plain version of hundreds of chained steps is timed once
         plain_ms = event_ms(plain, runs=plain_runs,
                             warmup=2 if plain_runs > 1 else 0)
-        library_ms = None
+        library_ms = library_dev_ms = None
         if library is not None:
             if not torch.equal(library(), want):
                 raise AssertionError(f"{name}: the library call differs "
                                      f"from the plain version")
             library_ms = event_ms(library)
+            library_dev_ms = device_ms(library)
         b_ms, b_by = bound(nbytes, mads)
-        results[name] = {"equal": equal, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "library_ms": library_ms}
+        results[name] = {"equal": equal, "ms": ms, "device_ms": dev_ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "library_ms": library_ms,
+                         "library_device_ms": library_dev_ms}
         if key is not None:
             table[key] = {"shape": name, "max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": library_ms}
+                          "device_ms": dev_ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": library_ms,
+                          "library_device_ms": library_dev_ms}
         if not equal:
             raise AssertionError(f"{name}: kernel differs from plain version "
                                  f"(max abs err {err})")
@@ -294,14 +306,25 @@ def phase_kernels(np, torch, K, dev) -> dict:
                   MAD_MONT * a.numel() / 21,
                   "mont_mul" if (fname, bl) == ("fr", 1) else None)
 
+    # padd at the shapes the main path launches it with (walk: the
+    # table's row), and the card filled (wide)
+    for kind in ("g1", "g2"):
+        rows = ec_lm.ROWS[kind]
+        for sname, Bp, Tp in SHAPES:
+            p, q = padd_inputs(kind, Bp, Tp, rng, dev)
+            key = "padd" if sname == "walk" else f"padd/{sname}"
+            if kind == "g2":
+                key = "padd/g2" if sname == "walk" else f"{key}/g2"
+            check(f"padd/{kind}/{sname}/{Bp}x{rows}x{Tp}",
+                  lambda: K.padd(p, q, kind), lambda: K.padd_ref(p, q, kind),
+                  4 * 3 * rows * Bp * Tp, MADS[("padd", kind)] * Bp * Tp,
+                  key)
+            del p, q
     B, m = 128, 2048
     for kind in ("g1", "g2"):
         rows, arows = ec_lm.ROWS[kind], ec_affine.AROWS[kind]
         p, q, a = _point_inputs(np, torch, rng, kind, B, m, dev)
         key = (lambda k: k) if kind == "g1" else (lambda k: f"{k}/g2")
-        check(f"padd/{kind}/{B}x{rows}x{m}", lambda: K.padd(p, q, kind),
-              lambda: K.padd_ref(p, q, kind), 4 * 3 * rows * B * m,
-              MADS[("padd", kind)] * B * m, key("padd"))
         x = torch.cat([p[..., :m // 2], q[..., :m // 2]], -1).contiguous()
         check(f"fold_padd/{kind}/{B}x{rows}x{m}",
               lambda: K.fold_padd(x, kind),
@@ -620,7 +643,8 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
     launches = dict(K.LAUNCHES)
     emit({"phase": "main_path", "inputs_s": inputs_s,
           "prover_init_s": prover_init_s, "first_prove_batch_s": first_s,
-          "proofs": len(proofs), "launches": launches})
+          "proofs": len(proofs), "launches": launches,
+          "padd_launches_by_shape": dict(sorted(K.PADD_SHAPES.items()))})
     require_launches("main_path", launches)
 
     # second, timed run: per-stage seconds, launches per prove_arrays

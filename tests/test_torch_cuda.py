@@ -11,6 +11,7 @@ import torch
 
 from zkfranchise_tpu_torch.ops import ec, ec_affine, ec_lm, lm, msm_lm
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
+from zkfranchise_tpu_torch.tools.padd_shapes import padd_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +67,31 @@ def test_ec_kernels(dev, kind):
                         device=dev)
     a = torch.cat([a, a.flip(-1)], -1)
     assert torch.equal(K.fold_padd_aa(a, kind), K.fold_padd_aa_ref(a, kind))
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 32), (1, 128), (128, 1),
+                                 (128, 32), (128, 128), (3, 45)])
+def test_padd_at_main_path_widths(dev, kind, B, T):
+    """Widths 1, 32 and 128 with one and 128 batch rows (and a ragged
+    block); identity, doubling and P + (-P) adds mixed in."""
+    p, q = padd_inputs(kind, B, T, np.random.default_rng(14), dev)
+    K.reset_launches()
+    got = K.padd(p, q, kind)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), f"padd/{kind}": 1}
+    assert K.PADD_SHAPES == {f"{kind}/B{B}/T{T}": 1}
+    assert torch.equal(got, K.padd_ref(p, q, kind))
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_padd_reads_broadcast_and_strided_operands(dev, kind):
+    p, q = padd_inputs(kind, 4, 40, np.random.default_rng(15), dev)
+    col = q[0, :, 5:6]                      # one point for every add
+    plane = q[1:2]                          # one plane for every batch row
+    strided = p.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    for a, b in ((p, col), (col, p), (p, plane), (p[0], q[..., 3:4]),
+                 (strided, q), (p[..., ::2], q[..., 1::2])):
+        assert torch.equal(K.padd(a, b, kind), K.padd_ref(a, b, kind))
 
 
 def _limbs(rng, shape, dev):
@@ -214,6 +240,23 @@ def test_add_one(dev, rows, tile):
     K.reset_launches()
     assert torch.equal(K.add_one(a, tile), K.add_one_ref(a, tile))
     assert K.LAUNCHES["add_one"] == 1
+
+
+@pytest.mark.parametrize("T", [3001, 4099])
+@pytest.mark.parametrize("tile", [1, 3, 100, 512])
+def test_add_one_heads_and_tails(dev, tile, T):
+    """T not a multiple of 4: rows start off a 16-byte boundary, so each
+    block's rows have scalar heads and tails around the int4 body; and a
+    view one int off the output's alignment takes the scalar path."""
+    rng = np.random.default_rng(16)
+    flat = torch.as_tensor(rng.integers(-2**31, 2**31, 21 * T + 1,
+                                        dtype=np.int64).astype(np.int32),
+                           device=dev)
+    flat[T + 7] = 2**31 - 1                                 # wraps
+    for a in (flat[:21 * T].view(21, T), flat[1:].view(21, T)):
+        K.reset_launches()
+        assert torch.equal(K.add_one(a, tile), K.add_one_ref(a, tile))
+        assert K.LAUNCHES["add_one"] == 1
 
 
 @pytest.mark.parametrize("m", [2, 1024, 1 << 16, 1 << 18])

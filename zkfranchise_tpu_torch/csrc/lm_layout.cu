@@ -11,7 +11,8 @@
 //                        fold level on a FLAT lane axis (rows, B*m): lane
 //                        b*m + j plus lane b*m + m/2 + j, per segment b
 //   zk_add_one        <- pallas_id (scripts/layout_expt2.py): o = a + 1,
-//                        the launch-and-copy floor of this binding
+//                        the launch-and-copy floor of this binding; 16-byte
+//                        int4 loads and stores
 //   zk_fused_upsweep  <- fused_upsweep (scripts/layout_expt2.py, its
 //                        mono_kernel): every level of a halving int32 sum
 //                        tree in ONE launch; the output row is the
@@ -32,7 +33,16 @@
 //
 // What bounds them on an H100: mm2d, mm3d and fold2d are bound by integer
 // multiply-adds like the production kernels (1,113 per product, 13,566 per
-// G1 add, 39,480 per G2 add); add_one and fused_upsweep by bytes.
+// G1 add, 39,480 per G2 add; fold2d adds with the one-thread padd_point of
+// lm_device.cuh, not the cooperative padd of lm_kernels.cu); add_one and
+// fused_upsweep by bytes.  add_one moves 16 bytes per access: each row's
+// part of a block's lanes is a scalar head up to the first 16-byte
+// boundary, a body of int4s and a scalar tail (any T and tile stay legal),
+// a thread puts COPY_UNROLL int4 loads in flight before its stores, and
+// the indices are 32-bit when R*T < 2^31.  What is left against a flat
+// copy is the tile itself: a block streams 21 separate runs of `tile`
+// lanes, one per row, and with 8,192 lanes a block there are only 128
+// blocks for 132 SMs.
 // fused_upsweep gives one block to each row: level 1 is read straight
 // from device memory (a 65,536-lane int32 row is 256 KB, more than a
 // block's 227 KB of shared memory), its 128 KB result is kept in dynamic
@@ -47,6 +57,8 @@
 #include "lm_device.cuh"
 
 #define COPY_THREADS 256
+// int4s in flight per thread in add_one
+#define COPY_UNROLL 8
 #define UPSWEEP_THREADS 1024
 // widest level kept in shared memory: 32,768 ints = 128 KB
 #define UPSWEEP_SMEM_INTS 32768
@@ -138,23 +150,87 @@ fold2d_kernel(const int* __restrict__ x, int* __restrict__ out,
   }
 }
 
-// o (R, T) = a + 1 (wrapping), both contiguous; block i owns the (R, tile)
-// column block of lanes [i*tile, (i+1)*tile)
-__global__ void __launch_bounds__(COPY_THREADS)
-add_one_kernel(const int* __restrict__ a, int* __restrict__ o, i64 R, i64 T,
-               i64 tile) {
-  const i64 lane0 = (i64)blockIdx.x * tile;
-  for (i64 r = 0; r < R; ++r) {
-    for (i64 l = threadIdx.x; l < tile; l += blockDim.x) {
-      const i64 t = lane0 + l;
-      if (t >= T) break;
-      o[r * T + t] = (int)((unsigned)a[r * T + t] + 1u);
-    }
-  }
-}
-
 __device__ __forceinline__ int wrap_add(int u, int v) {
   return (int)((unsigned)u + (unsigned)v);
+}
+
+// o (R, T) = a + 1 (wrapping), both contiguous; block i owns the (R, tile)
+// column block of lanes [i*tile, (i+1)*tile).  Index type I: unsigned when
+// R*T < 2^31, else 64-bit.  With VEC, a and o share their offset `mis`
+// (ints past a 16-byte boundary), and each row's segment is a scalar head
+// up to the first 16-byte boundary, a body of int4s and a scalar tail;
+// the block's int4s are dealt out row after row, COPY_UNROLL of them in
+// flight per thread before its stores.  Without VEC every int is scalar.
+template <typename I, bool VEC>
+__global__ void __launch_bounds__(COPY_THREADS)
+add_one_kernel(const int* __restrict__ a, int* __restrict__ o, I R, I T,
+               I tile, I mis) {
+  const I lane0 = (I)blockIdx.x * tile;
+  const I len = T - lane0 < tile ? T - lane0 : tile;
+  if (!VEC) {
+    for (I r = 0; r < R; ++r)
+      for (I l = threadIdx.x; l < len; l += COPY_THREADS)
+        o[r * T + lane0 + l] = wrap_add(a[r * T + lane0 + l], 1);
+    return;
+  }
+  // head, int4 count and tail of row r's segment, which starts at e
+  auto split = [&](I e, I& head, I& n4) {
+    head = (4 - ((e + mis) & 3)) & 3;
+    if (head > len) head = len;
+    n4 = (len - head) >> 2;
+  };
+  const I N4 = len >> 2;  // the most int4s a row can hold
+  if (N4 > 0) {
+    const I units = R * N4;
+    I r = threadIdx.x / N4, v = threadIdx.x % N4;
+    const I dr = COPY_THREADS / N4, dv = COPY_THREADS % N4;
+    for (I u = threadIdx.x; u < units; u += COPY_UNROLL * COPY_THREADS) {
+      int4 val[COPY_UNROLL];
+      I idx[COPY_UNROLL];
+      bool ok[COPY_UNROLL];
+#pragma unroll
+      for (int i = 0; i < COPY_UNROLL; ++i) {
+        const I e = r * T + lane0;
+        I head, n4;
+        split(e, head, n4);
+        ok[i] = u + i * COPY_THREADS < units && v < n4;
+        idx[i] = e + head + 4 * v;
+        if (ok[i]) val[i] = *reinterpret_cast<const int4*>(a + idx[i]);
+        v += dv;
+        r += dr;
+        if (v >= N4) {
+          v -= N4;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < COPY_UNROLL; ++i) {
+        if (!ok[i]) continue;
+        int4 x = val[i];
+        x.x = wrap_add(x.x, 1);
+        x.y = wrap_add(x.y, 1);
+        x.z = wrap_add(x.z, 1);
+        x.w = wrap_add(x.w, 1);
+        *reinterpret_cast<int4*>(o + idx[i]) = x;
+      }
+    }
+  }
+  // the heads and tails: at most 3 + 3 ints a row
+  for (I u = threadIdx.x; u < R * 8; u += COPY_THREADS) {
+    const I r = u >> 3, i = u & 7;
+    const I e = r * T + lane0;
+    I head, n4;
+    split(e, head, n4);
+    const I tail = len - head - 4 * n4;
+    I k;
+    if (i < 3 && i < head)
+      k = e + i;
+    else if (i >= 4 && i - 4 < tail)
+      k = e + head + 4 * n4 + (i - 4);
+    else
+      continue;
+    o[k] = wrap_add(a[k], 1);
+  }
 }
 
 // out (R, m-1) = [level 1 | level 2 | ... | level log2(m)] of the halving
@@ -238,8 +314,26 @@ int zk_fold2d(int k, const int* x, int* out, const int* consts, i64 B, i64 h,
 
 int zk_add_one(const int* a, int* o, i64 R, i64 T, i64 tile, void* stream) {
   if (tile < 1) return (int)cudaErrorInvalidValue;
-  add_one_kernel<<<tiles_for(T, tile), COPY_THREADS, 0,
-                   (cudaStream_t)stream>>>(a, o, R, T, tile);
+  const unsigned blocks = tiles_for(T, tile);
+  if (tile > T) tile = T;  // one block either way
+  const i64 mis = ((uintptr_t)a >> 2) & 3;
+  const bool vec = (((uintptr_t)a ^ (uintptr_t)o) & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (R * T < ((i64)1 << 31)) {
+    typedef unsigned U;
+    if (vec)
+      add_one_kernel<U, true><<<blocks, COPY_THREADS, 0, s>>>(
+          a, o, (U)R, (U)T, (U)tile, (U)mis);
+    else
+      add_one_kernel<U, false><<<blocks, COPY_THREADS, 0, s>>>(
+          a, o, (U)R, (U)T, (U)tile, (U)mis);
+  } else if (vec) {
+    add_one_kernel<i64, true><<<blocks, COPY_THREADS, 0, s>>>(a, o, R, T,
+                                                              tile, mis);
+  } else {
+    add_one_kernel<i64, false><<<blocks, COPY_THREADS, 0, s>>>(a, o, R, T,
+                                                               tile, mis);
+  }
   return (int)cudaGetLastError();
 }
 

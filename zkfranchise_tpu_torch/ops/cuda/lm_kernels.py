@@ -37,7 +37,8 @@ at the same time), into ``zkfranchise_tpu_torch/build/`` under a name
 keyed by a hash of the source and the shared header (an edit rebuilds),
 and loaded with ctypes.  Each wrapper adds one to its ``LAUNCHES`` entry
 per kernel launch and nowhere else; the EC kernels count G1 and G2 apart
-(``"padd/g1"``, ``"padd/g2"``).
+(``"padd/g1"``, ``"padd/g2"``), and ``PADD_SHAPES`` counts padd's launches
+by plane shape.
 """
 from __future__ import annotations
 
@@ -67,11 +68,15 @@ LAUNCHES = {"mont_mul": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
             "fold_mul": 0, "inv": 0, "mont_chain": 0, "scalar_mul/g1": 0,
             "scalar_mul/g2": 0, "mm2d": 0, "mm3d": 0, "fold2d/g1": 0,
             "fold2d/g2": 0, "add_one": 0, "fused_upsweep": 0}
+# padd launches by plane shape: "g1/B128/T1" counts G1 launches on
+# (128, 63, 1) planes (B adds per lane, T lanes)
+PADD_SHAPES: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    PADD_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +137,7 @@ def _libs() -> tuple:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = ctypes.CDLL(str(paths["lm_kernels"]))
     lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 14 + [P]
-    lib.zk_padd.argtypes = [I, P, P, P, P] + [L] * 6 + [P]
+    lib.zk_padd.argtypes = [I, P, P, P] + [L] * 8 + [P]
     lib.zk_fold_padd.argtypes = [I, P, P, P, L, L, P]
     lib.zk_fold_padd_aa.argtypes = [I, P, P, P, L, L, P]
     chains = ctypes.CDLL(str(paths["lm_chains"]))
@@ -279,8 +284,9 @@ def _k(kind: str) -> int:
 
 def padd(p: torch.Tensor, q: torch.Tensor, kind: str) -> torch.Tensor:
     """p, q: (..., rows, T) projective planes (broadcastable) -> p + q.
-    On the card both are expanded to the common shape and made
-    contiguous (broadcast operands here are single points or small)."""
+    On the card the kernel reads both through their strides as (B, rows,
+    T) views, so a broadcast operand (one point, one column) is read in
+    place; only batch dims that do not merge into one are copied."""
     k = _k(kind)
     if not _on_card("padd", p, q):
         return padd_ref(p, q, kind)
@@ -289,17 +295,18 @@ def padd(p: torch.Tensor, q: torch.Tensor, kind: str) -> torch.Tensor:
     if shape[-2] != rows:
         raise ValueError(f"padd: {kind} planes have {rows} rows: {shape}")
     T = shape[-1]
-    pe = p.expand(shape).reshape(-1, rows, T).contiguous()
-    qe = q.expand(shape).reshape(-1, rows, T).contiguous()
+    pe = p.expand(shape).reshape(-1, rows, T)
+    qe = q.expand(shape).reshape(-1, rows, T)
     B = pe.shape[0]
     out = torch.empty((B, rows, T), dtype=torch.int32, device=p.device)
     if out.numel():
-        consts = lm.const(_EC_CONSTS, p.device)
         rc = _lib().zk_padd(k, pe.data_ptr(), qe.data_ptr(), out.data_ptr(),
-                            consts.data_ptr(), B, T, rows * T, T, rows * T,
-                            T, _stream(p.device))
+                            B, T, *pe.stride(), *qe.stride(),
+                            _stream(p.device))
         _check(rc, "padd")
         LAUNCHES[f"padd/{kind}"] += 1
+        key = f"{kind}/B{B}/T{T}"
+        PADD_SHAPES[key] = PADD_SHAPES.get(key, 0) + 1
     return out.reshape(shape)
 
 
@@ -635,8 +642,9 @@ def add_one_ref(a: torch.Tensor, tile: int) -> torch.Tensor:
 def add_one(a: torch.Tensor, tile: int) -> torch.Tensor:
     """a: (R, T) int32 -> a + 1 (wrapping): no arithmetic to speak of, so
     its time is what a launch through this binding and one pass over
-    device memory cost.  tile: lanes per block of 256 threads, each block
-    owning an (R, tile) column block."""
+    device memory cost (16-byte accesses where the rows allow).  tile:
+    lanes per block of 256 threads, each block owning an (R, tile) column
+    block."""
     _geometry("add_one", tile=tile)
     if not _on_card("add_one", a):
         return add_one_ref(a, tile)

@@ -6,6 +6,7 @@ layout experiments (geometry sweeps held against the plain versions).
     python -m zkfranchise_tpu_torch.tools.micro_montmul [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.layout_expt [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.layout_expt2 [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.padd_shapes [--device cpu] [--small]
 
     python -m zkfranchise_tpu_torch.tools.prove_from_zkey --zkey F --vk F --nlevels N
 
@@ -61,11 +62,31 @@ def event_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, runs: int = 20) -> float:
+    """Mean device milliseconds per call of `fn`: the summed durations of
+    the CUDA kernels it launched, from torch.profiler, so the host's time
+    between launches is left out (it dominates a call of a few
+    microseconds of device work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.device_time_total for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / runs / 1e3
+
+
 def check_and_time(failed: list, dev: torch.device, name: str, fn, want,
                    rate) -> None:
     """Hold fn() against `want` (exact equality), then, on the card, print
-    its median milliseconds and `rate(ms)`, the tool's own unit."""
+    its median milliseconds, `rate(ms)` (the tool's own unit) and the
+    kernels' own device milliseconds per call."""
     check(failed, name, torch.equal(fn(), want))
     if dev.type == "cuda":
         ms = event_ms(fn)
-        print(f"{name:44s} {ms:9.4f} ms   {rate(ms)}", flush=True)
+        print(f"{name:44s} {ms:9.4f} ms   {rate(ms)}   device "
+              f"{device_ms(fn):.4f} ms", flush=True)
