@@ -5,13 +5,17 @@
 
 Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
 
-  1. prints the toolchain, the card, the build time and each kernel's
-     registers and spills (from ``nvcc -Xptxas -v``);
+  1. prints the toolchain, the card, the build time, each kernel's
+     registers and spills (from ``nvcc -Xptxas -v``; a cooperative add
+     that spills fails the run), the resident blocks per SM of the
+     cooperative kernels and their SASS instruction mix;
   2. holds every kernel against its plain PyTorch version on the card at
      the shapes its path gives it (padd at the five plane shapes of
-     tools.padd_shapes), with exact equality (all arithmetic is integer),
-     and times both: whole calls with CUDA events, and the kernel's own
-     device time with torch.profiler;
+     tools.padd_shapes, the folds at every width of the sum tree and at
+     every several-level launch of its plan, tools.fold_shapes), with
+     exact equality (all arithmetic is integer), and times both: whole
+     calls with CUDA events, and the kernel's own device time with
+     torch.profiler;
   3. folds a G1 affine plane of (128, 43, 32768) and a G2 plane of
      (128, 85, 8192) to width 1 with ec_affine.fold_affine (one batch
      inversion per level: the fold_mul, inv and mont_mul kernels) and
@@ -25,8 +29,9 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
   6. drives the main path at nlevels=16, batch 128: CensusCircuit(16),
      dev setup, mock_batch(16, 128, seed=7) -> batch_to_arrays ->
      DeviceProver -> prove_batch(seed=1), then a second timed prove_arrays
-     with per-stage seconds, proofs/s and peak device memory (and padd's
-     launches by plane shape in the first), and verifies
+     with per-stage seconds, proofs/s and peak device memory (and the
+     launches of padd and of the folds by shape in the first, the folds'
+     held against the count from the MSM plan), and verifies
      sampled proofs against the committed dev/16 verification key (a
      cross-voter check and a tampered signal must be rejected);
   7. drives the serving path at the same width: the dev key is exported
@@ -185,13 +190,25 @@ def phase_toolchain(torch, K) -> None:
         if m and func:
             resources.setdefault(func, {}).update(
                 spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+    from zkfranchise_tpu_torch.tools.fold_shapes import sass_mix
+
+    cooperative = ("add_kernel", "fold_levels_kernel", "prod")
+    mix = {name: m for name, m in sass_mix(libs["lm_kernels"]).items()
+           if any(c in name for c in cooperative)}
     emit({"phase": "toolchain", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc[-1], "nvidia_smi": smi_line(),
           "device": torch.cuda.get_device_name(0),
           "kernel_build_s": build_s,
           "libraries": [lib.name for lib in libs.values()],
-          "ptxas": resources})
+          "ptxas": resources,
+          "resident_blocks_per_sm": {n: K.occupancy(n) for n in (1, 2, 3)},
+          "sass_mix": mix})
+    spills = {f: r for f, r in resources.items()
+              if any(c in f for c in cooperative) and
+              (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
+    if spills:
+        raise AssertionError(f"cooperative adds spill: {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +264,7 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
     from zkfranchise_tpu_torch.tools import device_ms, event_ms
+    from zkfranchise_tpu_torch.tools import fold_shapes
     from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
 
     rng = np.random.default_rng(2024)
@@ -339,6 +357,19 @@ def phase_kernels(np, torch, K, dev) -> dict:
         del p, q, a, x
         torch.cuda.empty_cache()
 
+    # the folds at every width of the main path's sum tree, one level and
+    # as the plan launches them, and at ragged widths and one batch row
+    failed: list = []
+    edges = [("fold", "g1", 1, 33), ("aa", "g1", 1, 33),
+             ("fold", "g2", 1, 33), ("aa", "g2", 1, 33)]
+    edge_levels = [("g1", 3, 12, 3), ("g1", 1, 33, 1), ("g2", 32, 256, 2)]
+    fold_results = fold_shapes.run(dev, fold_shapes.SHAPES + edges,
+                                   fold_shapes.LEVELS + edge_levels, failed)
+    if failed:
+        raise AssertionError(f"folds differ from their plain versions: "
+                             f"{failed}")
+    torch.cuda.empty_cache()
+
     # the batch inversion at the width of the affine tree's level 0
     x = torch.as_tensor(_random_limbs(np, rng, (B, 21, 32768)), device=dev)
     check(f"fold_mul/fq/{B}x21x32768", lambda: K.fold_mul(x, lm.FQ),
@@ -380,7 +411,8 @@ def phase_kernels(np, torch, K, dev) -> dict:
               plain_runs=1)
     torch.cuda.empty_cache()
     _layout_kernels(np, torch, K, dev, rng, check)
-    emit({"phase": "kernels", "kernels": results})
+    emit({"phase": "kernels", "kernels": results,
+          "fold_shapes": fold_results})
     return table
 
 
@@ -605,7 +637,7 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
     from zkfranchise_tpu_torch.groth16 import verify as gverify
     from zkfranchise_tpu_torch.groth16.device import DeviceProver
     from zkfranchise_tpu_torch.models.census import CensusCircuit
-    from zkfranchise_tpu_torch.ops import lm
+    from zkfranchise_tpu_torch.ops import lm, msm_lm
     from zkfranchise_tpu_torch.utils import native
 
     if not native.available():
@@ -641,11 +673,23 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    folds = dict(sorted(K.FOLD_SHAPES.items()))
+    planned: dict = {}
+    for tab, kind in ((prover.a_tab, "g1"), (prover.b1_tab, "g1"),
+                      (prover.b2_tab, "g2"), (prover.c_tab, "g1")):
+        for key, v in msm_lm.msm_fold_launches(
+                tab.shape[0], BATCH, kind, prover.window_group).items():
+            planned[key] = planned.get(key, 0) + v
     emit({"phase": "main_path", "inputs_s": inputs_s,
           "prover_init_s": prover_init_s, "first_prove_batch_s": first_s,
           "proofs": len(proofs), "launches": launches,
-          "padd_launches_by_shape": dict(sorted(K.PADD_SHAPES.items()))})
+          "padd_launches_by_shape": dict(sorted(K.PADD_SHAPES.items())),
+          "fold_launches_by_shape": folds,
+          "fold_launches": sum(folds.values())})
     require_launches("main_path", launches)
+    if folds != dict(sorted(planned.items())):
+        raise AssertionError(f"fold launches differ from the MSM plan's "
+                             f"count: {planned}")
 
     # second, timed run: per-stage seconds, launches per prove_arrays
     rng = np.random.default_rng(2)
@@ -705,6 +749,10 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
             kernels[name] = kernels.get(name, 0.0) + ev.device_time_total
     busy_s = sum(kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    # the sum tree's kernels: fold_padd (every level count) and the mixed
+    # add of fold_padd_aa
+    folds = {k: v / 1e6 for k, v in kernels.items()
+             if "fold_levels_kernel" in k or "PaddAa" in k}
     step_s = sum(v for k, v in stages.items() if k != "finalize")
     emit({"phase": "profile", "profiled_wall_s": wall_s,
           "device_busy_s": busy_s, "unprofiled_step_s": step_s,
@@ -712,7 +760,8 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
           "device_events": sum(1 for ev in prof.events()
                                if ev.device_type ==
                                torch.autograd.DeviceType.CUDA),
-          "top_kernels_s": {k: v / 1e6 for k, v in top}})
+          "top_kernels_s": {k: v / 1e6 for k, v in top},
+          "fold_kernels_s": folds, "fold_total_s": sum(folds.values())})
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ import torch
 
 from zkfranchise_tpu_torch.ops import ec, ec_affine, ec_lm, lm, msm_lm
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
+from zkfranchise_tpu_torch.tools.fold_shapes import fold_inputs
 from zkfranchise_tpu_torch.tools.padd_shapes import padd_inputs
 
 pytestmark = pytest.mark.cuda
@@ -92,6 +93,45 @@ def test_padd_reads_broadcast_and_strided_operands(dev, kind):
     for a, b in ((p, col), (col, p), (p, plane), (p[0], q[..., 3:4]),
                  (strided, q), (p[..., ::2], q[..., 1::2])):
         assert torch.equal(K.padd(a, b, kind), K.padd_ref(a, b, kind))
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("form", ["fold", "aa"])
+@pytest.mark.parametrize("B", [1, 32, 128])
+@pytest.mark.parametrize("h", [1, 33, 128, 1024])
+def test_fold_forms_at_widths(dev, kind, form, B, h):
+    """fold_padd and fold_padd_aa, one launch each, with identity (an
+    infinity flag), doubling and P + (-P) pairs mixed in."""
+    x = fold_inputs(form, kind, B, 2 * h, np.random.default_rng(16), dev)
+    fn = K.fold_padd if form == "fold" else K.fold_padd_aa
+    ref = K.fold_padd_ref if form == "fold" else K.fold_padd_aa_ref
+    K.reset_launches()
+    got = fn(x, kind)
+    name = "fold_padd" if form == "fold" else "fold_padd_aa"
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), f"{name}/{kind}": 1}
+    assert K.FOLD_SHAPES == {f"{name}/{kind}/B{B}/h{h}/n1": 1}
+    assert torch.equal(got, ref(x, kind))
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("B", [1, 32, 128])
+@pytest.mark.parametrize("h", [1, 33, 128, 1024])
+def test_fold_padd_levels_launches(dev, kind, B, h):
+    """Every level count the width allows up to 3, and the most it allows
+    (h = 1024: 11 levels, down to width 1), in one launch each, or in as
+    many as it needs (G1 3 levels a launch, G2 1)."""
+    m = 2 * h
+    top = (m & -m).bit_length() - 1                # m % 2^n == 0 up to top
+    x = fold_inputs("fold", kind, B, m, np.random.default_rng(17), dev)
+    want = K.fold_padd_levels_ref(x, kind, top)
+    for n in sorted({1, 2, 3, top} & set(range(1, top + 1))):
+        K.reset_launches()
+        got = K.fold_padd_levels(x, kind, n)
+        assert K.LAUNCHES[f"fold_padd/{kind}"] == \
+            -(-n // K.FOLD_LEVELS[kind])
+        assert len(got) == n
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def _limbs(rng, shape, dev):

@@ -70,7 +70,7 @@ def test_padd_constants_equal_the_packed_block():
     arrays = _constant_arrays()
     assert arrays == {"FQ_P": row["p"], "FQ_NP": row["np"],
                       "FQ_SUBD": row["sub_d"], "FQ_SUBD2": row["sub_d2"],
-                      "EC_B3G1": row["b3g1"],
+                      "FQ_ONE": row["one"], "EC_B3G1": row["b3g1"],
                       "EC_B3G2": row["b3g2_re"] + row["b3g2_im"]}
 
 

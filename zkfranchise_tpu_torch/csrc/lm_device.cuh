@@ -336,63 +336,6 @@ __device__ __forceinline__ void padd_point(const int* P, i64 prs,
   }
 }
 
-// RCB15 for two AFFINE inputs, Z1 = Z2 = 1, with the mask-row selection
-// of ec_lm.padd_aa.  Affine rows: x (K*21), y (K*21), inf (1).
-template <int K>
-__device__ __forceinline__ void padd_aa_point(const int* P, const int* Q,
-                                              i64 rs, int* O, i64 ors,
-                                              const int* C) {
-  constexpr int W = K * NL;
-  int x1[W], y1[W], x2[W], y2[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    x1[k] = P[k * rs];
-    y1[k] = P[(W + k) * rs];
-    x2[k] = Q[k * rs];
-    y2[k] = Q[(W + k) * rs];
-  }
-  const bool inf1 = P[2 * W * rs] == 1;
-  const bool inf2 = Q[2 * W * rs] == 1;
-  int t0[W], t1[W], pa[W], s[W], r[W];
-  fmul<K>(x1, x2, C, t0);
-  fmul<K>(y1, y2, C, t1);
-  add_n<K>(x1, y1, s);
-  add_n<K>(x2, y2, r);
-  fmul<K>(s, r, C, pa);
-  int t3[W], t4[W], y3[W], x3[W];
-  add_n<K>(t0, t1, s);
-  sub_n<K>(pa, s, C, t3);
-  add_n<K>(y1, y2, t4);
-  add_n<K>(x1, x2, y3);
-#pragma unroll
-  for (int k = 0; k < W; ++k) x3[k] = t0[k] + t0[k] + t0[k];
-  weak_norm<W>(x3);
-  const int* b3 = C + (K == 1 ? C_B3G1 : C_B3G2);
-  int y3b[W], z3[W];
-  fmul<K>(y3, b3, C, y3b);
-  add_n<K>(t1, b3, z3);
-  sub_n<K>(t1, b3, C, s);  // s = new t1
-  int X[W], Y[W], Z[W];
-  round3<K>(t3, t4, y3b, s, z3, x3, C, X, Y, Z);
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    const int onek = k < NL ? C[C_ONE + k] : 0;
-    int xo, yo, zo;
-    if (inf1 && inf2) {
-      xo = 0; yo = onek; zo = 0;
-    } else if (inf1) {
-      xo = x2[k]; yo = y2[k]; zo = onek;
-    } else if (inf2) {
-      xo = x1[k]; yo = y1[k]; zo = onek;
-    } else {
-      xo = X[k]; yo = Y[k]; zo = Z[k];
-    }
-    O[k * ors] = xo;
-    O[(W + k) * ors] = yo;
-    O[(2 * W + k) * ors] = zo;
-  }
-}
-
 __device__ __forceinline__ void stage_consts(const int* g, int* s, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = g[i];
   __syncthreads();

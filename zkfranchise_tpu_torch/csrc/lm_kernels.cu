@@ -9,50 +9,60 @@
 //
 // Kernels and the TPU kernels they replace
 // (zkfranchise_tpu/ops/pallas/lm_kernels.py):
-//   zk_mont_mul      <- mont_mul      (_mont_mul_kernel): a*b*R^-1 mod p
-//   zk_padd          <- padd          (_padd_kernel): p + q, RCB15
-//   zk_fold_padd     <- fold_padd     (_padd_kernel): x[j] + x[j + m/2]
-//   zk_fold_padd_aa  <- fold_padd_aa  (_padd_aa_kernel): affine pair ->
-//                                      projective sum, Z1 = Z2 = 1
+//   zk_mont_mul          <- mont_mul      (_mont_mul_kernel): a*b*R^-1 mod p
+//   zk_padd              <- padd          (_padd_kernel): p + q, RCB15
+//   zk_fold_padd_levels  <- fold_padd     (_padd_kernel): x[j] + x[j + m/2],
+//                                          n levels of the tree a launch
+//   zk_fold_padd_aa      <- fold_padd_aa  (_padd_aa_kernel): affine pair ->
+//                                          projective sum, Z1 = Z2 = 1
 //
-// Design of mont_mul, fold_padd and fold_padd_aa: one thread per lane
-// (element or point) carries the 21-limb schoolbook in registers and
-// repeats the plain PyTorch version's steps in the same order (ops/lm.py
-// mont_reduce with its carry trick; ops/ec_lm RCB15 in three product rounds
-// with the lazy Fq2 products and the lazy round 3), so every output limb
-// equals the plain version's.  Neighbouring threads own neighbouring lanes,
-// so every limb-row load and store is coalesced; the constants block is
-// staged in shared memory per block.  fold_padd, fold_padd_aa, and in
-// lm_chains.cu / lm_layout.cu scalar_mul and fold2d, still add with this
-// one-thread padd_point (lm_device.cuh): its out-of-line helpers pass every
-// limb array through local memory, and the G2 form spills.
+// Design of mont_mul: one thread per lane (element) carries the 21-limb
+// schoolbook in registers and repeats the plain PyTorch version's steps in
+// the same order (ops/lm.py mont_reduce with its carry trick), so every
+// output limb equals the plain version's.  Neighbouring threads own
+// neighbouring lanes, so every limb-row load and store is coalesced; the
+// constants block is staged in shared memory per block.
 //
-// Design of padd: cooperative.  A block takes 32 adds, one per lane, and
-// each add a team of warps (G1 3, G2 6); the round-1, round-2 and round-3
-// products of RCB15 are dealt out to the team's warps, whose lanes all
-// play the same role for their own adds, and the operands, every
+// Design of padd, fold_padd and fold_padd_aa: the cooperative add.  A
+// block takes 32 adds, one per lane, and each add a team of warps (padd
+// and fold_padd G1 3, G2 6; fold_padd_aa G1 4, G2 6); the products of
+// RCB15 are dealt out, round by round, to the team's warps, whose lanes
+// all play the same role for their own adds, and the operands, every
 // intermediate field element and the result stay in the add's region of
-// shared memory between the rounds (__syncthreads() between them).  So a
-// 128-add launch still spreads over 12 or 24 warps on 4 SMs, and a
-// 16,384-add launch (the MSM's width-128 planes) puts 12 warps on every SM
-// in one wave (G2: two waves of 12).  The
-// points are staged with all of a thread's loads in flight: coalesced in
-// both layouts the path gives it, T == 1 planes (one point per batch row,
-// 63 or 126 consecutive ints) and lane planes.  Every product of both
-// kernels runs through one out-of-line routine (prod) whose operands and
-// result are in shared memory, so nothing passes through local memory and
-// neither form spills.  Since the column sums are exact integers and the
-// same weak_norm / mont_reduce steps run in the same order, the limbs equal
-// padd_ref's.  What bounds it now: integer multiply-adds (64 a clock per
-// SM on Hopper, half the float32 rate the bounds are stated in), reached
-// only when enough warps are resident to hide the products' latencies; a
-// width-128 launch fills the card in one wave, so the rounds' barriers and
-// the staging are not hidden behind other blocks.
-//
-// What bounds all four on an H100: integer multiply-adds.  A Montgomery
-// product is 441 + 231 + 441 = 1113 multiply-adds on 168-252 bytes of
-// traffic, a G1 add 13,566 on 756 bytes, a G2 add 39,480 on 1,512 bytes:
-// all are compute-bound by a wide margin, never memory-bound.
+// shared memory between the rounds (__syncthreads() between them).  Every
+// product runs through one out-of-line routine (prod) whose operands and
+// result are in shared memory, so nothing passes through local memory.
+// The column sums are exact integers and the same weak_norm / mont_reduce
+// steps run in the same order, so the limbs equal the plain versions'.
+// One template (add_kernel) stages, runs a form's rounds and stores for
+// padd and fold_padd_aa; the forms (PaddG1, PaddG2, PaddAaG1, PaddAaG2)
+// give the team, the region and the rounds.
+//   padd: points staged coalesced in both layouts the path gives it, T ==
+//     1 planes (one point per batch row) and lane planes.
+//   fold_padd_aa: the mixed add (Z1 = Z2 = 1) needs 4 products (G1) or 4
+//     lazy Fq2 products (G2) before round 3, all independent of each other
+//     (y3 = x1 + x2 needs none), so it has two product rounds instead of
+//     three; the mask-row selection of ec_lm.padd_aa is applied as the
+//     result is stored.
+//   fold_padd (fold_levels_kernel): n levels of the sum tree in one launch
+//     (n = 1 to 3, ops/cuda/lm_kernels.py fold_plan).  A block owns a
+//     closed subtree (32 lanes of the last level) and adds it level by
+//     level, staging each level's operands back from the lanes it stored
+//     (L2), so it needs no more shared memory than one level and keeps as
+//     many blocks resident; every level is written out once (the MSM reads
+//     them all).  What it saves is launches: host time.
+// What bounds them: integer multiply-adds (64 a clock per SM on Hopper,
+// half the float32 rate the bounds are stated in).  A Montgomery product
+// is 441 + 231 + 441 = 1113 multiply-adds (915 with Karatsuba) on 168-252
+// bytes of traffic, a G1 add 13,566 on 756 bytes, a G2 add 39,480 on 1,512
+// bytes, the affine level-0 adds 9,114 and 27,048: compute-bound by a wide
+// margin.  They reach about half the integer rate.  Not the multiply-add
+// pipe: 18% fewer multiply-adds (Karatsuba) gave 4-7% (G1) and 4-6% (G2),
+// and both groups take it.  Not residency: the schoolbook G1 fold at 128
+// registers keeps five blocks an SM and is slower than Karatsuba's four
+// (153 registers).  What remains is latency inside a team: three or four
+// warps a scheduler, each a chain of dependent product phases between
+// barriers, with a role idle in round 2 (PERF.md).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() of its launch.
@@ -115,13 +125,12 @@ mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
 #define G2_WARPS 6
 #define G1_STRIDE 317
 #define G2_STRIDE 883
-#define G1_SMEM ((ADDS * G1_STRIDE + NL) * 4)
-#define G2_SMEM ((ADDS * G2_STRIDE + 3 * NL) * 4)
 
 // The Fq constants of the EC block (ops/ec_lm.pack_ec_consts, rows p, n',
-// sub_d, sub_d2, b3_g1, b3_g2), in constant memory so that every product
-// with them takes its operand straight from the constant bank.  A CPU test
-// (tests/test_torch_padd.py) holds each array against the packed block.
+// sub_d, sub_d2, one, b3_g1, b3_g2), in constant memory so that every
+// product with them takes its operand straight from the constant bank.  A
+// CPU test (tests/test_torch_padd.py) holds each array against the packed
+// block.
 __constant__ int FQ_P[NL] = {7495, 999, 1462, 280, 5058, 1350, 455, 4653,
                              362, 3260, 5655, 770, 7016, 2082, 1761, 5125,
                              305, 5015, 6419, 96, 0};
@@ -136,6 +145,9 @@ __constant__ int FQ_SUBD2[NL] = {10989, 10227, 13718, 12046, 12694, 8923,
                                  11379, 11664, 15589, 9108, 13805, 8562,
                                  14971, 15833, 10196, 15583, 13140, 10845,
                                  13898, 4160, 0};
+__constant__ int FQ_ONE[NL] = {5790, 7107, 4720, 322, 1473, 4816, 6414, 4235,
+                              3262, 2007, 7516, 7941, 3454, 1377, 2696, 6885,
+                              1087, 4401, 337, 53, 0};
 __constant__ int EC_B3G1[NL] = {5746, 2625, 3871, 1782, 1217, 5175, 6758,
                                 3125, 3336, 5026, 4064, 2858, 3030, 4065, 836,
                                 507, 376, 3166, 1935, 90, 0};
@@ -148,8 +160,87 @@ __constant__ int EC_B3G2[2 * NL] = {
 // the padd kernels' dynamic shared memory
 extern __shared__ int psm[];
 
+// Products of the cooperative adds, schoolbook (KARA false) or Karatsuba
+// (KARA true): one level over an 11 + 10 limb split forms a product's 43
+// column sums from 121 + 100 + 121 = 342 multiply-adds instead of 441 (the
+// low half a0*b0, the high half a1*b1, and the middle (a0+a1)(b0+b1) -
+// a0*b0 - a1*b1), for a few more registers and adds.  The middle columns
+// may pass 2^31, so they are formed modulo 2^32 (unsigned); every true
+// column sum of a*b fits in an int, so each column equals the
+// schoolbook's, and so does every limb after it.  Each group's forms take
+// the one that measured faster on the card (tools/fold_variants.py builds
+// the other: -DKARA_G1=... -DKARA_G2=...).
+#ifndef KARA_G1
+#define KARA_G1 1
+#endif
+#ifndef KARA_G2
+#define KARA_G2 1
+#endif
+
+struct FromPtr {
+  const int* b;
+  __device__ __forceinline__ unsigned operator()(int j) const {
+    return (unsigned)b[j];
+  }
+};
+
+struct FromP {
+  __device__ __forceinline__ unsigned operator()(int j) const {
+    return (unsigned)FQ_P[j];
+  }
+};
+
+// c[0..42] += column sums of a * b (b(j): limb j of the other operand)
+template <bool KARA, class Bv>
+__device__ __forceinline__ void cols_add(const int* a, Bv b, int* c) {
+  if constexpr (KARA) {
+    unsigned lo[21], mid[21], hi[19], sa[11], sb[11];
+#pragma unroll
+    for (int i = 0; i < 11; ++i) {
+      sa[i] = (unsigned)a[i] + (i < 10 ? (unsigned)a[11 + i] : 0u);
+      sb[i] = b(i) + (i < 10 ? b(11 + i) : 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < 21; ++k) lo[k] = mid[k] = 0u;
+#pragma unroll
+    for (int k = 0; k < 19; ++k) hi[k] = 0u;
+#pragma unroll
+    for (int i = 0; i < 11; ++i) {
+#pragma unroll
+      for (int j = 0; j < 11; ++j) {
+        lo[i + j] += (unsigned)a[i] * b(j);
+        mid[i + j] += sa[i] * sb[j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+#pragma unroll
+      for (int j = 0; j < 10; ++j)
+        hi[i + j] += (unsigned)a[11 + i] * b(11 + j);
+    }
+#pragma unroll
+    for (int k = 0; k < 21; ++k) {
+      mid[k] -= lo[k] + (k < 19 ? hi[k] : 0u);
+      c[k] = (int)((unsigned)c[k] + lo[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 21; ++k)
+      c[11 + k] = (int)((unsigned)c[11 + k] + mid[k]);
+#pragma unroll
+    for (int k = 0; k < 19; ++k)
+      c[22 + k] = (int)((unsigned)c[22 + k] + hi[k]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+#pragma unroll
+      for (int j = 0; j < NL; ++j) c[i + j] += a[i] * (int)b(j);
+    }
+  }
+}
+
 // mont_reduce (lm_device.cuh) with p and n' from constant memory, and m*p
 // added into t column by column: the same integers, so the same limbs
+template <bool KARA>
 __device__ __forceinline__ void mont_reduce_fq(int* t, int* out) {
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
@@ -163,11 +254,7 @@ __device__ __forceinline__ void mont_reduce_fq(int* t, int* out) {
   }
   weak_norm<NL>(m);
   weak_norm<NL>(m);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-#pragma unroll
-    for (int j = 0; j < NL; ++j) t[i + j] += m[i] * FQ_P[j];
-  }
+  cols_add<KARA>(m, FromP(), t);
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
@@ -195,6 +282,7 @@ __device__ __forceinline__ void store_n(int* s, const int* x) {
 // psm[a_i, +21) * psm[b_i, +21), each put through two weak_norm rounds
 // first when `lazy` (the lazy terms of an Fq2 product or of round 3); n = 1
 // without `lazy` is a Montgomery product.
+template <bool KARA, int GRP>
 __device__ __noinline__ void prod(int n, bool lazy, int a0, int b0, int a1,
                                   int b1, int a2, int b2, int a3, int b3,
                                   int o) {
@@ -208,7 +296,9 @@ __device__ __noinline__ void prod(int n, bool lazy, int a0, int b0, int a1,
     int x[NL], y[NL], c[WIDE];
     load_n<NL>(psm + a, x);
     load_n<NL>(psm + b, y);
-    wide_mul(x, y, c);
+#pragma unroll
+    for (int k = 0; k < WIDE; ++k) c[k] = 0;
+    cols_add<KARA>(x, FromPtr{y}, c);
     if (lazy) {
       weak_norm<WIDE>(c);
       weak_norm<WIDE>(c);
@@ -217,17 +307,19 @@ __device__ __noinline__ void prod(int n, bool lazy, int a0, int b0, int a1,
     for (int k = 0; k < WIDE; ++k) acc[k] += c[k];
   }
   int r[NL];
-  mont_reduce_fq(acc, r);
+  mont_reduce_fq<KARA>(acc, r);
   store_n<NL>(psm + o, r);
 }
 
+template <bool KARA, int GRP>
 __device__ __forceinline__ void mul1(int a, int b, int o) {
-  prod(1, false, a, b, 0, 0, 0, 0, 0, 0, o);
+  prod<KARA, GRP>(1, false, a, b, 0, 0, 0, 0, 0, 0, o);
 }
 
+template <bool KARA, int GRP>
 __device__ __forceinline__ void lazy2(int a0, int b0, int a1, int b1,
                                       int o) {
-  prod(2, true, a0, b0, a1, b1, 0, 0, 0, 0, o);
+  prod<KARA, GRP>(2, true, a0, b0, a1, b1, 0, 0, 0, 0, o);
 }
 
 // o = weak_norm(a + b) over W limbs (add_n)
@@ -284,21 +376,40 @@ __device__ __forceinline__ void s_neg(const int* v, int* o) {
 }
 
 // Per-add global offsets of the block's adds: add a of the block is
-// n = blockIdx.x * ADDS + a of the B*T adds, b = n / T, t = n % T.
-struct AddOffsets {
-  i64 p[ADDS], q[ADDS], o[ADDS];
+// n = blockIdx.x * ADDS + a of the `total` adds, b = n / T, t = n % T;
+// p and q are its operands' offsets (one array when they are the same,
+// TWO false), b and t kept for the outputs.
+template <bool TWO>
+struct Offsets {
+  i64 p[ADDS], q[TWO ? ADDS : 1];
+  int b[ADDS], t[ADDS];
+  __device__ __forceinline__ i64 qo(int a) const {
+    return TWO ? q[a] : p[a];
+  }
 };
 
-__device__ __forceinline__ void add_offsets(AddOffsets& ofs, i64 total,
-                                            i64 T, i64 rows, i64 pbs,
-                                            i64 pts, i64 qbs, i64 qts) {
+template <bool TWO>
+__device__ __forceinline__ void add_offsets(Offsets<TWO>& ofs, i64 total,
+                                            i64 T, i64 pbs, i64 pts,
+                                            i64 qbs, i64 qts) {
   if (threadIdx.x < ADDS) {
     const i64 n = (i64)blockIdx.x * ADDS + threadIdx.x;
     const i64 b = n < total ? n / T : 0, t = n < total ? n - b * T : 0;
     ofs.p[threadIdx.x] = b * pbs + t * pts;
-    ofs.q[threadIdx.x] = b * qbs + t * qts;
-    ofs.o[threadIdx.x] = b * rows * T + t;
+    if (TWO) ofs.q[threadIdx.x] = b * qbs + t * qts;
+    ofs.b[threadIdx.x] = (int)b;
+    ofs.t[threadIdx.x] = (int)t;
   }
+}
+
+// threadIdx.x, read afresh at each use: the compiler may not merge two of
+// these reads, so the element indices of staging, storing and copying are
+// recomputed where they are used instead of held in registers across the
+// rounds' products (a fold launch stages and stores up to seven times)
+__device__ __forceinline__ int tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
 }
 
 // Element u of this thread's share of a block's (ADDS, ROWS) points ->
@@ -308,8 +419,7 @@ __device__ __forceinline__ void add_offsets(AddOffsets& ofs, i64 total,
 // consecutive adds (consecutive lanes).  Either way the device-memory side
 // is coalesced and the shared side is free of bank conflicts.
 template <int ROWS, int NT, bool BY_ROWS>
-__device__ __forceinline__ void point_elem(int u, int& a, int& r) {
-  const int f = threadIdx.x + u * NT;
+__device__ __forceinline__ void point_elem(int f, int& a, int& r) {
   if (BY_ROWS) {
     a = f / ROWS;
     r = f - a * ROWS;
@@ -319,51 +429,60 @@ __device__ __forceinline__ void point_elem(int u, int& a, int& r) {
   }
 }
 
-// Stage the block's p and q points into the regions at 0 and ROWS: each
-// of the NT threads has all its (at most PER) loads of each operand in
-// flight before it stores any
-template <int ROWS, int STRIDE, int NT, bool BY_ROWS>
-__device__ __forceinline__ void stage_in(const int* p, const int* q,
-                                         const AddOffsets& ofs, i64 prs,
+// Stage the block's p and q points into the regions at `at` and
+// at + ROWS: each of the NT threads has all its (at most PER) loads of
+// each operand in flight before it stores any
+template <int ROWS, int STRIDE, int NT, bool BY_ROWS, class O>
+__device__ __forceinline__ void stage_in(int at, const int* p, const int* q,
+                                         const O& ofs, i64 prs,
                                          i64 qrs, int nvalid) {
   constexpr int PER = (ADDS * ROWS + NT - 1) / NT;
   int vp[PER], vq[PER];
+  const int t0 = tid();
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
     int a, r;
-    point_elem<ROWS, NT, BY_ROWS>(u, a, r);
-    const bool ok = a < nvalid && threadIdx.x + u * NT < ADDS * ROWS;
+    point_elem<ROWS, NT, BY_ROWS>(t0 + u * NT, a, r);
+    const bool ok = a < nvalid && t0 + u * NT < ADDS * ROWS;
     vp[u] = ok ? p[ofs.p[a] + r * prs] : 0;
-    vq[u] = ok ? q[ofs.q[a] + r * qrs] : 0;
+    vq[u] = ok ? q[ofs.qo(a) + r * qrs] : 0;
   }
+  const int t1 = tid();
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
-    if (threadIdx.x + u * NT >= ADDS * ROWS) break;
+    if (t1 + u * NT >= ADDS * ROWS) break;
     int a, r;
-    point_elem<ROWS, NT, BY_ROWS>(u, a, r);
-    psm[a * STRIDE + r] = vp[u];
-    psm[a * STRIDE + ROWS + r] = vq[u];
+    point_elem<ROWS, NT, BY_ROWS>(t1 + u * NT, a, r);
+    psm[at + a * STRIDE + r] = vp[u];
+    psm[at + a * STRIDE + ROWS + r] = vq[u];
   }
 }
 
-// Store the results in the regions at `off` to out (B, ROWS, T)
-template <int ROWS, int STRIDE, int NT, bool BY_ROWS>
-__device__ __forceinline__ void store_out(int off, int* out,
-                                          const AddOffsets& ofs, i64 T,
-                                          int nvalid) {
-  constexpr int PER = (ADDS * ROWS + NT - 1) / NT;
+// Store the block's results to out[b * bs + t + r * rs] (add a's b and t
+// from ofs); F::out(a, r) reads row r of add a's result from shared memory
+template <class F, int NT, bool BY_ROWS, class O>
+__device__ __forceinline__ void store_out(int* out, const O& ofs,
+                                          i64 bs, i64 rs, int nvalid) {
+  constexpr int ROWS = F::ROWS, PER = (ADDS * ROWS + NT - 1) / NT;
+  const int t0 = tid();
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
-    if (threadIdx.x + u * NT >= ADDS * ROWS) break;
+    if (t0 + u * NT >= ADDS * ROWS) break;
     int a, r;
-    point_elem<ROWS, NT, BY_ROWS>(u, a, r);
-    if (a < nvalid) out[ofs.o[a] + r * T] = psm[a * STRIDE + off + r];
+    point_elem<ROWS, NT, BY_ROWS>(t0 + u * NT, a, r);
+    if (a < nvalid)
+      out[(i64)ofs.b[a] * bs + ofs.t[a] + r * rs] = F::out(a, r);
   }
 }
 
-// G1: out (B, 63, T) contiguous = p + q; p and q are read through batch,
-// row and lane strides (a stride of 0 reads a broadcast operand in place).
-// Region of an add (ints), warp j (= role) of its team of three:
+// ---------------------------------------------------------------------------
+// the four forms of the cooperative add: one struct each, giving its
+// team, its region (operands at IN_AT, the result at OUT_AT), the
+// constants it stages, its product rounds, and how a result row is read
+// ---------------------------------------------------------------------------
+
+// G1 projective: out (B, 63, T) = p + q.  Region of an add (ints), warp
+// j (= role) of its team of three:
 //   0 P, 63 Q                      staged operands
 //   126 + 21j  T_j = X1X2, Y1Y2, Z1Z2;  189 + 21j  S_j = (X1+Y1)(X2+Y2),
 //              (Y1+Z1)(Y2+Z2), (Z1+X1)(Z2+X2)   (round 1: warp j; S_j's
@@ -373,58 +492,63 @@ __device__ __forceinline__ void store_out(int off, int* out,
 //   126 + 21j  output coordinate j (round 3: warp j, two lazy terms)
 // Constants after the regions: b3.  Per thread: at most 3 products and 2
 // lazy terms, 4,893 of the add's 13,566 multiply-adds.
-template <bool BY_ROWS>
-__global__ void __launch_bounds__(G1_WARPS * 32)
-padd_g1_kernel(const int* __restrict__ p, const int* __restrict__ q,
-               int* __restrict__ out, i64 total, i64 T, i64 pbs, i64 prs,
-               i64 pts, i64 qbs, i64 qrs, i64 qts) {
-  __shared__ AddOffsets ofs;
-  add_offsets(ofs, total, T, 63, pbs, pts, qbs, qts);
-  __syncthreads();
-  const i64 first = (i64)blockIdx.x * ADDS;
-  const int nvalid = (int)(total - first < ADDS ? total - first : ADDS);
-  const int KC = ADDS * G1_STRIDE;
-  stage_in<63, G1_STRIDE, G1_WARPS * 32, BY_ROWS>(p, q, ofs, prs, qrs,
-                                                  nvalid);
-  if (threadIdx.x < NL) psm[KC + threadIdx.x] = EC_B3G1[threadIdx.x];
-  __syncthreads();
-  const int j = threadIdx.x >> 5, j1 = j == 2 ? 0 : j + 1;
-  const int base = (threadIdx.x & 31) * G1_STRIDE;
-  int* s = psm + base;
-  // round 1
-  s_add<NL>(s + NL * j, s + NL * j1, s + 126 + NL * j);
-  s_add<NL>(s + 63 + NL * j, s + 63 + NL * j1, s + 189 + NL * j);
-  mul1(base + 126 + NL * j, base + 189 + NL * j, base + 189 + NL * j);
-  mul1(base + NL * j, base + 63 + NL * j, base + 126 + NL * j);
-  __syncthreads();
-  // t3, t4, y3; x3; round 2: t2b = t2*b3 and y3b = y3*b3
-  s_cross<NL>(s + 189 + NL * j, s + 126 + NL * j, s + 126 + NL * j1,
-              s + NL * j);
-  if (j == 0) {
-    s_triple<NL>(s + 126, s + 63);
-  } else if (j == 1) {
-    mul1(base + 168, KC, base + 252);
-    s_add<NL>(s + 147, s + 252, s + 84);
-    s_sub<NL>(s + 147, s + 252, s + 105);
-  } else {
-    mul1(base + 2 * NL, KC, base + 273);
-    s_neg(s + 273, s + 294);
+struct PaddG1 {
+  static constexpr int ROWS_IN = 63, ROWS = 63, WARPS = G1_WARPS;
+  static constexpr int STRIDE = G1_STRIDE, IN_AT = 0, OUT_AT = 126;
+  static constexpr int NCONST = NL, MAX_LEVELS = 3;
+  static constexpr bool KARA = KARA_G1;
+  static constexpr int GRP = 1;
+
+  static __device__ __forceinline__ void consts(int KC) {
+    if (threadIdx.x < NL) psm[KC + threadIdx.x] = EC_B3G1[threadIdx.x];
   }
-  __syncthreads();
-  // round 3: X = t3*t1' + t4*(-y3b), Y = y3b*x3 + t1'*z3, Z = z3*t4 + x3*t3
-  if (j == 0)
-    lazy2(base, base + 105, base + 21, base + 294, base + 126);
-  else if (j == 1)
-    lazy2(base + 273, base + 63, base + 105, base + 84, base + 147);
-  else
-    lazy2(base + 84, base + 21, base + 63, base, base + 168);
-  __syncthreads();
-  store_out<63, G1_STRIDE, G1_WARPS * 32, BY_ROWS>(126, out, ofs, T, nvalid);
-}
+
+  static __device__ __forceinline__ void rounds(int KC) {
+    const int j = threadIdx.x >> 5, j1 = j == 2 ? 0 : j + 1;
+    const int base = (threadIdx.x & 31) * STRIDE;
+    int* s = psm + base;
+    // round 1
+    s_add<NL>(s + NL * j, s + NL * j1, s + 126 + NL * j);
+    s_add<NL>(s + 63 + NL * j, s + 63 + NL * j1, s + 189 + NL * j);
+    mul1<KARA, GRP>(base + 126 + NL * j, base + 189 + NL * j,
+                    base + 189 + NL * j);
+    mul1<KARA, GRP>(base + NL * j, base + 63 + NL * j, base + 126 + NL * j);
+    __syncthreads();
+    // t3, t4, y3; x3; round 2: t2b = t2*b3 and y3b = y3*b3
+    s_cross<NL>(s + 189 + NL * j, s + 126 + NL * j, s + 126 + NL * j1,
+                s + NL * j);
+    if (j == 0) {
+      s_triple<NL>(s + 126, s + 63);
+    } else if (j == 1) {
+      mul1<KARA, GRP>(base + 168, KC, base + 252);
+      s_add<NL>(s + 147, s + 252, s + 84);
+      s_sub<NL>(s + 147, s + 252, s + 105);
+    } else {
+      mul1<KARA, GRP>(base + 2 * NL, KC, base + 273);
+      s_neg(s + 273, s + 294);
+    }
+    __syncthreads();
+    // round 3: X = t3*t1' + t4*(-y3b), Y = y3b*x3 + t1'*z3, Z = z3*t4 +
+    // x3*t3
+    if (j == 0)
+      lazy2<KARA, GRP>(base, base + 105, base + 21, base + 294, base + 126);
+    else if (j == 1)
+      lazy2<KARA, GRP>(base + 273, base + 63, base + 105, base + 84,
+                       base + 147);
+    else
+      lazy2<KARA, GRP>(base + 84, base + 21, base + 63, base, base + 168);
+    __syncthreads();
+  }
+
+  static __device__ __forceinline__ int out(int a, int r) {
+    return psm[a * STRIDE + OUT_AT + r];
+  }
+};
 
 // Round 3 over Fq2 (_round3_fq2): output component w = 2*o + c (o = X, Y,
 // Z; c = re, im) is the reduction of four lazy terms; the pairs are region
-// offsets (see padd_g2_kernel), negations already taken.
+// offsets (see PaddG2; PaddAaG2 keeps the same offsets), negations already
+// taken.
 __constant__ short G2_ROUND3[G2_WARPS][8] = {
     {0, 357, 21, 420, 42, 441, 63, 294},      // X re
     {0, 378, 21, 357, 42, 462, 63, 441},      // X im
@@ -433,8 +557,31 @@ __constant__ short G2_ROUND3[G2_WARPS][8] = {
     {315, 42, 336, 189, 126, 0, 147, 168},    // Z re
     {315, 63, 336, 42, 126, 21, 147, 0}};     // Z im
 
-// G2: out (B, 126, T) contiguous = p + q, strides as for G1.  Fq2 values
-// are 42 ints (re, im).  Region of an add (ints), warp w of its team:
+// b3 (re, im) and -im(b3) after the regions (both G2 forms)
+__device__ __forceinline__ void g2_consts(int KC) {
+  if (threadIdx.x < 2 * NL) psm[KC + threadIdx.x] = EC_B3G2[threadIdx.x];
+  if (threadIdx.x == 2 * NL) {
+    int x[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) x[k] = FQ_SUBD2[k] - EC_B3G2[NL + k];
+    weak_norm<NL>(x);
+    store_n<NL>(psm + KC + 2 * NL, x);
+  }
+}
+
+// round 3 over Fq2 (every G2 form): warp w reduces output component w
+// into out + 21w
+template <bool KARA>
+__device__ __forceinline__ void g2_round3(int base, int out) {
+  const int w = threadIdx.x >> 5;
+  prod<KARA, 2>(4, true, base + G2_ROUND3[w][0], base + G2_ROUND3[w][1],
+       base + G2_ROUND3[w][2], base + G2_ROUND3[w][3],
+       base + G2_ROUND3[w][4], base + G2_ROUND3[w][5],
+       base + G2_ROUND3[w][6], base + G2_ROUND3[w][7], out + NL * w);
+}
+
+// G2 projective: out (B, 126, T) = p + q.  Fq2 values are 42 ints (re,
+// im).  Region of an add (ints), warp w of its team of six:
 //   0 P, 126 Q                     staged operands
 //   252 + 42c  a'_c = P_c + P_c+1, 378 + 42c  b'_c = Q_c + Q_c+1,
 //   504 + 21c  -im(Q_c), 567 + 21c  -im(b'_c)     (warps c and 3 + c)
@@ -446,137 +593,396 @@ __constant__ short G2_ROUND3[G2_WARPS][8] = {
 //   630 + 21w  output component w (round 3: four lazy terms)
 // Constants after the regions: b3 (re, im), -im(b3).  Per thread: 8 + 2 +
 // 4 lazy terms and 4 reductions, 7,098 of the add's 39,480 multiply-adds.
-template <bool BY_ROWS>
-__global__ void __launch_bounds__(G2_WARPS * 32)
-padd_g2_kernel(const int* __restrict__ p, const int* __restrict__ q,
-               int* __restrict__ out, i64 total, i64 T, i64 pbs, i64 prs,
-               i64 pts, i64 qbs, i64 qrs, i64 qts) {
-  __shared__ AddOffsets ofs;
-  add_offsets(ofs, total, T, 126, pbs, pts, qbs, qts);
+struct PaddG2 {
+  static constexpr int ROWS_IN = 126, ROWS = 126, WARPS = G2_WARPS;
+  static constexpr int STRIDE = G2_STRIDE, IN_AT = 0, OUT_AT = 630;
+  static constexpr int NCONST = 3 * NL, MAX_LEVELS = 1;
+  static constexpr bool KARA = KARA_G2;
+  static constexpr int GRP = 2;
+
+  static __device__ __forceinline__ void consts(int KC) { g2_consts(KC); }
+
+  static __device__ __forceinline__ void rounds(int KC) {
+    const int w = threadIdx.x >> 5;
+    const int base = (threadIdx.x & 31) * STRIDE;
+    int* s = psm + base;
+    {  // the round-1 operands: sums and negated imaginary parts
+      const int c = w < 3 ? w : w - 3, c1 = c == 2 ? 0 : c + 1;
+      const int src = w < 3 ? 0 : 126, dst = w < 3 ? 252 : 378;
+      s_add<2 * NL>(s + src + 42 * c, s + src + 42 * c1, s + dst + 42 * c);
+      if (w < 3)
+        s_neg(s + 126 + 42 * c + NL, s + 504 + NL * c);
+      else
+        s_neg(s + 378 + 42 * c + NL, s + 567 + NL * c);
+    }
+    __syncthreads();
+    {  // round 1: re = a0 b0 + a1 (-b1), im = a0 b1 + a1 b0
+      const int c = w >> 1, comp = w & 1;
+      const int a = base + 42 * c, b = base + 126 + 42 * c;
+      lazy2<KARA, GRP>(a, b + (comp ? NL : 0), a + NL,
+                       comp ? b : base + 504 + NL * c, base + 630 + NL * w);
+      const int sa = base + 252 + 42 * c, sb = base + 378 + 42 * c;
+      lazy2<KARA, GRP>(sa, sb + (comp ? NL : 0), sa + NL,
+                       comp ? sb : base + 567 + NL * c, base + 756 + NL * w);
+    }
+    __syncthreads();
+    const int* T0 = s + 630;
+    if (w < 3) {  // t3, t4, y3 = S_w - (T_w + T_w+1); -im(t3), -im(t4)
+      const int w1 = w == 2 ? 0 : w + 1;
+      s_cross<2 * NL>(T0 + 126 + 42 * w, T0 + 42 * w, T0 + 42 * w1,
+                      s + 42 * w);
+      if (w < 2) s_neg(s + 42 * w + NL, s + 168 + NL * w);
+    } else if (w == 3) {  // x3 = 3 * T0, -im(x3)
+      s_triple<2 * NL>(T0, s + 126);
+      s_neg(s + 126 + NL, s + 210);
+    }
+    __syncthreads();
+    if (w < 4) {  // round 2: component comp of t2b = t2*b3 or y3b = y3*b3
+      const int comp = w & 1;
+      const int a = w < 2 ? base + 630 + 84 : base + 84;
+      lazy2<KARA, GRP>(a, KC + (comp ? NL : 0), a + NL,
+                       comp ? KC : KC + 2 * NL,
+                       base + (w < 2 ? 231 : 273) + NL * comp);
+    }
+    __syncthreads();
+    if (w == 0) {  // z3 = t1 + t2b, t1' = t1 - t2b, and their -im
+      s_add<2 * NL>(T0 + 42, s + 231, s + 315);
+      s_neg(s + 315 + NL, s + 399);
+    } else if (w == 1) {
+      s_sub<2 * NL>(T0 + 42, s + 231, s + 357);
+      s_neg(s + 357 + NL, s + 420);
+    } else if (w < 4) {  // -re(y3b), -im(y3b)
+      s_neg(s + 273 + NL * (w - 2), s + 441 + NL * (w - 2));
+    }
+    __syncthreads();
+    g2_round3<KARA>(base, base + OUT_AT);
+    __syncthreads();
+  }
+
+  static __device__ __forceinline__ int out(int a, int r) {
+    return psm[a * STRIDE + OUT_AT + r];
+  }
+};
+
+// The mask-row selection of ec_lm.padd_aa, row r of add a's projective
+// result, W = 21 (G1) or 42 (G2) ints a coordinate: an infinity flag on
+// one side takes the other input (Z = one), on both the identity.  The
+// affine operands sit at `in` (x, y, flag) and in + 2W + 1.
+template <int W, int STRIDE, int IN, int OUT>
+__device__ __forceinline__ int aa_select(int a, int r) {
+  const int* s = psm + a * STRIDE;
+  const bool inf1 = s[IN + 2 * W] == 1, inf2 = s[IN + 4 * W + 1] == 1;
+  if (!inf1 && !inf2) return s[OUT + r];
+  const int c = r / W, k = r - c * W;
+  const int one = k < NL ? FQ_ONE[k] : 0;
+  if (inf1 && inf2) return c == 1 ? one : 0;
+  if (c == 2) return one;
+  return s[IN + (inf1 ? 2 * W + 1 : 0) + r];
+}
+
+// G1, two AFFINE operands (Z1 = Z2 = 1: ec_lm._padd_aa), out (B, 63, T)
+// projective.  Region of an add (ints), warp w of its team of four:
+//   0 P (x1, y1, inf1), 43 Q (x2, y2, inf2)      staged operands
+//   86 x1+y1, 107 x2+y2 (warp 2), 128 y3 = x1+x2 (warp 3)
+//   round 1, one product a warp: 149 t0 = x1x2, 170 t1 = y1y2, 191 pa =
+//   (x1+y1)(x2+y2), 212 y3b = y3*b3 (y3 needs no product, so its b3
+//   scaling joins round 1 and the add has two rounds of products)
+//   then: 233 t3 = pa - (t0+t1) (warp 0); 254 x3, 275 t4 = y1+y2 (warp 1);
+//   296 z3 = t1+b3, 317 t1' = t1-b3 (warp 2); 338 -y3b (warp 3)
+//   86 + 21j  output coordinate j (round 3: warp j < 3, two lazy terms)
+// Constants after the regions: b3.  Per thread: one product and two lazy
+// terms at most, 2,667 of the add's 9,114 multiply-adds.
+struct PaddAaG1 {
+  static constexpr int ROWS_IN = 43, ROWS = 63, WARPS = 4;
+  static constexpr int STRIDE = 359, IN_AT = 0, OUT_AT = 86;
+  static constexpr int NCONST = NL;
+  static constexpr bool KARA = KARA_G1;
+  static constexpr int GRP = 1;
+
+  static __device__ __forceinline__ void consts(int KC) {
+    PaddG1::consts(KC);
+  }
+
+  static __device__ __forceinline__ void rounds(int KC) {
+    const int w = threadIdx.x >> 5;
+    const int base = (threadIdx.x & 31) * STRIDE;
+    int* s = psm + base;
+    if (w == 0) {
+      mul1<KARA, GRP>(base, base + 43, base + 149);
+    } else if (w == 1) {
+      mul1<KARA, GRP>(base + 21, base + 64, base + 170);
+    } else if (w == 2) {
+      s_add<NL>(s, s + 21, s + 86);
+      s_add<NL>(s + 43, s + 64, s + 107);
+      mul1<KARA, GRP>(base + 86, base + 107, base + 191);
+    } else {
+      s_add<NL>(s, s + 43, s + 128);
+      mul1<KARA, GRP>(base + 128, KC, base + 212);
+    }
+    __syncthreads();
+    if (w == 0) {
+      s_cross<NL>(s + 191, s + 149, s + 170, s + 233);
+    } else if (w == 1) {
+      s_triple<NL>(s + 149, s + 254);
+      s_add<NL>(s + 21, s + 64, s + 275);
+    } else if (w == 2) {
+      s_add<NL>(s + 170, psm + KC, s + 296);
+      s_sub<NL>(s + 170, psm + KC, s + 317);
+    } else {
+      s_neg(s + 212, s + 338);
+    }
+    __syncthreads();
+    // X = t3*t1' + t4*(-y3b), Y = y3b*x3 + t1'*z3, Z = z3*t4 + x3*t3
+    if (w == 0)
+      lazy2<KARA, GRP>(base + 233, base + 317, base + 275, base + 338,
+                       base + 86);
+    else if (w == 1)
+      lazy2<KARA, GRP>(base + 212, base + 254, base + 317, base + 296,
+                       base + 107);
+    else if (w == 2)
+      lazy2<KARA, GRP>(base + 296, base + 275, base + 254, base + 233,
+                       base + 128);
+    __syncthreads();
+  }
+
+  static __device__ __forceinline__ int out(int a, int r) {
+    return aa_select<NL, STRIDE, IN_AT, OUT_AT>(a, r);
+  }
+};
+
+// G2, two AFFINE operands, out (B, 126, T) projective.  The intermediate
+// offsets of round 3 are PaddG2's, so both read G2_ROUND3.  Region of an
+// add (ints), warp w of its team of six:
+//   483 P (x1, y1, inf1), 568 Q (x2, y2, inf2)   staged operands
+//   0 x1+y1 (warp 0), 42 x2+y2 and 210 -im(x2+y2) (warp 1), 126 y3 =
+//   x1+x2 (warp 2), 168 -im(x2) (warp 3), 189 -im(y2) (warp 4)
+//   round 1, component comp of product c by warp 2c + comp: 231 t0 =
+//   x1x2, 653 t1 = y1y2, 84 pa = (x1+y1)(x2+y2); then warps 0, 1: 273 y3b
+//   = y3*b3 (no product needed for y3, so it joins round 1)
+//   then: 0 t3, 168 -im(t3) (warp 0); 126 x3, 210 -im(x3) (warp 1); 42
+//   t4 = y1+y2, 189 -im(t4) (warp 2); 315 z3 = t1+b3, 399 -im(z3) (warp
+//   3); 357 t1' = t1-b3, 420 -im(t1') (warp 4); 441 -re(y3b), 462
+//   -im(y3b) (warp 5)
+//   653 + 21w  output component w (round 3: four lazy terms)
+// Constants after the regions: b3 (re, im), -im(b3).  Per thread: 4 + 4
+// lazy terms and 3 reductions at most, 5,544 of the add's 27,048
+// multiply-adds.
+struct PaddAaG2 {
+  static constexpr int ROWS_IN = 85, ROWS = 126, WARPS = G2_WARPS;
+  static constexpr int STRIDE = 779, IN_AT = 483, OUT_AT = 653;
+  static constexpr int NCONST = 3 * NL;
+  static constexpr bool KARA = KARA_G2;
+  static constexpr int GRP = 2;
+
+  static __device__ __forceinline__ void consts(int KC) { g2_consts(KC); }
+
+  static __device__ __forceinline__ void rounds(int KC) {
+    const int w = threadIdx.x >> 5;
+    const int base = (threadIdx.x & 31) * STRIDE;
+    int* s = psm + base;
+    const int* P = s + IN_AT;
+    const int* Q = s + IN_AT + 85;
+    if (w == 0) {
+      s_add<2 * NL>(P, P + 42, s);
+    } else if (w == 1) {
+      s_add<2 * NL>(Q, Q + 42, s + 42);
+      s_neg(s + 42 + NL, s + 210);
+    } else if (w == 2) {
+      s_add<2 * NL>(P, Q, s + 126);
+    } else if (w == 3) {
+      s_neg(Q + NL, s + 168);
+    } else if (w == 4) {
+      s_neg(Q + 42 + NL, s + 189);
+    }
+    __syncthreads();
+    {  // round 1: re = a0 b0 + a1 (-b1), im = a0 b1 + a1 b0
+      const int c = w >> 1, comp = w & 1;
+      const int a = c == 0 ? base + IN_AT : (c == 1 ? base + IN_AT + 42
+                                                    : base);
+      const int b = c == 0 ? base + IN_AT + 85
+                           : (c == 1 ? base + IN_AT + 127 : base + 42);
+      const int nb = base + 168 + NL * c;
+      const int o = c == 0 ? 231 : (c == 1 ? 653 : 84);
+      lazy2<KARA, GRP>(a, b + (comp ? NL : 0), a + NL, comp ? b : nb,
+                       base + o + NL * comp);
+      if (w < 2)
+        lazy2<KARA, GRP>(base + 126, KC + (comp ? NL : 0), base + 126 + NL,
+                         comp ? KC : KC + 2 * NL, base + 273 + NL * comp);
+    }
+    __syncthreads();
+    if (w == 0) {
+      s_cross<2 * NL>(s + 84, s + 231, s + 653, s);
+      s_neg(s + NL, s + 168);
+    } else if (w == 1) {
+      s_triple<2 * NL>(s + 231, s + 126);
+      s_neg(s + 126 + NL, s + 210);
+    } else if (w == 2) {
+      s_add<2 * NL>(P + 42, Q + 42, s + 42);
+      s_neg(s + 42 + NL, s + 189);
+    } else if (w == 3) {
+      s_add<2 * NL>(s + 653, psm + KC, s + 315);
+      s_neg(s + 315 + NL, s + 399);
+    } else if (w == 4) {
+      s_sub<2 * NL>(s + 653, psm + KC, s + 357);
+      s_neg(s + 357 + NL, s + 420);
+    } else {
+      s_neg(s + 273, s + 441);
+      s_neg(s + 273 + NL, s + 462);
+    }
+    __syncthreads();
+    g2_round3<KARA>(base, base + OUT_AT);
+    __syncthreads();
+  }
+
+  static __device__ __forceinline__ int out(int a, int r) {
+    return aa_select<2 * NL, STRIDE, IN_AT, OUT_AT>(a, r);
+  }
+};
+
+template <class F>
+constexpr int form_smem() {
+  return (ADDS * F::STRIDE + F::NCONST) * 4;
+}
+
+// ---------------------------------------------------------------------------
+// kernels on the forms
+// ---------------------------------------------------------------------------
+
+// out (B, ROWS, T) contiguous = p + q for B*T adds; p and q are read
+// through batch, row and lane strides (a stride of 0 reads a broadcast
+// operand in place).  padd (PaddG1, PaddG2) and the one-level fold of
+// affine planes (PaddAaG1, PaddAaG2: p = x, q = x + h, T = h).
+template <class F, bool BY_ROWS>
+__global__ void __launch_bounds__(F::WARPS * 32)
+add_kernel(const int* __restrict__ p, const int* __restrict__ q,
+           int* __restrict__ out, i64 total, i64 T, i64 pbs, i64 prs,
+           i64 pts, i64 qbs, i64 qrs, i64 qts) {
+  constexpr int NT = F::WARPS * 32;
+  __shared__ Offsets<true> ofs;
+  add_offsets(ofs, total, T, pbs, pts, qbs, qts);
   __syncthreads();
   const i64 first = (i64)blockIdx.x * ADDS;
   const int nvalid = (int)(total - first < ADDS ? total - first : ADDS);
-  const int KC = ADDS * G2_STRIDE;
-  stage_in<126, G2_STRIDE, G2_WARPS * 32, BY_ROWS>(p, q, ofs, prs, qrs,
-                                                   nvalid);
-  if (threadIdx.x < 2 * NL) psm[KC + threadIdx.x] = EC_B3G2[threadIdx.x];
-  if (threadIdx.x == 2 * NL) {
-    int x[NL];
-#pragma unroll
-    for (int k = 0; k < NL; ++k) x[k] = FQ_SUBD2[k] - EC_B3G2[NL + k];
-    weak_norm<NL>(x);
-    store_n<NL>(psm + KC + 2 * NL, x);
-  }
+  const int KC = ADDS * F::STRIDE;
+  stage_in<F::ROWS_IN, F::STRIDE, NT, BY_ROWS>(F::IN_AT, p, q, ofs, prs,
+                                               qrs, nvalid);
+  F::consts(KC);
   __syncthreads();
-  const int w = threadIdx.x >> 5;
-  const int base = (threadIdx.x & 31) * G2_STRIDE;
-  int* s = psm + base;
-  {  // the round-1 operands: sums and negated imaginary parts
-    const int c = w < 3 ? w : w - 3, c1 = c == 2 ? 0 : c + 1;
-    const int src = w < 3 ? 0 : 126, dst = w < 3 ? 252 : 378;
-    s_add<2 * NL>(s + src + 42 * c, s + src + 42 * c1, s + dst + 42 * c);
-    if (w < 3)
-      s_neg(s + 126 + 42 * c + NL, s + 504 + NL * c);
-    else
-      s_neg(s + 378 + 42 * c + NL, s + 567 + NL * c);
-  }
-  __syncthreads();
-  {  // round 1: re = a0 b0 + a1 (-b1), im = a0 b1 + a1 b0
-    const int c = w >> 1, comp = w & 1;
-    const int a = base + 42 * c, b = base + 126 + 42 * c;
-    lazy2(a, b + (comp ? NL : 0), a + NL, comp ? b : base + 504 + NL * c,
-          base + 630 + NL * w);
-    const int sa = base + 252 + 42 * c, sb = base + 378 + 42 * c;
-    lazy2(sa, sb + (comp ? NL : 0), sa + NL,
-          comp ? sb : base + 567 + NL * c, base + 756 + NL * w);
-  }
-  __syncthreads();
-  const int* T0 = s + 630;
-  if (w < 3) {  // t3, t4, y3 = S_w - (T_w + T_w+1); -im(t3), -im(t4)
-    const int w1 = w == 2 ? 0 : w + 1;
-    s_cross<2 * NL>(T0 + 126 + 42 * w, T0 + 42 * w, T0 + 42 * w1,
-                    s + 42 * w);
-    if (w < 2) s_neg(s + 42 * w + NL, s + 168 + NL * w);
-  } else if (w == 3) {  // x3 = 3 * T0, -im(x3)
-    s_triple<2 * NL>(T0, s + 126);
-    s_neg(s + 126 + NL, s + 210);
-  }
-  __syncthreads();
-  if (w < 4) {  // round 2: component comp of t2b = t2*b3 or y3b = y3*b3
-    const int comp = w & 1;
-    const int a = w < 2 ? base + 630 + 84 : base + 84;
-    lazy2(a, KC + (comp ? NL : 0), a + NL, comp ? KC : KC + 2 * NL,
-          base + (w < 2 ? 231 : 273) + NL * comp);
-  }
-  __syncthreads();
-  if (w == 0) {  // z3 = t1 + t2b, t1' = t1 - t2b, and their -im
-    s_add<2 * NL>(T0 + 42, s + 231, s + 315);
-    s_neg(s + 315 + NL, s + 399);
-  } else if (w == 1) {
-    s_sub<2 * NL>(T0 + 42, s + 231, s + 357);
-    s_neg(s + 357 + NL, s + 420);
-  } else if (w < 4) {  // -re(y3b), -im(y3b)
-    s_neg(s + 273 + NL * (w - 2), s + 441 + NL * (w - 2));
-  }
-  __syncthreads();
-  {  // round 3
-    prod(4, true, base + G2_ROUND3[w][0], base + G2_ROUND3[w][1],
-         base + G2_ROUND3[w][2], base + G2_ROUND3[w][3],
-         base + G2_ROUND3[w][4], base + G2_ROUND3[w][5],
-         base + G2_ROUND3[w][6], base + G2_ROUND3[w][7],
-         base + 630 + NL * w);
-  }
-  __syncthreads();
-  store_out<126, G2_STRIDE, G2_WARPS * 32, BY_ROWS>(630, out, ofs, T,
-                                                    nvalid);
+  F::rounds(KC);
+  store_out<F, NT, BY_ROWS>(out, ofs, F::ROWS * T, T, nvalid);
 }
 
-// out (B, rows, h) = x[..., :h] + x[..., h:], x (B, rows, 2h) contiguous
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-fold_padd_kernel(const int* __restrict__ x, int* __restrict__ out,
-                 const int* __restrict__ consts, i64 B, i64 h) {
-  __shared__ int C[EC_CONSTS];
-  stage_consts(consts, C, EC_CONSTS);
-  const i64 idx = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * h) return;
-  const i64 b = idx / h, j = idx % h;
-  const int* xb = x + b * (3 * K * NL) * (2 * h);
-  padd_point<K>(xb + j, 2 * h, xb + h + j, 2 * h,
-                out + b * (3 * K * NL) * h + j, h, C);
+// N levels of the projective sum tree in one launch (N = 1 to 3): x (B,
+// ROWS, 2h) contiguous; level l (width h_l = h >> l) goes to out +
+// B*ROWS*(h + ... + h_(l-1)) as (B, ROWS, h_l), lane j = x[j] + x[j + h_l]
+// of level l - 1 (of x for l = 0).  The block owns 32 lanes t of the last
+// level (width hl = h >> (N-1)), and at level l the lanes t + g*hl, g <
+// 2^(N-1-l): a closed subtree, which it adds level by level.  A level's
+// operands are the lanes this block stored one level down, so after a
+// barrier the block stages them back from device memory (L2 holds them),
+// and the kernel needs no shared memory beyond the one-level add's: as many
+// blocks stay resident as for one level.  (Keeping each level in shared
+// memory instead, one 8 KB slot a level, cost the schoolbook G1 kernel
+// one of its five resident blocks an SM.)
+template <class F, int N, int MIN_BLOCKS>
+__global__ void __launch_bounds__(F::WARPS * 32, MIN_BLOCKS)
+fold_levels_kernel(const int* __restrict__ x, int* out, i64 B, i64 h) {
+  constexpr int NT = F::WARPS * 32, R = F::ROWS;
+  __shared__ Offsets<false> ofs;
+  const i64 hl = h >> (N - 1), total = B * hl;
+  add_offsets(ofs, total, hl, R * 2 * h, 1, R * 2 * h, 1);
+  const int KC = ADDS * F::STRIDE;
+  F::consts(KC);
+  __syncthreads();
+  const i64 first = (i64)blockIdx.x * ADDS;
+  const int nvalid = (int)(total - first < ADDS ? total - first : ADDS);
+  i64 off = 0;                      // level l's offset in out
+  // not unrolled: one copy of the rounds' code serves every level and
+  // group (unrolled, with seven copies of it, a three-level launch ran
+  // about 25% slower per add than three one-level launches)
+#pragma unroll 1
+  for (int l = 0; l < N; ++l) {
+    const i64 hw = h >> l;          // level l's width; its input's is 2 hw
+    const int* in = l == 0 ? x : out + off - B * R * 2 * hw;
+    if (l > 0) {                    // level l - 1 stored: rebase the offsets
+      __syncthreads();
+      if (tid() < ADDS)
+        ofs.p[tid()] = (i64)ofs.b[tid()] * R * 2 * hw + ofs.t[tid()];
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int g = 0; g < (1 << (N - 1 - l)); ++g) {
+      stage_in<R, F::STRIDE, NT, false>(F::IN_AT, in + g * hl,
+                                        in + hw + g * hl, ofs, 2 * hw,
+                                        2 * hw, nvalid);
+      __syncthreads();
+      F::rounds(KC);
+      store_out<F, NT, false>(out + off + g * hl, ofs, R * hw, hw, nvalid);
+    }
+    off += B * R * hw;
+  }
 }
 
-// out (B, rows, h) projective = x[..., :h] (+) x[..., h:], x (B, arows,
-// 2h) affine, contiguous
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-fold_padd_aa_kernel(const int* __restrict__ x, int* __restrict__ out,
-                    const int* __restrict__ consts, i64 B, i64 h) {
-  __shared__ int C[EC_CONSTS];
-  stage_consts(consts, C, EC_CONSTS);
-  const i64 idx = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * h) return;
-  const i64 b = idx / h, j = idx % h;
-  const int* xb = x + b * (2 * K * NL + 1) * (2 * h);
-  padd_aa_point<K>(xb + j, xb + h + j, 2 * h,
-                   out + b * (3 * K * NL) * h + j, h, C);
-}
-
-
-// launch one form of padd (G1 or G2, planes of T == 1 or not)
-template <typename Kernel>
-static int launch_padd(Kernel kernel, int warps, int smem, const int* p,
-                       const int* q, int* out, i64 total, i64 T, i64 pbs,
-                       i64 prs, i64 pts, i64 qbs, i64 qrs, i64 qts,
-                       cudaStream_t s) {
+// launch add_kernel<F, T == 1> for B*T adds
+template <class F>
+static int launch_add(const int* p, const int* q, int* out, i64 total,
+                      i64 T, i64 pbs, i64 prs, i64 pts, i64 qbs, i64 qrs,
+                      i64 qts, cudaStream_t s) {
+  auto kernel = T == 1 ? add_kernel<F, true> : add_kernel<F, false>;
   // shared memory above 48 KB must be asked for (per kernel and device)
+  const int smem = form_smem<F>();
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
   const unsigned blocks = (unsigned)((total + ADDS - 1) / ADDS);
-  kernel<<<blocks, warps * 32, smem, s>>>(p, q, out, total, T, pbs, prs, pts,
-                                          qbs, qrs, qts);
+  kernel<<<blocks, F::WARPS * 32, smem, s>>>(p, q, out, total, T, pbs, prs,
+                                             pts, qbs, qrs, qts);
   return (int)cudaGetLastError();
+}
+
+// the fold kernels' resident blocks per SM, at least: G1 four (146
+// registers a thread allow it; 128 give five), G2 two (as many as its
+// region allows)
+#ifndef G1_FOLD_BLOCKS
+#define G1_FOLD_BLOCKS 4
+#endif
+#define G2_FOLD_BLOCKS 2
+
+template <class F, int N, int MIN_BLOCKS>
+static int launch_levels(const int* x, int* out, i64 B, i64 h,
+                         cudaStream_t s) {
+  auto kernel = fold_levels_kernel<F, N, MIN_BLOCKS>;
+  const int smem = form_smem<F>();
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const unsigned blocks = (unsigned)((B * (h >> (N - 1)) + ADDS - 1) / ADDS);
+  kernel<<<blocks, F::WARPS * 32, smem, s>>>(x, out, B, h);
+  return (int)cudaGetLastError();
+}
+
+// n from 1 to F::MAX_LEVELS (G1 3; G2 1: at its 168 registers a thread
+// the G2 kernel for two or three levels spills)
+template <class F, int MIN_BLOCKS>
+static int launch_levels(const int* x, int* out, i64 B, i64 h, int n,
+                         cudaStream_t s) {
+  if (n == 1) return launch_levels<F, 1, MIN_BLOCKS>(x, out, B, h, s);
+  if constexpr (F::MAX_LEVELS >= 3) {
+    if (n == 2) return launch_levels<F, 2, MIN_BLOCKS>(x, out, B, h, s);
+    if (n == 3) return launch_levels<F, 3, MIN_BLOCKS>(x, out, B, h, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class F>
+static int occupancy(const void* kernel, int smem) {
+  int blocks = 0;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                       F::WARPS * 32, smem);
+  return rc == cudaSuccess ? blocks : -(int)rc;
 }
 
 extern "C" {
@@ -596,42 +1002,55 @@ int zk_padd(int k, const int* p, const int* q, int* out, i64 B, i64 T,
             i64 pbs, i64 prs, i64 pts, i64 qbs, i64 qrs, i64 qts,
             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const i64 total = B * T;
-  if (k == 1)
-    return T == 1 ? launch_padd(padd_g1_kernel<true>, G1_WARPS, G1_SMEM, p,
-                                q, out, total, T, pbs, prs, pts, qbs, qrs,
-                                qts, s)
-                  : launch_padd(padd_g1_kernel<false>, G1_WARPS, G1_SMEM, p,
-                                q, out, total, T, pbs, prs, pts, qbs, qrs,
-                                qts, s);
-  return T == 1 ? launch_padd(padd_g2_kernel<true>, G2_WARPS, G2_SMEM, p, q,
-                              out, total, T, pbs, prs, pts, qbs, qrs, qts, s)
-                : launch_padd(padd_g2_kernel<false>, G2_WARPS, G2_SMEM, p, q,
-                              out, total, T, pbs, prs, pts, qbs, qrs, qts, s);
+  return k == 1 ? launch_add<PaddG1>(p, q, out, B * T, T, pbs, prs, pts, qbs,
+                                     qrs, qts, s)
+                : launch_add<PaddG2>(p, q, out, B * T, T, pbs, prs, pts, qbs,
+                                     qrs, qts, s);
 }
 
-int zk_fold_padd(int k, const int* x, int* out, const int* consts, i64 B,
-                 i64 h, void* stream) {
+// out: the n levels back to back (level l at B*rows*(h + ... + h_(l-1))),
+// n from 1 to 3 (G1) or 1 (G2)
+int zk_fold_padd_levels(int k, const int* x, int* out, i64 B, i64 h, int n,
+                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1)
-    fold_padd_kernel<1><<<blocks_for(B * h), THREADS, 0, s>>>(x, out, consts,
-                                                              B, h);
-  else
-    fold_padd_kernel<2><<<blocks_for(B * h), THREADS, 0, s>>>(x, out, consts,
-                                                              B, h);
-  return (int)cudaGetLastError();
+  return k == 1 ? launch_levels<PaddG1, G1_FOLD_BLOCKS>(x, out, B, h, n, s)
+                : launch_levels<PaddG2, G2_FOLD_BLOCKS>(x, out, B, h, n, s);
 }
 
-int zk_fold_padd_aa(int k, const int* x, int* out, const int* consts, i64 B,
-                    i64 h, void* stream) {
+// out (B, rows, h) projective from x (B, arows, 2h) affine
+int zk_fold_padd_aa(int k, const int* x, int* out, i64 B, i64 h,
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1)
-    fold_padd_aa_kernel<1><<<blocks_for(B * h), THREADS, 0, s>>>(x, out,
-                                                                 consts, B, h);
-  else
-    fold_padd_aa_kernel<2><<<blocks_for(B * h), THREADS, 0, s>>>(x, out,
-                                                                 consts, B, h);
-  return (int)cudaGetLastError();
+  const i64 ar = 2 * k * NL + 1;
+  return k == 1 ? launch_add<PaddAaG1>(x, x + h, out, B * h, h, ar * 2 * h,
+                                       2 * h, 1, ar * 2 * h, 2 * h, 1, s)
+                : launch_add<PaddAaG2>(x, x + h, out, B * h, h, ar * 2 * h,
+                                       2 * h, 1, ar * 2 * h, 2 * h, 1, s);
+}
+
+// resident blocks per SM of each cooperative kernel at its shared memory:
+// padd G1, G2 (lane planes), fold_padd_aa G1, G2, fold_padd_levels G1 at
+// `levels` levels (1 to 3), G2 at one -> blocks[0..5]; a negative entry is
+// a CUDA error
+int zk_occupancy(int levels, int* blocks) {
+  const void* g1[3] = {
+      (const void*)fold_levels_kernel<PaddG1, 1, G1_FOLD_BLOCKS>,
+      (const void*)fold_levels_kernel<PaddG1, 2, G1_FOLD_BLOCKS>,
+      (const void*)fold_levels_kernel<PaddG1, 3, G1_FOLD_BLOCKS>};
+  if (levels < 1 || levels > 3) return (int)cudaErrorInvalidValue;
+  blocks[0] = occupancy<PaddG1>((const void*)add_kernel<PaddG1, false>,
+                                form_smem<PaddG1>());
+  blocks[1] = occupancy<PaddG2>((const void*)add_kernel<PaddG2, false>,
+                                form_smem<PaddG2>());
+  blocks[2] = occupancy<PaddAaG1>((const void*)add_kernel<PaddAaG1, false>,
+                                  form_smem<PaddAaG1>());
+  blocks[3] = occupancy<PaddAaG2>((const void*)add_kernel<PaddAaG2, false>,
+                                  form_smem<PaddAaG2>());
+  blocks[4] = occupancy<PaddG1>(g1[levels - 1], form_smem<PaddG1>());
+  blocks[5] = occupancy<PaddG2>(
+      (const void*)fold_levels_kernel<PaddG2, 1, G2_FOLD_BLOCKS>,
+      form_smem<PaddG2>());
+  return 0;
 }
 
 }  // extern "C"

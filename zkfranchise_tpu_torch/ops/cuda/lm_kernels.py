@@ -11,6 +11,8 @@ composite of them:
   mont_mul      a*b*R^-1 mod p, elementwise, Fr or Fq         mont_mul_ref
   padd          p + q, RCB15 complete add, G1 or G2           padd_ref
   fold_padd     x[..., :m/2] + x[..., m/2:], projective       fold_padd_ref
+  fold_padd_    n levels of that halving tree in ONE launch   fold_padd_
+    levels      (fold_padd is its one-level case)               levels_ref
   fold_padd_aa  the same from AFFINE planes -> projective     fold_padd_aa_ref
   fold_mul      x[..., :m/2] * x[..., m/2:], Fr or Fq         fold_mul_ref
   inv           a^(p-2) = 1/a (inv(0) = 0), Fr or Fq          inv_ref
@@ -37,8 +39,9 @@ at the same time), into ``zkfranchise_tpu_torch/build/`` under a name
 keyed by a hash of the source and the shared header (an edit rebuilds),
 and loaded with ctypes.  Each wrapper adds one to its ``LAUNCHES`` entry
 per kernel launch and nowhere else; the EC kernels count G1 and G2 apart
-(``"padd/g1"``, ``"padd/g2"``), and ``PADD_SHAPES`` counts padd's launches
-by plane shape.
+(``"padd/g1"``, ``"padd/g2"``); ``PADD_SHAPES`` counts padd's launches
+by plane shape and ``FOLD_SHAPES`` the folds' by batch, width and levels.
+``fold_plan`` decides how many levels a fold launch takes.
 """
 from __future__ import annotations
 
@@ -71,12 +74,17 @@ LAUNCHES = {"mont_mul": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
 # padd launches by plane shape: "g1/B128/T1" counts G1 launches on
 # (128, 63, 1) planes (B adds per lane, T lanes)
 PADD_SHAPES: dict = {}
+# fold launches by shape: "fold_padd/g1/B128/h8192/n3" counts launches of
+# fold_padd_levels on (128, 63, 16384) planes with 3 levels (first output
+# width h); fold_padd_aa's are "fold_padd_aa/g1/B128/h16384/n1"
+FOLD_SHAPES: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     PADD_SHAPES.clear()
+    FOLD_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -90,29 +98,32 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(src: pathlib.Path) -> pathlib.Path:
+def library_path(src: pathlib.Path, defines=()) -> pathlib.Path:
     h = hashlib.sha256()
     for f in (src, *HEADERS):
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *defines]).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
+def build(defines=(), sources=None) -> dict:
     """Compile every source whose hash has no library yet, all at the same
     time, one ``nvcc`` each -> {source stem: library path}.  The compiler's
     resource report (-Xptxas -v) is kept beside each library as
-    ``<library>.log``."""
-    libs = {src.stem: library_path(src) for src in SOURCES}
+    ``<library>.log``.  `defines` (``-DNAME=value`` flags) build another
+    variant of the sources (tools.fold_variants); the port loads only the
+    default."""
+    sources = SOURCES if sources is None else sources
+    libs = {src.stem: library_path(src, defines) for src in sources}
     jobs = []
-    for src in SOURCES:
+    for src in sources:
         out = libs[src.stem]
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(src)]
         jobs.append((out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -130,16 +141,27 @@ def build() -> dict:
     return libs
 
 
+def load_lm_kernels(path) -> ctypes.CDLL:
+    """Load a build of csrc/lm_kernels.cu and declare its entry points."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = ctypes.CDLL(str(path))
+    lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 14 + [P]
+    lib.zk_padd.argtypes = [I, P, P, P] + [L] * 8 + [P]
+    lib.zk_fold_padd_levels.argtypes = [I, P, P, L, L, I, P]
+    lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
+    lib.zk_occupancy.argtypes = [I, P]
+    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd_levels,
+               lib.zk_fold_padd_aa, lib.zk_occupancy):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _libs() -> tuple:
     """(lm_kernels, lm_chains, lm_layout) libraries, built if need be."""
     paths = build()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib = ctypes.CDLL(str(paths["lm_kernels"]))
-    lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 14 + [P]
-    lib.zk_padd.argtypes = [I, P, P, P] + [L] * 8 + [P]
-    lib.zk_fold_padd.argtypes = [I, P, P, P, L, L, P]
-    lib.zk_fold_padd_aa.argtypes = [I, P, P, P, L, L, P]
+    lib = load_lm_kernels(paths["lm_kernels"])
     chains = ctypes.CDLL(str(paths["lm_chains"]))
     chains.zk_fold_mul.argtypes = [P, P, P, L, L, P]
     chains.zk_inv.argtypes = [P, P, P, P, I] + [L] * 5 + [P]
@@ -151,11 +173,9 @@ def _libs() -> tuple:
     layout.zk_fold2d.argtypes = [I, P, P, P, L, L, L, P]
     layout.zk_add_one.argtypes = [P, P, L, L, L, P]
     layout.zk_fused_upsweep.argtypes = [P, P, L, L, P]
-    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd,
-               lib.zk_fold_padd_aa, chains.zk_fold_mul, chains.zk_inv,
-               chains.zk_mont_chain, chains.zk_scalar_mul, layout.zk_mm2d,
-               layout.zk_mm3d, layout.zk_fold2d, layout.zk_add_one,
-               layout.zk_fused_upsweep):
+    for fn in (chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
+               chains.zk_scalar_mul, layout.zk_mm2d, layout.zk_mm3d,
+               layout.zk_fold2d, layout.zk_add_one, layout.zk_fused_upsweep):
         fn.restype = ctypes.c_int
     return lib, chains, layout
 
@@ -317,29 +337,114 @@ def _fold_args(name: str, x: torch.Tensor, rows_in: int):
     return x.contiguous(), x.shape[0], x.shape[2] // 2
 
 
+def _count_fold(name: str, kind: str, B: int, h: int, n: int) -> None:
+    LAUNCHES[f"{name}/{kind}"] += 1
+    key = f"{name}/{kind}/B{B}/h{h}/n{n}"
+    FOLD_SHAPES[key] = FOLD_SHAPES.get(key, 0) + 1
+
+
+def fold_padd_levels_ref(x: torch.Tensor, kind: str, n: int) -> list:
+    out = []
+    for _ in range(n):
+        x = fold_padd_ref(x, kind)
+        out.append(x)
+    return out
+
+
+def fold_padd_levels(x: torch.Tensor, kind: str, n: int) -> list:
+    """x: (B, rows, m) projective -> the n planes of widths m/2, m/4, ...,
+    m/2^n of the halving sum tree, level l + 1's lane j = level l's lane j
+    + lane j + width (x for l = 0).  m must be a multiple of 2^n.  On the
+    card up to FOLD_LEVELS[kind] levels (G1 3, G2 1) run in ONE launch
+    (more take more launches): a block owns a closed subtree and adds it
+    level by level, writing every level out once; the planes of a launch
+    are views of one allocation."""
+    k = _k(kind)
+    rows = ec_lm.ROWS[kind]
+    on_card = _on_card("fold_padd_levels", x)
+    if n < 1 or x.dim() != 3 or x.shape[1] != rows or \
+            x.shape[2] % (1 << n):
+        raise ValueError(f"fold_padd_levels: expected (B, {rows}, m) with m "
+                         f"a multiple of 2^{n}, got {tuple(x.shape)}")
+    if not on_card:
+        return fold_padd_levels_ref(x, kind, n)
+    out = []
+    while len(out) < n:                 # more levels than fit: launches
+        x = x.contiguous()
+        B, h = x.shape[0], x.shape[2] // 2
+        widths = [h >> i for i in range(min(n - len(out),
+                                            FOLD_LEVELS[kind]))]
+        buf = torch.empty(B * rows * sum(widths), dtype=torch.int32,
+                          device=x.device)
+        if buf.numel():
+            rc = _lib().zk_fold_padd_levels(k, x.data_ptr(), buf.data_ptr(),
+                                            B, h, len(widths),
+                                            _stream(x.device))
+            _check(rc, "fold_padd_levels")
+            _count_fold("fold_padd", kind, B, h, len(widths))
+        at = 0
+        for w in widths:
+            out.append(buf[at:at + B * rows * w].view(B, rows, w))
+            at += B * rows * w
+        x = out[-1]
+    return out
+
+
 def fold_padd(x: torch.Tensor, kind: str) -> torch.Tensor:
     """x: (B, rows, m) projective, m even -> (B, rows, m/2):
-    out[..., j] = x[..., j] + x[..., j + m/2].  On the card every width
-    down to m/2 = 1 runs in the kernel."""
-    k = _k(kind)
-    if not _on_card("fold_padd", x):
-        return fold_padd_ref(x, kind)
-    rows = ec_lm.ROWS[kind]
-    x, B, h = _fold_args("fold_padd", x, rows)
-    out = torch.empty((B, rows, h), dtype=torch.int32, device=x.device)
-    if out.numel():
-        consts = lm.const(_EC_CONSTS, x.device)
-        rc = _lib().zk_fold_padd(k, x.data_ptr(), out.data_ptr(),
-                                 consts.data_ptr(), B, h, _stream(x.device))
-        _check(rc, "fold_padd")
-        LAUNCHES[f"fold_padd/{kind}"] += 1
-    return out
+    out[..., j] = x[..., j] + x[..., j + m/2].  One level of
+    fold_padd_levels, on the same kernel."""
+    return fold_padd_levels(x, kind, 1)[0]
+
+
+# One launch of the fold kernel takes 1 to FOLD_LEVELS[kind] levels (it is
+# compiled for each; G2's kernel for more than one level spills).  A level
+# costs it no shared memory: the block stages its operands back from the
+# lanes it stored one level down.  Its shared memory, after
+# csrc/lm_kernels.cu: the cooperative add's region (32 adds of STRIDE
+# ints, then its constants) beside its static offsets.
+FOLD_LEVELS = {"g1": 3, "g2": 1}
+FOLD_REGION = {"g1": (317, 21), "g2": (883, 63)}      # (STRIDE, constants)
+FOLD_STATIC_BYTES = 528
+BLOCK_SHARED_MAX = 232448                            # 227 KB a block
+# A level wider than this runs alone: on the card (tools/fold_shapes.py)
+# a launch of three G1 levels takes longer than the three levels launched
+# apart, by more device time than the two launches' host time it saves
+# when its first level is 8192 wide, by less when it is 2048 (PERF.md).
+FOLD_WIDE = 2048
+
+
+def fold_smem_bytes(kind: str) -> int:
+    """Shared memory of one block of a fold launch, any number of levels."""
+    stride, consts = FOLD_REGION[kind]
+    return 4 * (32 * stride + consts) + FOLD_STATIC_BYTES
+
+
+def fold_plan(kind: str, h: int, floor: int) -> list:
+    """Levels per launch that fold a (B, rows, h) plane down to width
+    `floor` (widths halve while above it): one a launch while a level is
+    wider than FOLD_WIDE, then FOLD_LEVELS[kind] a launch, greedily; e.g.
+    G1 16384 -> 128 is [1, 1, 3, 2]."""
+    _k(kind)
+    widths, w = [], h
+    while w > floor:
+        if w % 2:
+            raise ValueError(f"fold_plan: width {w} is odd")
+        w //= 2
+        widths.append(w)
+    plan = []
+    while len(widths) > sum(plan):
+        wide = widths[sum(plan)] > FOLD_WIDE
+        plan.append(1 if wide else min(FOLD_LEVELS[kind],
+                                       len(widths) - sum(plan)))
+    return plan
 
 
 def fold_padd_aa(x: torch.Tensor, kind: str) -> torch.Tensor:
     """x: (B, arows, m) AFFINE planes -> (B, rows, m/2) PROJECTIVE:
     out[..., j] = x[..., j] (+) x[..., j + m/2] (level 0 of the MSM sum
-    tree: 10 products instead of 12, 43/85-row reads instead of 63/126)."""
+    tree: 10 products instead of 12, 43/85-row reads instead of 63/126).
+    On the card a cooperative add of two product rounds."""
     k = _k(kind)
     if not _on_card("fold_padd_aa", x):
         return fold_padd_aa_ref(x, kind)
@@ -347,14 +452,22 @@ def fold_padd_aa(x: torch.Tensor, kind: str) -> torch.Tensor:
     x, B, h = _fold_args("fold_padd_aa", x, arows)
     out = torch.empty((B, rows, h), dtype=torch.int32, device=x.device)
     if out.numel():
-        consts = lm.const(_EC_CONSTS, x.device)
-        rc = _lib().zk_fold_padd_aa(k, x.data_ptr(), out.data_ptr(),
-                                    consts.data_ptr(), B, h,
+        rc = _lib().zk_fold_padd_aa(k, x.data_ptr(), out.data_ptr(), B, h,
                                     _stream(x.device))
         _check(rc, "fold_padd_aa")
-        LAUNCHES[f"fold_padd_aa/{kind}"] += 1
+        _count_fold("fold_padd_aa", kind, B, h, 1)
     return out
 
+
+def occupancy(levels: int = 1) -> dict:
+    """Resident blocks per SM the card reports for each cooperative
+    kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the kernel's
+    shared memory; the fold kernel at `levels` levels)."""
+    blocks = (ctypes.c_int * 6)()
+    _check(_lib().zk_occupancy(levels, blocks), "occupancy")
+    names = ["padd/g1", "padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2",
+             f"fold_padd/g1/n{levels}", f"fold_padd/g2/n{levels}"]
+    return dict(zip(names, blocks))
 
 
 # ---------------------------------------------------------------------------

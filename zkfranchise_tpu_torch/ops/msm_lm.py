@@ -9,7 +9,8 @@ step so that every intermediate plane compares bit for bit:
   * per window: a stable argsort of the digit magnitudes, composed with a
     BIT-REVERSAL, so that every level of the sum tree is a contiguous
     fold-in-half add x[..., :m/2] + x[..., m/2:] (kernels fold_padd_aa for
-    level 0, fold_padd above it);
+    level 0, fold_padd_levels above it, several levels a launch as
+    fold_plan says);
   * the upsweep stops at width 128; the 128 bucket-boundary prefix sums
     come from a shifted-add prefix scan over that level plus root-to-leaf
     walks over the retained levels (kernel padd);
@@ -189,6 +190,41 @@ def msm(scalars_plain: torch.Tensor, table: torch.Tensor, kind: str,
     return combine_horner(ws, kind, B)
 
 
+def fold_launches(m: int, B: int, kind: str, G: int | None = None) -> dict:
+    """{lm_kernels.FOLD_SHAPES key: launches} of one chunk_window_sums on
+    the card: a pow2 chunk of m points at batch B, G windows a group
+    (default_window_group on the card when None)."""
+    if G is None:
+        G = default_window_group(m, B, "cuda")
+    out: dict = {}
+
+    def add(name, h, n):
+        key = f"{name}/{kind}/B{G * B}/h{h}/n{n}"
+        out[key] = out.get(key, 0) + N_WINDOWS // G
+
+    floor = 1 if m < WFLOOR else WFLOOR
+    if m > floor:
+        h = m // 2
+        add("fold_padd_aa", h, 1)
+        for n in K.fold_plan(kind, h, floor):
+            add("fold_padd", h // 2, n)
+            h >>= n
+    if m < WFLOOR:                      # group_small's _tree_reduce_lanes
+        for h in range(WFLOOR.bit_length() - 2, -1, -1):
+            add("fold_padd", 1 << h, 1)
+    return out
+
+
+def msm_fold_launches(n: int, B: int, kind: str,
+                      G: int | None = None) -> dict:
+    """fold_launches summed over the chunks of an n-point msm."""
+    out: dict = {}
+    for _, _, m in _chunks(n):
+        for key, v in fold_launches(m, B, kind, G).items():
+            out[key] = out.get(key, 0) + v
+    return out
+
+
 def _chunks(n: int):
     """[(start, real, padded)].  At most ONE split, and only when the
     padding waste is >= 25% of the padded tree: one big pow2 half plus one
@@ -198,6 +234,19 @@ def _chunks(n: int):
         return [(0, n, m)]
     c = m // 2
     return [(0, c, c), (c, n - c, _next_pow2(n - c))]
+
+
+def upsweep(x: torch.Tensor, kind: str, floor: int) -> list:
+    """(B, arows, m) affine plane in fold order -> the sum tree's levels
+    from x down to width `floor`: level 0 by fold_padd_aa (projective from
+    here on), then fold_padd_levels, several levels a launch as fold_plan
+    says.  Every level is kept: fine_walk reads them all."""
+    levels = [x]
+    if x.shape[-1] > floor:
+        levels.append(K.fold_padd_aa(x, kind))
+        for n in K.fold_plan(kind, levels[-1].shape[-1], floor):
+            levels += K.fold_padd_levels(levels[-1], kind, n)
+    return levels
 
 
 def _window_sums(signs, mags, table, kind, G, m):
@@ -236,16 +285,6 @@ def _window_sums(signs, mags, table, kind, G, m):
                                     buckets, right=True).to(torch.int32)
         return x, counts                                # counts (G*B, 128)
 
-    def upsweep(x, floor):
-        levels = [x]
-        if x.shape[-1] > floor:
-            x = K.fold_padd_aa(x, kind)                 # -> projective
-            levels.append(x)
-        while x.shape[-1] > floor:
-            x = K.fold_padd(x, kind)
-            levels.append(x)
-        return levels
-
     def fine_walk(levels, acc, counts, offset, top_lvl):
         """Root-to-leaf path adds for levels < top_lvl (width-128 ops)."""
         for lvl in range(top_lvl - 1, -1, -1):
@@ -263,7 +302,7 @@ def _window_sums(signs, mags, table, kind, G, m):
     def group_small(sg, d):
         """Full tree to width 1 (m < 128: tests and tiny chunks)."""
         x, counts = sort_gather(sg, d)
-        levels = upsweep(x, 1)
+        levels = upsweep(x, kind, 1)
         if levels[-1].shape[-2] != rows:                # m == 1
             levels[-1] = ec_affine.to_projective(levels[-1], kind)
         total = levels[-1]
@@ -274,7 +313,7 @@ def _window_sums(signs, mags, table, kind, G, m):
 
     def group(sg, d):
         x, counts = sort_gather(sg, d)
-        levels = upsweep(x, WFLOOR)
+        levels = upsweep(x, kind, WFLOOR)
         coarse = levels[-1]                             # width 128
         if coarse.shape[-2] != rows:                    # m == 128: affine
             coarse = ec_affine.to_projective(coarse, kind)

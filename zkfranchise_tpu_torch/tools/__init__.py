@@ -7,6 +7,8 @@ layout experiments (geometry sweeps held against the plain versions).
     python -m zkfranchise_tpu_torch.tools.layout_expt [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.layout_expt2 [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.padd_shapes [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.fold_shapes [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.fold_variants [--device cpu]
 
     python -m zkfranchise_tpu_torch.tools.prove_from_zkey --zkey F --vk F --nlevels N
 
