@@ -61,25 +61,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the 32-bit
-# non-tensor rate (67 T op/s float32; int32 multiply-adds do not run
-# faster on Hopper), counting a multiply-add as two operations
 N_LEVELS, BATCH = 16, 128              # the main path's configuration
 
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-
-# multiply-adds per element: wide (21x21), low (triangular 21), reduce
-MAD_WIDE, MAD_LOW = 441, 231
-MAD_RED = MAD_LOW + MAD_WIDE
-MAD_MONT = MAD_WIDE + MAD_RED                           # 1113
-MAD_FQ2 = 4 * MAD_WIDE + 2 * MAD_RED                    # lazy Fq2 product
-MADS = {
-    ("padd", "g1"): 8 * MAD_MONT + 6 * MAD_WIDE + 3 * MAD_RED,      # 13566
-    ("padd", "g2"): 8 * MAD_FQ2 + 24 * MAD_WIDE + 6 * MAD_RED,      # 39480
-    ("padd_aa", "g1"): 4 * MAD_MONT + 6 * MAD_WIDE + 3 * MAD_RED,   # 9114
-    ("padd_aa", "g2"): 4 * MAD_FQ2 + 24 * MAD_WIDE + 6 * MAD_RED,   # 27048
-}
 _CSRC = "zkfranchise_tpu_torch/csrc/"
 _PALLAS = "zkfranchise_tpu/ops/pallas/lm_kernels.py"
 _EXPT = "scripts/layout_expt"
@@ -139,7 +122,11 @@ def emit(obj) -> None:
 
 
 def bound(nbytes: float, mads: float) -> tuple[float, str]:
-    """Least time in ms for this work on the card, and what bounds it."""
+    """Least time in ms for this work on the card, and what bounds it:
+    bytes over the H100's memory rate or multiply-adds over its 32-bit rate
+    (zkfranchise_tpu_torch.tools, which also counts the multiply-adds)."""
+    from zkfranchise_tpu_torch.tools import HBM_BYTES_PER_S, OPS_PER_S
+
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * mads / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -263,7 +250,8 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
-    from zkfranchise_tpu_torch.tools import device_ms, event_ms
+    from zkfranchise_tpu_torch.tools import COLS_SCHOOLBOOK, MAD_MONT, \
+        add_mads, device_ms, event_ms
     from zkfranchise_tpu_torch.tools import fold_shapes
     from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
 
@@ -335,7 +323,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
                 key = "padd/g2" if sname == "walk" else f"{key}/g2"
             check(f"padd/{kind}/{sname}/{Bp}x{rows}x{Tp}",
                   lambda: K.padd(p, q, kind), lambda: K.padd_ref(p, q, kind),
-                  4 * 3 * rows * Bp * Tp, MADS[("padd", kind)] * Bp * Tp,
+                  4 * 3 * rows * Bp * Tp, add_mads("padd", kind) * Bp * Tp,
                   key)
             del p, q
     B, m = 128, 2048
@@ -348,12 +336,13 @@ def phase_kernels(np, torch, K, dev) -> dict:
               lambda: K.fold_padd(x, kind),
               lambda: K.fold_padd_ref(x, kind),
               4 * (rows * m + rows * m // 2) * B,
-              MADS[("padd", kind)] * B * m // 2, key("fold_padd"))
+              add_mads("padd", kind) * B * m // 2, key("fold_padd"))
         check(f"fold_padd_aa/{kind}/{B}x{arows}x{m}",
               lambda: K.fold_padd_aa(a, kind),
               lambda: K.fold_padd_aa_ref(a, kind),
               4 * (arows * m + rows * m // 2) * B,
-              MADS[("padd_aa", kind)] * B * m // 2, key("fold_padd_aa"))
+              add_mads("padd_aa", kind) * B * m // 2,
+              key("fold_padd_aa"))
         del p, q, a, x
         torch.cuda.empty_cache()
 
@@ -406,7 +395,8 @@ def phase_kernels(np, torch, K, dev) -> dict:
               lambda: K.scalar_mul(pts, bits, kind),
               lambda: K.scalar_mul_ref(pts, bits, kind),
               4 * (2 * rows * B + 254),
-              MADS[("padd", kind)] * (254 + int(bits.sum())) * B,
+              add_mads("padd", kind, COLS_SCHOOLBOOK) *
+              (254 + int(bits.sum())) * B,
               "scalar_mul" if kind == "g1" else "scalar_mul/g2",
               plain_runs=1)
     torch.cuda.empty_cache()
@@ -420,6 +410,8 @@ def _layout_kernels(np, torch, K, dev, rng, check) -> None:
     """The five kernels of the layout experiments at the experiments'
     sizes, at two geometries each (the first is the table's row)."""
     from zkfranchise_tpu_torch.ops import ec_lm, lm
+    from zkfranchise_tpu_torch.tools import COLS_SCHOOLBOOK, MAD_MONT, \
+        add_mads
     from zkfranchise_tpu_torch.tools.layout_expt2 import level_adds
 
     T = 1 << 20
@@ -468,7 +460,8 @@ def _layout_kernels(np, torch, K, dev, rng, check) -> None:
                   lambda: K.fold2d(x, tile, kind, m),
                   lambda: K.fold2d_ref(x, tile, kind, m),
                   4 * rows * (B * m + B * m // 2),
-                  MADS[("padd", kind)] * B * m // 2, key, plain_runs=3)
+                  add_mads("padd", kind, COLS_SCHOOLBOOK) * B * m // 2, key,
+                  plain_runs=3)
         del x
         torch.cuda.empty_cache()
 

@@ -14,6 +14,7 @@ import torch
 from zkfranchise_tpu.ops import ec_lm as jec
 from zkfranchise_tpu_torch.ops import ec_lm, lm
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
+from zkfranchise_tpu_torch import tools
 from zkfranchise_tpu_torch.tools import padd_shapes
 
 # small tensors: one intra-op thread per test worker (several workers
@@ -83,7 +84,29 @@ def test_padd_shapes_tool_passes_on_cpu(capsys):
 def test_padd_shapes_bounds_take_the_larger_time():
     b = padd_shapes.bounds("g2", 128, 128, 1980.0)
     assert b["bound_by"] == "operations"
-    assert b["bound_ms"] == pytest.approx(2 * 39480 * 16384 / 67e12 * 1e3)
+    # a G2 add of the cooperative kernel: 31,758 multiply-adds
+    assert b["bound_ms"] == pytest.approx(2 * 31758 * 16384 / 67e12 * 1e3)
     # the integer ceiling: 64 multiply-adds per clock per SM, 132 SMs
     assert b["int_ceiling_ms"] == pytest.approx(
-        39480 * 16384 / (64 * 132 * 1980e6) * 1e3)
+        31758 * 16384 / (64 * 132 * 1980e6) * 1e3)
+
+
+# (form, kind): multiply-adds of one add with schoolbook column products
+# (441 each), then with the cooperative kernels' Karatsuba (342).  G1 RCB15:
+# 8 products, 3 reductions of 2 lazy terms; G2: 16 of 2 lazy Fq products,
+# 6 of 4; the mixed adds: 4 and 3 (G1), 8 and 6 (G2).
+ADD_MADS = {("padd", "g1"): (8 * 1113 + 3 * 1554, 8 * 915 + 3 * 1257),
+            ("padd", "g2"): (16 * 1554 + 6 * 2436, 16 * 1257 + 6 * 1941),
+            ("padd_aa", "g1"): (4 * 1113 + 3 * 1554, 4 * 915 + 3 * 1257),
+            ("padd_aa", "g2"): (8 * 1554 + 6 * 2436, 8 * 1257 + 6 * 1941)}
+
+
+@pytest.mark.parametrize("form,kind", sorted(ADD_MADS))
+def test_add_mads_count_each_product(form, kind):
+    school, kara = ADD_MADS[(form, kind)]
+    assert tools.add_mads(form, kind, tools.COLS_SCHOOLBOOK) == school
+    assert tools.add_mads(form, kind) == kara
+    assert (school, kara) == {("padd", "g1"): (13566, 11091),
+                              ("padd", "g2"): (39480, 31758),
+                              ("padd_aa", "g1"): (9114, 7431),
+                              ("padd_aa", "g2"): (27048, 21702)}[(form, kind)]

@@ -52,17 +52,17 @@
 //     many blocks resident; every level is written out once (the MSM reads
 //     them all).  What it saves is launches: host time.
 // What bounds them: integer multiply-adds (64 a clock per SM on Hopper,
-// half the float32 rate the bounds are stated in).  A Montgomery product
-// is 441 + 231 + 441 = 1113 multiply-adds (915 with Karatsuba) on 168-252
-// bytes of traffic, a G1 add 13,566 on 756 bytes, a G2 add 39,480 on 1,512
-// bytes, the affine level-0 adds 9,114 and 27,048: compute-bound by a wide
-// margin.  They reach about half the integer rate.  Not the multiply-add
-// pipe: 18% fewer multiply-adds (Karatsuba) gave 4-7% (G1) and 4-6% (G2),
-// and both groups take it.  Not residency: the schoolbook G1 fold at 128
-// registers keeps five blocks an SM and is slower than Karatsuba's four
-// (153 registers).  What remains is latency inside a team: three or four
-// warps a scheduler, each a chain of dependent product phases between
-// barriers, with a role idle in round 2 (PERF.md).
+// half the float32 rate).  With Karatsuba column products a Montgomery
+// product is 342 + 231 + 342 = 915 multiply-adds on 168-252 bytes of
+// traffic, a G1 add 11,091 on 756 bytes, a G2 add 31,758 on 1,512 bytes,
+// the affine level-0 adds 7,431 and 21,702: compute-bound by a wide margin.
+// They reach about 40% of the integer rate.  Not the multiply-add pipe:
+// 18% fewer multiply-adds (Karatsuba against the schoolbook) gave 4-7%.
+// Not residency: the schoolbook G1 fold at 128 registers kept five blocks
+// an SM and was slower than Karatsuba's four (153 registers).  What
+// remains is latency inside a team: three or four warps a scheduler, each
+// a chain of dependent product phases between barriers, with a role idle
+// in round 2 (PERF.md).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() of its launch.
@@ -114,11 +114,10 @@ mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
 // shared memory (STRIDE ints, odd, so the 32 lanes of a warp reading limb k
 // of the same element hit 32 different banks), the constants the adds share
 // after the last region; __syncthreads() separates the product rounds.
-// G1: 3 warps, G2: 6 (layouts at padd_g1_kernel and padd_g2_kernel).  Every
-// product of both kernels runs through ONE out-of-line copy of the
-// schoolbook and the reduction (prod), whose operands and result stay in
-// shared memory, so each kernel holds one copy of that code instead of one
-// per product.
+// G1: 3 warps, G2: 6 (layouts at PaddG1 and PaddG2).  Every product of a
+// group runs through ONE out-of-line copy of the column products and the
+// reduction (prod<GRP>), whose operands and result stay in shared memory,
+// so each kernel holds one copy of that code instead of one per product.
 
 #define ADDS 32
 #define G1_WARPS 3
@@ -160,22 +159,15 @@ __constant__ int EC_B3G2[2 * NL] = {
 // the padd kernels' dynamic shared memory
 extern __shared__ int psm[];
 
-// Products of the cooperative adds, schoolbook (KARA false) or Karatsuba
-// (KARA true): one level over an 11 + 10 limb split forms a product's 43
-// column sums from 121 + 100 + 121 = 342 multiply-adds instead of 441 (the
-// low half a0*b0, the high half a1*b1, and the middle (a0+a1)(b0+b1) -
-// a0*b0 - a1*b1), for a few more registers and adds.  The middle columns
-// may pass 2^31, so they are formed modulo 2^32 (unsigned); every true
-// column sum of a*b fits in an int, so each column equals the
-// schoolbook's, and so does every limb after it.  Each group's forms take
-// the one that measured faster on the card (tools/fold_variants.py builds
-// the other: -DKARA_G1=... -DKARA_G2=...).
-#ifndef KARA_G1
-#define KARA_G1 1
-#endif
-#ifndef KARA_G2
-#define KARA_G2 1
-#endif
+// Products of the cooperative adds: one level of Karatsuba over an 11 + 10
+// limb split forms a product's 43 column sums from 121 + 100 + 121 = 342
+// multiply-adds instead of the schoolbook's 441 (the low half a0*b0, the
+// high half a1*b1, and the middle (a0+a1)(b0+b1) - a0*b0 - a1*b1), for a
+// few more registers and adds.  The middle columns may pass 2^31, so they
+// are formed modulo 2^32 (unsigned); every true column sum of a*b fits in
+// an int, so each column equals the schoolbook's, and so does every limb
+// after it.  On the card it made both groups' folds 4-7% faster than the
+// schoolbook (PERF.md).
 
 struct FromPtr {
   const int* b;
@@ -191,56 +183,47 @@ struct FromP {
 };
 
 // c[0..42] += column sums of a * b (b(j): limb j of the other operand)
-template <bool KARA, class Bv>
+template <class Bv>
 __device__ __forceinline__ void cols_add(const int* a, Bv b, int* c) {
-  if constexpr (KARA) {
-    unsigned lo[21], mid[21], hi[19], sa[11], sb[11];
+  unsigned lo[21], mid[21], hi[19], sa[11], sb[11];
 #pragma unroll
-    for (int i = 0; i < 11; ++i) {
-      sa[i] = (unsigned)a[i] + (i < 10 ? (unsigned)a[11 + i] : 0u);
-      sb[i] = b(i) + (i < 10 ? b(11 + i) : 0u);
-    }
+  for (int i = 0; i < 11; ++i) {
+    sa[i] = (unsigned)a[i] + (i < 10 ? (unsigned)a[11 + i] : 0u);
+    sb[i] = b(i) + (i < 10 ? b(11 + i) : 0u);
+  }
 #pragma unroll
-    for (int k = 0; k < 21; ++k) lo[k] = mid[k] = 0u;
+  for (int k = 0; k < 21; ++k) lo[k] = mid[k] = 0u;
 #pragma unroll
-    for (int k = 0; k < 19; ++k) hi[k] = 0u;
+  for (int k = 0; k < 19; ++k) hi[k] = 0u;
 #pragma unroll
-    for (int i = 0; i < 11; ++i) {
+  for (int i = 0; i < 11; ++i) {
 #pragma unroll
-      for (int j = 0; j < 11; ++j) {
-        lo[i + j] += (unsigned)a[i] * b(j);
-        mid[i + j] += sa[i] * sb[j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 10; ++i) {
-#pragma unroll
-      for (int j = 0; j < 10; ++j)
-        hi[i + j] += (unsigned)a[11 + i] * b(11 + j);
-    }
-#pragma unroll
-    for (int k = 0; k < 21; ++k) {
-      mid[k] -= lo[k] + (k < 19 ? hi[k] : 0u);
-      c[k] = (int)((unsigned)c[k] + lo[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 21; ++k)
-      c[11 + k] = (int)((unsigned)c[11 + k] + mid[k]);
-#pragma unroll
-    for (int k = 0; k < 19; ++k)
-      c[22 + k] = (int)((unsigned)c[22 + k] + hi[k]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-#pragma unroll
-      for (int j = 0; j < NL; ++j) c[i + j] += a[i] * (int)b(j);
+    for (int j = 0; j < 11; ++j) {
+      lo[i + j] += (unsigned)a[i] * b(j);
+      mid[i + j] += sa[i] * sb[j];
     }
   }
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+#pragma unroll
+    for (int j = 0; j < 10; ++j)
+      hi[i + j] += (unsigned)a[11 + i] * b(11 + j);
+  }
+#pragma unroll
+  for (int k = 0; k < 21; ++k) {
+    mid[k] -= lo[k] + (k < 19 ? hi[k] : 0u);
+    c[k] = (int)((unsigned)c[k] + lo[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 21; ++k)
+    c[11 + k] = (int)((unsigned)c[11 + k] + mid[k]);
+#pragma unroll
+  for (int k = 0; k < 19; ++k)
+    c[22 + k] = (int)((unsigned)c[22 + k] + hi[k]);
 }
 
 // mont_reduce (lm_device.cuh) with p and n' from constant memory, and m*p
 // added into t column by column: the same integers, so the same limbs
-template <bool KARA>
 __device__ __forceinline__ void mont_reduce_fq(int* t, int* out) {
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
@@ -254,7 +237,7 @@ __device__ __forceinline__ void mont_reduce_fq(int* t, int* out) {
   }
   weak_norm<NL>(m);
   weak_norm<NL>(m);
-  cols_add<KARA>(m, FromP(), t);
+  cols_add(m, FromP(), t);
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
@@ -282,7 +265,7 @@ __device__ __forceinline__ void store_n(int* s, const int* x) {
 // psm[a_i, +21) * psm[b_i, +21), each put through two weak_norm rounds
 // first when `lazy` (the lazy terms of an Fq2 product or of round 3); n = 1
 // without `lazy` is a Montgomery product.
-template <bool KARA, int GRP>
+template <int GRP>
 __device__ __noinline__ void prod(int n, bool lazy, int a0, int b0, int a1,
                                   int b1, int a2, int b2, int a3, int b3,
                                   int o) {
@@ -298,7 +281,7 @@ __device__ __noinline__ void prod(int n, bool lazy, int a0, int b0, int a1,
     load_n<NL>(psm + b, y);
 #pragma unroll
     for (int k = 0; k < WIDE; ++k) c[k] = 0;
-    cols_add<KARA>(x, FromPtr{y}, c);
+    cols_add(x, FromPtr{y}, c);
     if (lazy) {
       weak_norm<WIDE>(c);
       weak_norm<WIDE>(c);
@@ -307,19 +290,19 @@ __device__ __noinline__ void prod(int n, bool lazy, int a0, int b0, int a1,
     for (int k = 0; k < WIDE; ++k) acc[k] += c[k];
   }
   int r[NL];
-  mont_reduce_fq<KARA>(acc, r);
+  mont_reduce_fq(acc, r);
   store_n<NL>(psm + o, r);
 }
 
-template <bool KARA, int GRP>
+template <int GRP>
 __device__ __forceinline__ void mul1(int a, int b, int o) {
-  prod<KARA, GRP>(1, false, a, b, 0, 0, 0, 0, 0, 0, o);
+  prod<GRP>(1, false, a, b, 0, 0, 0, 0, 0, 0, o);
 }
 
-template <bool KARA, int GRP>
+template <int GRP>
 __device__ __forceinline__ void lazy2(int a0, int b0, int a1, int b1,
                                       int o) {
-  prod<KARA, GRP>(2, true, a0, b0, a1, b1, 0, 0, 0, 0, o);
+  prod<GRP>(2, true, a0, b0, a1, b1, 0, 0, 0, 0, o);
 }
 
 // o = weak_norm(a + b) over W limbs (add_n)
@@ -491,12 +474,11 @@ __device__ __forceinline__ void store_out(int* out, const O& ofs,
 //   t2*b3, 84 z3, 105 t1' (warp 1); 273 y3b = y3*b3, 294 -y3b (warp 2)
 //   126 + 21j  output coordinate j (round 3: warp j, two lazy terms)
 // Constants after the regions: b3.  Per thread: at most 3 products and 2
-// lazy terms, 4,893 of the add's 13,566 multiply-adds.
+// lazy terms, 4,002 of the add's 11,091 multiply-adds.
 struct PaddG1 {
   static constexpr int ROWS_IN = 63, ROWS = 63, WARPS = G1_WARPS;
   static constexpr int STRIDE = G1_STRIDE, IN_AT = 0, OUT_AT = 126;
   static constexpr int NCONST = NL, MAX_LEVELS = 3;
-  static constexpr bool KARA = KARA_G1;
   static constexpr int GRP = 1;
 
   static __device__ __forceinline__ void consts(int KC) {
@@ -510,9 +492,9 @@ struct PaddG1 {
     // round 1
     s_add<NL>(s + NL * j, s + NL * j1, s + 126 + NL * j);
     s_add<NL>(s + 63 + NL * j, s + 63 + NL * j1, s + 189 + NL * j);
-    mul1<KARA, GRP>(base + 126 + NL * j, base + 189 + NL * j,
+    mul1<GRP>(base + 126 + NL * j, base + 189 + NL * j,
                     base + 189 + NL * j);
-    mul1<KARA, GRP>(base + NL * j, base + 63 + NL * j, base + 126 + NL * j);
+    mul1<GRP>(base + NL * j, base + 63 + NL * j, base + 126 + NL * j);
     __syncthreads();
     // t3, t4, y3; x3; round 2: t2b = t2*b3 and y3b = y3*b3
     s_cross<NL>(s + 189 + NL * j, s + 126 + NL * j, s + 126 + NL * j1,
@@ -520,23 +502,23 @@ struct PaddG1 {
     if (j == 0) {
       s_triple<NL>(s + 126, s + 63);
     } else if (j == 1) {
-      mul1<KARA, GRP>(base + 168, KC, base + 252);
+      mul1<GRP>(base + 168, KC, base + 252);
       s_add<NL>(s + 147, s + 252, s + 84);
       s_sub<NL>(s + 147, s + 252, s + 105);
     } else {
-      mul1<KARA, GRP>(base + 2 * NL, KC, base + 273);
+      mul1<GRP>(base + 2 * NL, KC, base + 273);
       s_neg(s + 273, s + 294);
     }
     __syncthreads();
     // round 3: X = t3*t1' + t4*(-y3b), Y = y3b*x3 + t1'*z3, Z = z3*t4 +
     // x3*t3
     if (j == 0)
-      lazy2<KARA, GRP>(base, base + 105, base + 21, base + 294, base + 126);
+      lazy2<GRP>(base, base + 105, base + 21, base + 294, base + 126);
     else if (j == 1)
-      lazy2<KARA, GRP>(base + 273, base + 63, base + 105, base + 84,
+      lazy2<GRP>(base + 273, base + 63, base + 105, base + 84,
                        base + 147);
     else
-      lazy2<KARA, GRP>(base + 84, base + 21, base + 63, base, base + 168);
+      lazy2<GRP>(base + 84, base + 21, base + 63, base, base + 168);
     __syncthreads();
   }
 
@@ -571,10 +553,9 @@ __device__ __forceinline__ void g2_consts(int KC) {
 
 // round 3 over Fq2 (every G2 form): warp w reduces output component w
 // into out + 21w
-template <bool KARA>
 __device__ __forceinline__ void g2_round3(int base, int out) {
   const int w = threadIdx.x >> 5;
-  prod<KARA, 2>(4, true, base + G2_ROUND3[w][0], base + G2_ROUND3[w][1],
+  prod<2>(4, true, base + G2_ROUND3[w][0], base + G2_ROUND3[w][1],
        base + G2_ROUND3[w][2], base + G2_ROUND3[w][3],
        base + G2_ROUND3[w][4], base + G2_ROUND3[w][5],
        base + G2_ROUND3[w][6], base + G2_ROUND3[w][7], out + NL * w);
@@ -591,13 +572,12 @@ __device__ __forceinline__ void g2_round3(int base, int out) {
 //   -im(t4); 210 -im(x3); 231 t2b; 273 y3b (round 2: warps 0-3); 315 z3;
 //   357 t1'; 399 -im(z3); 420 -im(t1'); 441 -re(y3b); 462 -im(y3b)
 //   630 + 21w  output component w (round 3: four lazy terms)
-// Constants after the regions: b3 (re, im), -im(b3).  Per thread: 8 + 2 +
-// 4 lazy terms and 4 reductions, 7,098 of the add's 39,480 multiply-adds.
+// Constants after the regions: b3 (re, im), -im(b3).  Per thread: 4 + 2 +
+// 4 lazy terms and 4 reductions, 5,712 of the add's 31,758 multiply-adds.
 struct PaddG2 {
   static constexpr int ROWS_IN = 126, ROWS = 126, WARPS = G2_WARPS;
   static constexpr int STRIDE = G2_STRIDE, IN_AT = 0, OUT_AT = 630;
   static constexpr int NCONST = 3 * NL, MAX_LEVELS = 1;
-  static constexpr bool KARA = KARA_G2;
   static constexpr int GRP = 2;
 
   static __device__ __forceinline__ void consts(int KC) { g2_consts(KC); }
@@ -619,10 +599,10 @@ struct PaddG2 {
     {  // round 1: re = a0 b0 + a1 (-b1), im = a0 b1 + a1 b0
       const int c = w >> 1, comp = w & 1;
       const int a = base + 42 * c, b = base + 126 + 42 * c;
-      lazy2<KARA, GRP>(a, b + (comp ? NL : 0), a + NL,
+      lazy2<GRP>(a, b + (comp ? NL : 0), a + NL,
                        comp ? b : base + 504 + NL * c, base + 630 + NL * w);
       const int sa = base + 252 + 42 * c, sb = base + 378 + 42 * c;
-      lazy2<KARA, GRP>(sa, sb + (comp ? NL : 0), sa + NL,
+      lazy2<GRP>(sa, sb + (comp ? NL : 0), sa + NL,
                        comp ? sb : base + 567 + NL * c, base + 756 + NL * w);
     }
     __syncthreads();
@@ -640,7 +620,7 @@ struct PaddG2 {
     if (w < 4) {  // round 2: component comp of t2b = t2*b3 or y3b = y3*b3
       const int comp = w & 1;
       const int a = w < 2 ? base + 630 + 84 : base + 84;
-      lazy2<KARA, GRP>(a, KC + (comp ? NL : 0), a + NL,
+      lazy2<GRP>(a, KC + (comp ? NL : 0), a + NL,
                        comp ? KC : KC + 2 * NL,
                        base + (w < 2 ? 231 : 273) + NL * comp);
     }
@@ -655,7 +635,7 @@ struct PaddG2 {
       s_neg(s + 273 + NL * (w - 2), s + 441 + NL * (w - 2));
     }
     __syncthreads();
-    g2_round3<KARA>(base, base + OUT_AT);
+    g2_round3(base, base + OUT_AT);
     __syncthreads();
   }
 
@@ -691,12 +671,11 @@ __device__ __forceinline__ int aa_select(int a, int r) {
 //   296 z3 = t1+b3, 317 t1' = t1-b3 (warp 2); 338 -y3b (warp 3)
 //   86 + 21j  output coordinate j (round 3: warp j < 3, two lazy terms)
 // Constants after the regions: b3.  Per thread: one product and two lazy
-// terms at most, 2,667 of the add's 9,114 multiply-adds.
+// terms at most, 2,172 of the add's 7,431 multiply-adds.
 struct PaddAaG1 {
   static constexpr int ROWS_IN = 43, ROWS = 63, WARPS = 4;
   static constexpr int STRIDE = 359, IN_AT = 0, OUT_AT = 86;
   static constexpr int NCONST = NL;
-  static constexpr bool KARA = KARA_G1;
   static constexpr int GRP = 1;
 
   static __device__ __forceinline__ void consts(int KC) {
@@ -708,16 +687,16 @@ struct PaddAaG1 {
     const int base = (threadIdx.x & 31) * STRIDE;
     int* s = psm + base;
     if (w == 0) {
-      mul1<KARA, GRP>(base, base + 43, base + 149);
+      mul1<GRP>(base, base + 43, base + 149);
     } else if (w == 1) {
-      mul1<KARA, GRP>(base + 21, base + 64, base + 170);
+      mul1<GRP>(base + 21, base + 64, base + 170);
     } else if (w == 2) {
       s_add<NL>(s, s + 21, s + 86);
       s_add<NL>(s + 43, s + 64, s + 107);
-      mul1<KARA, GRP>(base + 86, base + 107, base + 191);
+      mul1<GRP>(base + 86, base + 107, base + 191);
     } else {
       s_add<NL>(s, s + 43, s + 128);
-      mul1<KARA, GRP>(base + 128, KC, base + 212);
+      mul1<GRP>(base + 128, KC, base + 212);
     }
     __syncthreads();
     if (w == 0) {
@@ -734,13 +713,13 @@ struct PaddAaG1 {
     __syncthreads();
     // X = t3*t1' + t4*(-y3b), Y = y3b*x3 + t1'*z3, Z = z3*t4 + x3*t3
     if (w == 0)
-      lazy2<KARA, GRP>(base + 233, base + 317, base + 275, base + 338,
+      lazy2<GRP>(base + 233, base + 317, base + 275, base + 338,
                        base + 86);
     else if (w == 1)
-      lazy2<KARA, GRP>(base + 212, base + 254, base + 317, base + 296,
+      lazy2<GRP>(base + 212, base + 254, base + 317, base + 296,
                        base + 107);
     else if (w == 2)
-      lazy2<KARA, GRP>(base + 296, base + 275, base + 254, base + 233,
+      lazy2<GRP>(base + 296, base + 275, base + 254, base + 233,
                        base + 128);
     __syncthreads();
   }
@@ -765,13 +744,12 @@ struct PaddAaG1 {
 //   -im(y3b) (warp 5)
 //   653 + 21w  output component w (round 3: four lazy terms)
 // Constants after the regions: b3 (re, im), -im(b3).  Per thread: 4 + 4
-// lazy terms and 3 reductions at most, 5,544 of the add's 27,048
+// lazy terms and 3 reductions at most, 4,455 of the add's 21,702
 // multiply-adds.
 struct PaddAaG2 {
   static constexpr int ROWS_IN = 85, ROWS = 126, WARPS = G2_WARPS;
   static constexpr int STRIDE = 779, IN_AT = 483, OUT_AT = 653;
   static constexpr int NCONST = 3 * NL;
-  static constexpr bool KARA = KARA_G2;
   static constexpr int GRP = 2;
 
   static __device__ __forceinline__ void consts(int KC) { g2_consts(KC); }
@@ -803,10 +781,10 @@ struct PaddAaG2 {
                            : (c == 1 ? base + IN_AT + 127 : base + 42);
       const int nb = base + 168 + NL * c;
       const int o = c == 0 ? 231 : (c == 1 ? 653 : 84);
-      lazy2<KARA, GRP>(a, b + (comp ? NL : 0), a + NL, comp ? b : nb,
+      lazy2<GRP>(a, b + (comp ? NL : 0), a + NL, comp ? b : nb,
                        base + o + NL * comp);
       if (w < 2)
-        lazy2<KARA, GRP>(base + 126, KC + (comp ? NL : 0), base + 126 + NL,
+        lazy2<GRP>(base + 126, KC + (comp ? NL : 0), base + 126 + NL,
                          comp ? KC : KC + 2 * NL, base + 273 + NL * comp);
     }
     __syncthreads();
@@ -830,7 +808,7 @@ struct PaddAaG2 {
       s_neg(s + 273 + NL, s + 462);
     }
     __syncthreads();
-    g2_round3<KARA>(base, base + OUT_AT);
+    g2_round3(base, base + OUT_AT);
     __syncthreads();
   }
 
@@ -940,12 +918,10 @@ static int launch_add(const int* p, const int* q, int* out, i64 total,
   return (int)cudaGetLastError();
 }
 
-// the fold kernels' resident blocks per SM, at least: G1 four (146
-// registers a thread allow it; 128 give five), G2 two (as many as its
-// region allows)
-#ifndef G1_FOLD_BLOCKS
+// the fold kernels' resident blocks per SM, at least: G1 four (the
+// registers of the Karatsuba product allow no more without spilling), G2
+// two (as many as its region allows)
 #define G1_FOLD_BLOCKS 4
-#endif
 #define G2_FOLD_BLOCKS 2
 
 template <class F, int N, int MIN_BLOCKS>

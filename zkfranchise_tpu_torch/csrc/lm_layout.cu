@@ -32,8 +32,8 @@
 // recover from a flat index with 64-bit divisions.
 //
 // What bounds them on an H100: mm2d, mm3d and fold2d are bound by integer
-// multiply-adds like the production kernels (1,113 per product, 13,566 per
-// G1 add, 39,480 per G2 add; fold2d adds with the one-thread padd_point of
+// multiply-adds (schoolbook products: 1,113 per product, 13,566 per G1
+// add, 39,480 per G2 add; fold2d adds with the one-thread padd_point of
 // lm_device.cuh, not the cooperative padd of lm_kernels.cu); add_one and
 // fused_upsweep by bytes.  add_one moves 16 bytes per access: each row's
 // part of a block's lanes is a scalar head up to the first 16-byte

@@ -98,32 +98,29 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(src: pathlib.Path, defines=()) -> pathlib.Path:
+def library_path(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256()
     for f in (src, *HEADERS):
         h.update(f.read_bytes())
-    h.update(" ".join([*NVCC_FLAGS, *defines]).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(defines=(), sources=None) -> dict:
+def build() -> dict:
     """Compile every source whose hash has no library yet, all at the same
     time, one ``nvcc`` each -> {source stem: library path}.  The compiler's
     resource report (-Xptxas -v) is kept beside each library as
-    ``<library>.log``.  `defines` (``-DNAME=value`` flags) build another
-    variant of the sources (tools.fold_variants); the port loads only the
-    default."""
-    sources = SOURCES if sources is None else sources
-    libs = {src.stem: library_path(src, defines) for src in sources}
+    ``<library>.log``."""
+    libs = {src.stem: library_path(src) for src in SOURCES}
     jobs = []
-    for src in sources:
+    for src in SOURCES:
         out = libs[src.stem]
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
         jobs.append((out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -141,27 +138,17 @@ def build(defines=(), sources=None) -> dict:
     return libs
 
 
-def load_lm_kernels(path) -> ctypes.CDLL:
-    """Load a build of csrc/lm_kernels.cu and declare its entry points."""
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib = ctypes.CDLL(str(path))
-    lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 14 + [P]
-    lib.zk_padd.argtypes = [I, P, P, P] + [L] * 8 + [P]
-    lib.zk_fold_padd_levels.argtypes = [I, P, P, L, L, I, P]
-    lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
-    lib.zk_occupancy.argtypes = [I, P]
-    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd_levels,
-               lib.zk_fold_padd_aa, lib.zk_occupancy):
-        fn.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _libs() -> tuple:
     """(lm_kernels, lm_chains, lm_layout) libraries, built if need be."""
     paths = build()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib = load_lm_kernels(paths["lm_kernels"])
+    lib = ctypes.CDLL(str(paths["lm_kernels"]))
+    lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 14 + [P]
+    lib.zk_padd.argtypes = [I, P, P, P] + [L] * 8 + [P]
+    lib.zk_fold_padd_levels.argtypes = [I, P, P, L, L, I, P]
+    lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
+    lib.zk_occupancy.argtypes = [I, P]
     chains = ctypes.CDLL(str(paths["lm_chains"]))
     chains.zk_fold_mul.argtypes = [P, P, P, L, L, P]
     chains.zk_inv.argtypes = [P, P, P, P, I] + [L] * 5 + [P]
@@ -173,7 +160,9 @@ def _libs() -> tuple:
     layout.zk_fold2d.argtypes = [I, P, P, P, L, L, L, P]
     layout.zk_add_one.argtypes = [P, P, L, L, L, P]
     layout.zk_fused_upsweep.argtypes = [P, P, L, L, P]
-    for fn in (chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
+    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd_levels,
+               lib.zk_fold_padd_aa, lib.zk_occupancy,
+               chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
                chains.zk_scalar_mul, layout.zk_mm2d, layout.zk_mm3d,
                layout.zk_fold2d, layout.zk_add_one, layout.zk_fused_upsweep):
         fn.restype = ctypes.c_int
@@ -407,10 +396,11 @@ FOLD_LEVELS = {"g1": 3, "g2": 1}
 FOLD_REGION = {"g1": (317, 21), "g2": (883, 63)}      # (STRIDE, constants)
 FOLD_STATIC_BYTES = 528
 BLOCK_SHARED_MAX = 232448                            # 227 KB a block
-# A level wider than this runs alone: on the card (tools/fold_shapes.py)
-# a launch of three G1 levels takes longer than the three levels launched
-# apart, by more device time than the two launches' host time it saves
-# when its first level is 8192 wide, by less when it is 2048 (PERF.md).
+# A level wider than this runs alone.  On the card (tools/fold_shapes.py,
+# PERF.md) a whole call of three G1 levels at batch 128 takes longer than
+# its levels' three whole calls when the first is 4096 or 8192 wide (1.68-
+# 1.73 against 1.62-1.66 ms; 3.42-3.45 against 3.16-3.19) and less from
+# 2048 down (0.84 against 0.86-0.89 ms; 0.25-0.26 against 0.28-0.29 at 512)
 FOLD_WIDE = 2048
 
 

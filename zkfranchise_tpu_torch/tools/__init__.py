@@ -8,7 +8,6 @@ layout experiments (geometry sweeps held against the plain versions).
     python -m zkfranchise_tpu_torch.tools.layout_expt2 [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.padd_shapes [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.fold_shapes [--device cpu] [--small]
-    python -m zkfranchise_tpu_torch.tools.fold_variants [--device cpu]
 
     python -m zkfranchise_tpu_torch.tools.prove_from_zkey --zkey F --vk F --nlevels N
 
@@ -23,6 +22,37 @@ import argparse
 import statistics
 
 import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the 32-bit
+# non-tensor rate (67 T op/s float32, a multiply-add counted as two); the
+# integer ceiling: 64 32-bit multiply-adds per clock per SM (CUDA C
+# Programming Guide, compute capability 9.0), 132 SMs
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+INT_MADS_PER_CLK_SM, SMS = 64, 132
+
+# Multiply-adds, counted from csrc/.  The column sums of a product of two
+# 21-limb elements take 441 in the schoolbook (the one-thread kernels:
+# mont_mul, the chains, padd_point) and 342 with the one level of
+# Karatsuba of the cooperative adds (lm_kernels.cu cols_add, which also
+# forms the reduction's m*p); a reduction adds the triangular m = t*n'.
+COLS_SCHOOLBOOK, COLS_KARATSUBA, MAD_LOW = 441, 342, 231
+MAD_MONT = 2 * COLS_SCHOOLBOOK + MAD_LOW                # 1113
+# an EC add as (products, reductions of 2 lazy terms, of 4): RCB15 (padd)
+# and the mixed add of two affine points (padd_aa), over Fq (G1) or Fq2
+_ADD_TERMS = {("padd", "g1"): (8, 3, 0), ("padd", "g2"): (0, 16, 6),
+              ("padd_aa", "g1"): (4, 3, 0), ("padd_aa", "g2"): (0, 8, 6)}
+
+
+def add_mads(form: str, kind: str, cols: int = COLS_KARATSUBA) -> int:
+    """Multiply-adds of one EC add of `form` ("padd" or "padd_aa") in
+    group `kind` whose column products take `cols` each: the cooperative
+    adds' Karatsuba by default (G1 11,091 / 7,431, G2 31,758 / 21,702), the
+    schoolbook for padd_point (G1 13,566 / 9,114, G2 39,480 / 27,048)."""
+    prods, lazy2, lazy4 = _ADD_TERMS[(form, kind)]
+    red = MAD_LOW + cols
+    return prods * (cols + red) + lazy2 * (2 * cols + red) + \
+        lazy4 * (4 * cols + red)
 
 
 def check(failed: list, name: str, ok: bool) -> None:

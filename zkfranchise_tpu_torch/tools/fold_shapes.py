@@ -7,12 +7,11 @@ for G1, 4096 for G2), then ``fold_padd`` level by level down to width 128
 (``ops/msm_lm.py`` ``upsweep``).  ``SHAPES`` lists each one-level launch
 by its output width h; ``LEVELS`` lists the several-level launches that
 ``lm_kernels.fold_plan`` makes of the same trees (input width 2h, n
-levels, outputs h, h/2, ..., h/2^(n-1)), then two that it does not make
-(three levels from 8192 and from 1024: what ``FOLD_WIDE`` rests on; each
-LEVELS line is to be read against the SHAPES lines of its levels).
-Every plane mixes real points
-with identity, doubling and P + (-P) lanes, and the affine planes carry
-infinity-flagged lanes.
+levels, outputs h, h/2, ..., h/2^(n-1)) at B = 128 and at the stream
+tail's 32 and 64, and three that it does not make (three levels from
+8192, 4096 and 1024): ``FOLD_WIDE`` rests on them.  Every plane mixes
+real points with identity, doubling and P + (-P) lanes, and the affine
+planes carry infinity-flagged lanes.
 
 Each shape is first held against its plain version (``torch.equal``);
 then, on the card only, one JSON line per shape gives the median
@@ -22,9 +21,11 @@ back-to-back calls between two CUDA events (at least 20 calls and 10 ms),
 ns per add, and the bounds: multiply-adds at 67 T op/s (a multiply-add
 counted as two, the data sheet's 32-bit rate) and the integer ceiling, 64
 multiply-adds per clock per SM at the SM clock read right after the
-shape.  A LEVELS line on a tree whose wrapper has no ``fold_padd_levels``
-times the same levels as n one-level calls (so one copy of this tool
-compares two trees).
+shape; and the host's own time for a call (``host_ms``: until the
+wrapper returns, before the card is waited for), which is what a call
+costs a step whose device waits on the host.  A LEVELS line also times
+the same levels as n one-level calls (``apart_ms``, ``apart_device_ms``,
+``apart_host_ms``): what the several-level launch saves or costs.
 
     python -m zkfranchise_tpu_torch.tools.fold_shapes [--device cpu] [--small]
 """
@@ -35,8 +36,10 @@ import json
 import pathlib
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -44,9 +47,9 @@ import torch
 from ..ops import ec, ec_affine, ec_lm, msm_lm
 from ..ops.cuda import lm_kernels as K
 from ..utils import devices
-from . import check, cli, device_ms, event_ms, verdict
-from .padd_shapes import HBM_BYTES_PER_S, INT_MADS_PER_CLK_SM, OPS_PER_S, \
-    SMS, smi
+from . import HBM_BYTES_PER_S, INT_MADS_PER_CLK_SM, OPS_PER_S, SMS, \
+    add_mads, check, cli, device_ms, event_ms, verdict
+from .padd_shapes import smi
 
 # (form, kind, B, h): one level, output width h
 SHAPES = ([("fold", "g1", 128, h) for h in (8192, 4096, 2048, 1024, 512,
@@ -56,16 +59,13 @@ SHAPES = ([("fold", "g1", 128, h) for h in (8192, 4096, 2048, 1024, 512,
           [("aa", "g2", 128, 4096), ("fold", "g1", 32, 128),
            ("fold", "g2", 32, 128)])
 # (kind, B, h, n): n levels in one launch, first output width h
-LEVELS = [("g1", 128, 2048, 3), ("g1", 128, 512, 3), ("g1", 128, 256, 2),
-          ("g1", 32, 512, 3), ("g1", 128, 8192, 3), ("g1", 128, 1024, 3)]
+LEVELS = [("g1", B, h, n) for B in (128, 64, 32)
+          for h, n in ((2048, 3), (512, 3), (256, 2))] + \
+    [("g1", 128, 8192, 3), ("g1", 128, 4096, 3), ("g1", 128, 1024, 3)]
 SMALL_SHAPES = [("fold", "g1", 4, 16), ("fold", "g2", 2, 8),
                 ("aa", "g1", 4, 16), ("aa", "g2", 2, 8),
                 ("fold", "g1", 1, 33), ("aa", "g2", 1, 33)]
 SMALL_LEVELS = [("g1", 2, 16, 3), ("g2", 2, 8, 2), ("g1", 1, 4, 3)]
-
-# multiply-adds of one add (chip_smoke.MADS): projective, affine pair
-MADS = {("fold", "g1"): 13566, ("fold", "g2"): 39480,
-        ("aa", "g1"): 9114, ("aa", "g2"): 27048}
 
 
 def fold_inputs(form: str, kind: str, B: int, m: int, rng, dev):
@@ -103,19 +103,8 @@ def fold_inputs(form: str, kind: str, B: int, m: int, rng, dev):
     return x
 
 
-def levels_ref(x, kind: str, n: int) -> list:
-    out = []
-    for _ in range(n):
-        x = K.fold_padd_ref(x, kind)
-        out.append(x)
-    return out
-
-
-def fold_levels(x, kind: str, n: int) -> list:
-    """The wrapper's several-level fold; on a tree without one, n
-    one-level calls."""
-    if hasattr(K, "fold_padd_levels"):
-        return K.fold_padd_levels(x, kind, n)
+def levels_apart(x, kind: str, n: int) -> list:
+    """The n levels as n one-level launches."""
     out = []
     for _ in range(n):
         x = K.fold_padd(x, kind)
@@ -126,11 +115,12 @@ def fold_levels(x, kind: str, n: int) -> list:
 def bounds(form: str, kind: str, adds: int, in_ints: int, out_ints: int,
            sm_mhz: float | None) -> dict:
     bytes_ms = 4 * (in_ints + out_ints) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * MADS[(form, kind)] * adds / OPS_PER_S * 1e3
+    mads = add_mads("padd" if form == "fold" else "padd_aa", kind) * adds
+    ops_ms = 2 * mads / OPS_PER_S * 1e3
     out = {"bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     if sm_mhz:
-        out["int_ceiling_ms"] = MADS[(form, kind)] * adds / (
+        out["int_ceiling_ms"] = mads / (
             INT_MADS_PER_CLK_SM * SMS * sm_mhz * 1e6) * 1e3
     return out
 
@@ -151,6 +141,20 @@ def burst_ms(fn, min_calls: int = 20, min_ms: float = 10.0) -> float:
     return start.elapsed_time(end) / calls
 
 
+def host_ms(fn, runs: int = 10) -> float:
+    """Median host milliseconds from calling `fn` to its return, the card
+    idle at the call and waited for after it."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _time(dev, res: dict, fn, form: str, kind: str, adds: int,
           in_ints: int, out_ints: int) -> None:
     if dev.type != "cuda":
@@ -158,6 +162,7 @@ def _time(dev, res: dict, fn, form: str, kind: str, adds: int,
     res["ms"] = event_ms(fn)
     res["device_ms"] = device_ms(fn)
     res["burst_ms"] = burst_ms(fn)
+    res["host_ms"] = host_ms(fn)
     res["profiler_vs_events"] = res["device_ms"] / res["burst_ms"]
     res["ns_per_add"] = res["device_ms"] * 1e6 / adds
     sm_mhz = float(smi("clocks.sm").split()[0])
@@ -186,15 +191,21 @@ def run(dev, shapes, levels, failed: list) -> list:
     for kind, B, h, n in levels:
         rows = ec_lm.ROWS[kind]
         x = fold_inputs("fold", kind, B, 2 * h, rng, dev)
-        got, want = fold_levels(x, kind, n), levels_ref(x, kind, n)
+        got = K.fold_padd_levels(x, kind, n)
+        want = K.fold_padd_levels_ref(x, kind, n)
         check(failed, f"fold_padd_levels/{kind} ({B},{rows},{2 * h}) "
                       f"n {n}", len(got) == n and all(
                           torch.equal(g, w) for g, w in zip(got, want)))
         adds = B * sum(h >> i for i in range(n))
         res = {"form": "levels", "kind": kind, "B": B, "h": h, "levels": n,
-               "adds": adds, "one_launch": hasattr(K, "fold_padd_levels")}
-        _time(dev, res, lambda: fold_levels(x, kind, n), "fold", kind, adds,
-              x.numel(), rows * adds)
+               "adds": adds}
+        _time(dev, res, lambda: K.fold_padd_levels(x, kind, n), "fold",
+              kind, adds, x.numel(), rows * adds)
+        if dev.type == "cuda":
+            res["apart_ms"] = event_ms(lambda: levels_apart(x, kind, n))
+            res["apart_device_ms"] = device_ms(
+                lambda: levels_apart(x, kind, n))
+            res["apart_host_ms"] = host_ms(lambda: levels_apart(x, kind, n))
         print(json.dumps(res), flush=True)
         results.append(res)
         del x, got, want

@@ -32,19 +32,14 @@ import torch
 from ..ops import ec, ec_lm, msm_lm
 from ..ops.cuda import lm_kernels as K
 from ..utils import devices
-from . import check, cli, device_ms, event_ms, verdict
+from . import HBM_BYTES_PER_S, INT_MADS_PER_CLK_SM, OPS_PER_S, SMS, \
+    add_mads, check, cli, device_ms, event_ms, verdict
 
 # (name, B, T)
 SHAPES = [("walk", 128, 128), ("double", 128, 32), ("horner", 128, 1),
           ("assemble", 1, 128), ("wide", 128, 2048)]
 SMALL_SHAPES = [("walk", 4, 16), ("double", 4, 8), ("horner", 8, 1),
                 ("assemble", 1, 16)]
-
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-INT_MADS_PER_CLK_SM, SMS = 64, 132
-# multiply-adds of one complete add (csrc/lm_kernels.cu; chip_smoke.MADS)
-MADS = {"g1": 13566, "g2": 39480}
 
 
 def padd_inputs(kind: str, B: int, T: int, rng, dev):
@@ -82,12 +77,13 @@ def padd_inputs(kind: str, B: int, T: int, rng, dev):
 def bounds(kind: str, B: int, T: int, sm_mhz: float | None) -> dict:
     rows, adds = ec_lm.ROWS[kind], B * T
     bytes_ms = 4 * 3 * rows * adds / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * MADS[kind] * adds / OPS_PER_S * 1e3
+    mads = add_mads("padd", kind) * adds
+    ops_ms = 2 * mads / OPS_PER_S * 1e3
     out = {"bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     if sm_mhz:
-        out["int_ceiling_ms"] = (MADS[kind] * adds / (
-            INT_MADS_PER_CLK_SM * SMS * sm_mhz * 1e6) * 1e3)
+        out["int_ceiling_ms"] = mads / (
+            INT_MADS_PER_CLK_SM * SMS * sm_mhz * 1e6) * 1e3
     return out
 
 
