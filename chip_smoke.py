@@ -6,16 +6,22 @@
 Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
 
   1. prints the toolchain, the card, the build time, each kernel's
-     registers and spills (from ``nvcc -Xptxas -v``; a cooperative add
-     that spills fails the run), the resident blocks per SM of the
-     cooperative kernels and their SASS instruction mix;
+     registers and spills (from ``nvcc -Xptxas -v``; a cooperative add,
+     the scalar_mul ladder or the Poseidon kernel that spills fails the
+     run), the resident blocks per SM of the cooperative kernels and
+     their SASS instruction mix;
   2. holds every kernel against its plain PyTorch version on the card at
      the shapes its path gives it (padd at the five plane shapes of
      tools.padd_shapes, the folds at every width of the sum tree and at
-     every several-level launch of its plan, tools.fold_shapes), with
+     every several-level launch of its plan, tools.fold_shapes, the
+     Poseidon permutation at widths 3, 4, 5 with 128 and 4 lanes, the
+     scalar_mul ladder with a scalar per lane and one for all), with
      exact equality (all arithmetic is integer), and times both: whole
      calls with CUDA events, and the kernel's own device time with
-     torch.profiler;
+     torch.profiler through tools.device_reading, which marks a reading
+     no card can give; the two ladders beside their critical-path
+     yardsticks (a mont_chain of as many dependent products, 254 padd
+     launches);
   3. folds a G1 affine plane of (128, 43, 32768) and a G2 plane of
      (128, 85, 8192) to width 1 with ec_affine.fold_affine (one batch
      inversion per level: the fold_mul, inv and mont_mul kernels) and
@@ -31,9 +37,12 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      DeviceProver -> prove_batch(seed=1), then a second timed prove_arrays
      with per-stage seconds, proofs/s and peak device memory (and the
      launches of padd and of the folds by shape in the first, the folds'
-     held against the count from the MSM plan), and verifies
+     held against the count from the MSM plan), verifies
      sampled proofs against the committed dev/16 verification key (a
-     cross-voter check and a tampered signal must be rejected);
+     cross-voter check and a tampered signal must be rejected), and
+     profiles one more prove_arrays: device busy time by kernel and the
+     host's PyTorch ops and launch calls, of the step and of its
+     witness;
   7. drives the serving path at the same width: the dev key is exported
      as a producer-ordered snarkjs zkey, written to bytes, read back and
      ingested (A and B matrices only), and a DeviceProver keyed from it
@@ -83,8 +92,10 @@ KERNELS = {
             ["inv"]),
     "mont_chain": (_CSRC + "lm_chains.cu", "scripts/micro_montmul.py:36",
                    "verify_tools", ["mont_chain"]),
-    "scalar_mul": (_CSRC + "lm_chains.cu", "scripts/verify_lm_device.py:58",
-                   "verify_tools", ["scalar_mul/g1", "scalar_mul/g2"]),
+    "scalar_mul": (_CSRC + "lm_kernels.cu", "scripts/verify_lm_device.py:58",
+                   "main_path", ["scalar_mul/g1", "scalar_mul/g2"]),
+    "poseidon": (_CSRC + "lm_poseidon.cu", _PALLAS + ":217", "main_path",
+                 ["poseidon/t3", "poseidon/t4", "poseidon/t5"]),
     "mm2d": (_CSRC + "lm_layout.cu", _EXPT + ".py:56", "layout_tools",
              ["mm2d"]),
     "mm3d": (_CSRC + "lm_layout.cu", _EXPT + ".py:83", "layout_tools",
@@ -99,7 +110,9 @@ KERNELS = {
 # what each path must launch at least once
 PATH_KERNELS = {
     "main_path": ["mont_mul", "padd/g1", "padd/g2", "fold_padd/g1",
-                  "fold_padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2"],
+                  "fold_padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2",
+                  "poseidon/t3", "poseidon/t4", "poseidon/t5",
+                  "scalar_mul/g1"],
     "affine_tree": ["fold_mul", "inv", "mont_mul"],
     "verify_tools": ["mont_chain", "scalar_mul/g1", "scalar_mul/g2",
                      "fold_mul", "inv", "mont_mul", "padd/g1", "padd/g2",
@@ -179,7 +192,8 @@ def phase_toolchain(torch, K) -> None:
                 spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
     from zkfranchise_tpu_torch.tools.fold_shapes import sass_mix
 
-    cooperative = ("add_kernel", "fold_levels_kernel", "prod")
+    cooperative = ("add_kernel", "fold_levels_kernel", "ladder_kernel",
+                   "prod", "poseidon_kernel")
     mix = {name: m for name, m in sass_mix(libs["lm_kernels"]).items()
            if any(c in name for c in cooperative)}
     emit({"phase": "toolchain", "python": sys.version.split()[0],
@@ -250,8 +264,8 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
-    from zkfranchise_tpu_torch.tools import COLS_SCHOOLBOOK, MAD_MONT, \
-        add_mads, device_ms, event_ms
+    from zkfranchise_tpu_torch.tools import MAD_MONT, add_mads, \
+        device_reading, event_ms
     from zkfranchise_tpu_torch.tools import fold_shapes
     from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
 
@@ -265,7 +279,9 @@ def phase_kernels(np, torch, K, dev) -> dict:
         computes the same function; timed beside the kernel, held against
         the plain version too, and used nowhere in the port.  ms is a whole
         call (CUDA events, the wrapper's host time included), device_ms
-        the kernels' own time per call (torch.profiler)."""
+        the kernels' own time per call (torch.profiler, through
+        tools.device_reading: "device_invalid" marks a reading no card can
+        give, beside the event-burst ms)."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -273,28 +289,35 @@ def phase_kernels(np, torch, K, dev) -> dict:
         err = int((got.long() - want.long()).abs().max().item())
         del got
         ms = event_ms(kernel)
-        dev_ms = device_ms(kernel)
+        reading = device_reading(name, kernel, nbytes, mads)
+        dev_ms = reading["device_ms"]
         # a plain version of hundreds of chained steps is timed once
         plain_ms = event_ms(plain, runs=plain_runs,
                             warmup=2 if plain_runs > 1 else 0)
-        library_ms = library_dev_ms = None
+        library_ms = library_dev_ms = library_invalid = None
         if library is not None:
             if not torch.equal(library(), want):
                 raise AssertionError(f"{name}: the library call differs "
                                      f"from the plain version")
             library_ms = event_ms(library)
-            library_dev_ms = device_ms(library)
+            lib_reading = device_reading(name + " library", library, nbytes,
+                                         mads)
+            library_dev_ms = lib_reading["device_ms"]
+            library_invalid = lib_reading["invalid"]
         b_ms, b_by = bound(nbytes, mads)
+        marks = {"device_invalid": reading["invalid"],
+                 "burst_ms": reading["burst_ms"],
+                 "library_device_invalid": library_invalid}
         results[name] = {"equal": equal, "ms": ms, "device_ms": dev_ms,
                          "plain_ms": plain_ms, "bound_ms": b_ms,
                          "library_ms": library_ms,
-                         "library_device_ms": library_dev_ms}
+                         "library_device_ms": library_dev_ms, **marks}
         if key is not None:
             table[key] = {"shape": name, "max_abs_err": err, "ms": ms,
                           "device_ms": dev_ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "library_ms": library_ms,
-                          "library_device_ms": library_dev_ms}
+                          "library_device_ms": library_dev_ms, **marks}
         if not equal:
             raise AssertionError(f"{name}: kernel differs from plain version "
                                  f"(max abs err {err})")
@@ -386,24 +409,104 @@ def phase_kernels(np, torch, K, dev) -> dict:
           lambda: K.mont_chain_ref(a, b, iters, lm.FQ), 4 * 3 * 21 * T,
           MAD_MONT * iters * T, "mont_chain")
     del a, b
-    bits = rng.integers(0, 2, size=254).astype(np.int32)
-    for kind in ("g1", "g2"):
-        rows = ec_lm.ROWS[kind]
-        p, _, _ = _point_inputs(np, torch, rng, kind, 1, B, dev)
-        pts = p[0]
-        check(f"scalar_mul/{kind}/{rows}x{B}x254bits",
-              lambda: K.scalar_mul(pts, bits, kind),
-              lambda: K.scalar_mul_ref(pts, bits, kind),
-              4 * (2 * rows * B + 254),
-              add_mads("padd", kind, COLS_SCHOOLBOOK) *
-              (254 + int(bits.sum())) * B,
-              "scalar_mul" if kind == "g1" else "scalar_mul/g2",
-              plain_runs=1)
+    _ladders(np, torch, K, dev, rng, check, results, table)
+    _poseidon(np, torch, K, dev, rng, check, results, table)
     torch.cuda.empty_cache()
     _layout_kernels(np, torch, K, dev, rng, check)
     emit({"phase": "kernels", "kernels": results,
           "fold_shapes": fold_results})
     return table
+
+
+def _ladders(np, torch, K, dev, rng, check, results, table) -> None:
+    """scalar_mul at the assembly's shape, 128 lanes and 254 bits, with a
+    scalar per lane (the table's row) and one for all lanes (the tools'),
+    G1 and G2.  The ladder's critical path is 254 dependent cooperative
+    adds; its yardstick is 254 times the device time of one padd launch
+    at the assembly's plane shape (1, rows, 128), timed here."""
+    from zkfranchise_tpu_torch.ops import ec_lm
+    from zkfranchise_tpu_torch.tools import add_mads, device_reading
+    from zkfranchise_tpu_torch.tools.padd_shapes import padd_inputs
+
+    B, nbits = BATCH, 254
+    for kind in ("g1", "g2"):
+        rows = ec_lm.ROWS[kind]
+        p, _, _ = _point_inputs(np, torch, rng, kind, 1, B, dev)
+        pts = p[0]
+        pa, qa = padd_inputs(kind, 1, B, rng, dev)
+        one_add = device_reading(f"padd/{kind}/1x{rows}x{B} (the ladder's "
+                                 f"step)", lambda: K.padd(pa, qa, kind),
+                                 4 * 3 * rows * B,
+                                 add_mads("padd", kind) * B)
+        for per_lane in (True, False):
+            bits = rng.integers(0, 2, size=(nbits, B) if per_lane else nbits)
+            bits = torch.as_tensor(bits.astype(np.int32), device=dev)
+            # the adds these scalars need: a doubling a bit and an add a
+            # set bit, for every lane
+            adds = (nbits * B + int(bits.sum()) * (1 if per_lane else B))
+            name = f"scalar_mul/{kind}/{rows}x{B}x{nbits}bits/" + \
+                ("per_lane" if per_lane else "shared")
+            key = "scalar_mul" if kind == "g1" else "scalar_mul/g2"
+            check(name, lambda: K.scalar_mul(pts, bits, kind),
+                  lambda: K.scalar_mul_ref(pts, bits, kind),
+                  4 * (2 * rows * B + bits.numel()),
+                  add_mads("padd", kind) * adds,
+                  key if per_lane else key + "/shared", plain_runs=1)
+            yard = {"critical_path_ms": nbits * one_add["device_ms"],
+                    "one_add_device_ms": one_add["device_ms"],
+                    "one_add_invalid": one_add["invalid"]}
+            results[name].update(yard)
+            table[key if per_lane else key + "/shared"].update(yard)
+        del p, pts, pa, qa
+
+
+def _poseidon(np, torch, K, dev, rng, check, results, table) -> None:
+    """The Poseidon kernel at the witness's widths t = 3, 4, 5, at 128
+    lanes (the batch) and 4 (the stream's last slice), with its trace,
+    against the plain version.  The yardstick is the critical path: a
+    mont_chain of as many dependent products (a round's S-box and its row
+    of the mix, 3 + t) at the same width, timed here."""
+    from zkfranchise_tpu_torch.ops import lm
+    from zkfranchise_tpu_torch.ops.poseidon_constants import N_ROUNDS_F, \
+        N_ROUNDS_P
+    from zkfranchise_tpu_torch.tools import MAD_MONT, device_reading
+
+    for T in (BATCH, 4):
+        for t in K.POSEIDON_WIDTHS:
+            x = lm.to_mont(torch.as_tensor(_random_limbs(np, rng,
+                                                         (t - 1, 21, T)),
+                                           device=dev))
+            rounds, r_p = N_ROUNDS_F + N_ROUNDS_P[t - 2], N_ROUNDS_P[t - 2]
+            products = 3 * (N_ROUNDS_F * t + r_p) + t * t * rounds
+            rows = K.poseidon_trace_rows(t)
+            name = f"poseidon/t{t}/{t - 1}x21x{T}"
+            key = f"poseidon/t{t}/T{T}" if T != BATCH else \
+                "poseidon" if t == 3 else f"poseidon/t{t}"
+            out, trace = K.poseidon_trace(x)
+            want_out, want_trace = K.poseidon_trace_ref(x)
+            if not torch.equal(out, want_out):
+                raise AssertionError(f"{name}: the hash differs from the "
+                                     f"plain version's")
+            del out, trace, want_out, want_trace
+            # the trace holds every S-box output; the hash was held above
+            check(name, lambda: K.poseidon_trace(x)[1],
+                  lambda: K.poseidon_trace_ref(x)[1],
+                  4 * 21 * T * (t - 1 + 1 + rows) + 4 * 21 * t * (rounds + t),
+                  MAD_MONT * products * T, key, plain_runs=3)
+            depth = rounds * (3 + t)
+            a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
+            chain = device_reading(
+                f"mont_chain/fr/21x{T}x{depth} (the permutation's chain)",
+                lambda: K.mont_chain(a, a, depth, lm.FR), 4 * 3 * 21 * T,
+                MAD_MONT * depth * T)
+            yard = {"chain_products": depth,
+                    "critical_path_ms": chain["device_ms"],
+                    "critical_path_invalid": chain["invalid"],
+                    "vs_critical_path": results[name]["device_ms"] /
+                    chain["device_ms"]}
+            results[name].update(yard)
+            table[key].update(yard)
+            del x, a
 
 
 def _layout_kernels(np, torch, K, dev, rng, check) -> None:
@@ -725,8 +828,21 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
     """One more prove_arrays under torch.profiler: device busy time per
     kernel name, and the device's idle share of the UNPROFILED step (the
     timed run's stages up to assemble; the profiler's own overhead
-    inflates the profiled wall time)."""
+    inflates the profiled wall time).  Also the host's side: the PyTorch
+    ops and kernel launch calls that one prove_arrays, and its witness
+    alone (profiled apart), issue from the host."""
     from torch.profiler import ProfilerActivity, profile
+
+    from zkfranchise_tpu_torch.groth16.device import witness_stage
+
+    def host_counts(events) -> dict:
+        cpu = [ev for ev in events
+               if ev.device_type == torch.autograd.DeviceType.CPU]
+        return {"ops": sum(1 for ev in cpu if ev.name.startswith("aten::")
+                           and ev.cpu_parent is None),
+                "launch_calls": sum(1 for ev in cpu
+                                    if "LaunchKernel" in ev.name),
+                "events": len(cpu)}
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -735,6 +851,11 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
         prover.prove_arrays(arrs, r, s)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    inputs = prover._inputs(arrs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as wprof:
+        witness_stage(prover.circuit, inputs)
+        torch.cuda.synchronize()
     kernels = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -753,6 +874,8 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
           "device_events": sum(1 for ev in prof.events()
                                if ev.device_type ==
                                torch.autograd.DeviceType.CUDA),
+          "host_prove_arrays": host_counts(prof.events()),
+          "host_witness": host_counts(wprof.events()),
           "top_kernels_s": {k: v / 1e6 for k, v in top},
           "fold_kernels_s": folds, "fold_total_s": sum(folds.values())})
 

@@ -210,6 +210,80 @@ def test_scalar_mul(dev, kind):
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("T", [1, 128, 130])
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_scalar_mul_ladder(dev, kind, T, per_lane):
+    """Shared and per-lane bits (a lane of all zeros, a lane of all ones),
+    one launch; 254 bits at T = 128 (the assembly's shape), 24 otherwise."""
+    rng = np.random.default_rng(16)
+    table = ec_lm.g1_table if kind == "g1" else ec_lm.g2_table
+    pool = (_pool(kind, rng) * 9)[:T]
+    if T > 3:
+        pool[3] = None                                      # k * O = O
+    pts = torch.as_tensor(table(pool).T.copy(), device=dev)
+    pts = K.padd_ref(pts, pts.roll(1, -1), kind)            # Z != 1
+    nbits = 254 if T == 128 else 24
+    bits = rng.integers(0, 2, size=(nbits, T) if per_lane else nbits)
+    if per_lane and T > 2:
+        bits[:, 1], bits[:, 2] = 0, 1
+    bits = torch.as_tensor(bits.astype(np.int32), device=dev)
+    K.reset_launches()
+    got = K.scalar_mul(pts, bits, kind)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          f"scalar_mul/{kind}": 1}
+    assert torch.equal(got, K.scalar_mul_ref(pts, bits, kind))
+
+
+def test_assemble_stage_on_card_equals_cpu(dev):
+    from zkfranchise_tpu_torch.groth16.device import assemble_stage
+
+    rng = np.random.default_rng(17)
+    B = 128
+    g1 = ec_lm.g1_table(_pool("g1", rng, 2 * B + 2)).T.copy()
+    g2 = ec_lm.g2_table(_pool("g2", rng, B + 1)).T.copy()
+
+    def rows_first(x):                          # (rows, B) -> (B, rows, 1)
+        return np.ascontiguousarray(x.T[:, :, None])
+
+    def scalars():
+        return lm.ints_to_lm([int.from_bytes(rng.bytes(31), "big")
+                              for _ in range(B)])
+
+    args = [rows_first(g1[:, :B]), rows_first(g1[:, B:2 * B]),
+            rows_first(g2[:, :B]), rows_first(g1[:, 1:B + 1]), scalars(),
+            scalars(), g1[:, 2 * B:2 * B + 1], g1[:, 2 * B + 1:], g2[:, B:]]
+    K.reset_launches()
+    got = assemble_stage(*(torch.as_tensor(a, device=dev) for a in args))
+    assert K.LAUNCHES["scalar_mul/g1"] == 2
+    want = assemble_stage(*(torch.as_tensor(a) for a in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("t", [3, 4, 5])
+@pytest.mark.parametrize("T", [1, 4, 32, 128, 130])
+def test_poseidon(dev, t, T):
+    """The hash with its trace and the bare permutation (with a leading
+    batch axis), one launch each, against the plain versions."""
+    rng = np.random.default_rng(100 * t + T)
+    x = lm.to_mont(torch.as_tensor(np.stack(
+        [lm.ints_to_lm([int.from_bytes(rng.bytes(31), "big")
+                        for _ in range(T)]) for _ in range(2 * t)])))
+    x = x.to(dev)
+    K.reset_launches()
+    out, trace = K.poseidon_trace(x[:t - 1])
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          f"poseidon/t{t}": 1}
+    want_out, want_trace = K.poseidon_trace_ref(x[:t - 1])
+    assert torch.equal(out, want_out) and torch.equal(trace, want_trace)
+    state = x.reshape(2, t, 21, T)
+    K.reset_launches()
+    got = K.permutation(state, t)
+    assert K.LAUNCHES[f"poseidon/t{t}"] == 1
+    assert torch.equal(got, K.permutation_ref(state, t))
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
 def test_fold_affine_on_card_equals_cpu(dev, kind):
     rng = np.random.default_rng(7)
     pts = _pool(kind, rng)

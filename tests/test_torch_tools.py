@@ -10,7 +10,8 @@ import torch
 from zkfranchise_tpu.ops import lm as jlm
 from zkfranchise_tpu_torch.ops import ec, ec_lm, ff, lm
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
-from zkfranchise_tpu_torch.tools import (micro_montmul, verify_kernels,
+from zkfranchise_tpu_torch.tools import (ladder_teams, micro_montmul,
+                                         tree_compare, verify_kernels,
                                          verify_lm)
 
 # small tensors: one intra-op thread per test worker (several workers
@@ -19,7 +20,7 @@ torch.set_num_threads(1)
 
 P = ff.P_FQ
 TOOLS = {"verify_kernels": verify_kernels, "verify_lm": verify_lm,
-         "micro_montmul": micro_montmul}
+         "micro_montmul": micro_montmul, "ladder_teams": ladder_teams}
 
 
 @pytest.mark.parametrize("iters", [1, 3])
@@ -85,3 +86,79 @@ def test_tools_default_to_the_card():
     for tool in TOOLS.values():
         with pytest.raises(RuntimeError):
             tool.main()
+
+
+def _events(n, us, name="k"):
+    return [(name, us)] * n, (64, 64)
+
+
+@pytest.mark.parametrize("profiles,invalid,why,dev_ms", [
+    ([_events(20, 2000.0)], False, [], 2.0),
+    ([_events(20, 0.0)], True, ["zero", "below the bytes bound",
+                                "below the integer ceiling"], 0.0),
+    ([_events(20, 500.0)], True, ["below the bytes bound",
+                                  "below the integer ceiling"], 0.5),
+    ([_events(20, 1200.0)], True, ["below the integer ceiling"], 1.2),
+    # events lost on every try: the port's kernels are scaled up to the
+    # launches, a PyTorch kernel among them leaves the reading invalid
+    ([_events(17, 1500.0)] * 3, False, [], 1.5),
+    ([([("k", 1700.0)] * 16 + [("void at::native::copy", 10.0)],
+       (64, 64))] * 3,
+     True, ["events dropped"], (16 * 1700.0 + 10.0) / 20 / 1e3),
+    ([_events(17, 1500.0), _events(20, 2000.0)], False, [], 2.0),
+    # most leading spins lost: profiled again, invalid while it lasts
+    ([([("k", 1000.0)] * 20, (4, 64)), _events(20, 2000.0)], False, [],
+     2.0),
+    ([([("k", 1500.0)] * 20, (4, 64))] * 3, True, ["window disturbed"],
+     1.5),
+])
+def test_device_reading_marks_readings_no_card_can_give(
+        monkeypatch, capsys, profiles, invalid, why, dev_ms):
+    """A reading of one launch a call: 0, below the bytes bound (1 ms),
+    below the integer ceiling (1.25 ms at 1,000 MHz), or with kernel
+    events missing after every retry that cannot be scaled is invalid; a
+    retry that records every event is kept."""
+    import zkfranchise_tpu_torch.tools as tools
+
+    seen = iter(profiles)
+    monkeypatch.setattr(tools, "kernel_events", lambda fn, runs: next(seen))
+    monkeypatch.setattr(tools, "burst_ms", lambda fn: 2.5)
+    monkeypatch.setattr(tools, "max_sm_mhz", lambda: 1000.0)
+
+    def one_launch():
+        K.LAUNCHES["mont_mul"] += 1
+
+    mads = 1.25 * tools.INT_MADS_PER_CLK_SM * tools.SMS * 1e6
+    res = tools.device_reading("r", one_launch, tools.HBM_BYTES_PER_S * 1e-3,
+                               mads)
+    assert res["invalid"] is invalid and res.get("why", []) == why
+    assert res["device_ms"] == pytest.approx(dev_ms)
+    assert res["launches"] == 20 and res["burst_ms"] == 2.5
+    assert res["attempts"] == len(profiles)
+    assert '"reading": "r"' in capsys.readouterr().out
+
+
+def test_tree_compare_sums_up_a_run():
+    """The summary of a run's phase lines; without a card it raises."""
+    lines = [
+        {"scalar_mul": "g1", "bits": "per_lane", "equal": True, "ms": 4.0},
+        {"phase": "timed_prove", "stage_seconds": {"witness": 0.05},
+         "total_s": 2.0, "proofs_per_s": 64.0,
+         "launches_per_prove_arrays": {"mont_mul": 236, "inv": 0}},
+        {"phase": "verify", "accepted": {"voter_0": True},
+         "cross_voter_accepted": False, "tampered_accepted": False},
+        {"phase": "profile", "device_busy_s": 1.0,
+         "device_idle_share": 0.5, "host_prove_arrays": {"ops": 9},
+         "host_witness": {"ops": 3}},
+        {"phase": "stream", "proofs_per_s": 50.0,
+         "rates": [{"seconds": 2.0}, {"seconds": 0.4}]}]
+    assert tree_compare.summary(lines) == {
+        "scalar_mul": {"g1/per_lane": {"ms": 4.0, "equal": True}},
+        "stage_seconds": {"witness": 0.05}, "step_s": 2.0,
+        "proofs_per_s": 64.0, "launches_per_prove_arrays": {"mont_mul": 236},
+        "verified": True, "device_busy_s": 1.0, "device_idle_share": 0.5,
+        "host_prove_arrays": {"ops": 9}, "host_witness": {"ops": 3},
+        "stream_proofs_per_s": 50.0, "stream_slices_s": [2.0, 0.4]}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tree_compare.main("parent")

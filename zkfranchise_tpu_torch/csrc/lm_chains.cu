@@ -11,29 +11,23 @@
 //                     lanes; inv(0) = 0
 //   zk_mont_chain  <- pallas_chain (scripts/micro_montmul.py chain_kernel):
 //                     x = a, then `iters` times x = x * b
-//   zk_scalar_mul  <- device_scalar_mul (scripts/verify_lm_device.py
-//                     scalar_mul_kernel): double-and-add k*P, one scalar
-//                     shared by all lanes, a base point per lane
+// (zk_scalar_mul, the double-and-add, runs on the cooperative add in
+// lm_kernels.cu.)
 //
 // Design: one thread per lane, limbs in registers, the plain PyTorch
 // versions' steps in the same order (a square is the same mont_mul as any
 // product), so every output limb equals the plain version's.  The exponent
-// or scalar bits are staged in shared memory; a bit is the same for every
-// thread of the grid, so the plain versions' select on the bit is a
-// branch here, and the product or addition that a zero bit would discard
-// is not computed.
+// bits are staged in shared memory; a bit is the same for every thread of
+// the grid, so the plain version's select on the bit is a branch here, and
+// the product that a zero bit would discard is not computed.
 //
 // What bounds them on an H100: integer multiply-adds, 1,113 per Montgomery
 // product against 168-252 bytes of traffic.  fold_mul fills the card like
-// mont_mul.  inv and scalar_mul are chains of hundreds of DEPENDENT
-// products per lane and are called with as many lanes as there are rows in
-// a batch (128): one block on one of 132 SMs, bound by the latency of the
-// chain and far above their operations bound.  mont_chain keeps x in
-// registers across the chain and so shows the card's multiply-add rate
-// without memory traffic.  In scalar_mul the accumulator, the base and the
-// sum (3 x 63 or 3 x 126 ints) live in local memory and the addition is
-// one out-of-line function per group, or the 254-step loop would inline
-// two whole point additions per step.
+// mont_mul.  inv is a chain of hundreds of DEPENDENT products per lane and
+// is called with as many lanes as there are rows in a batch (128): one
+// block on one of 132 SMs, bound by the latency of the chain and far above
+// its operations bound.  mont_chain keeps x in registers across the chain
+// and so shows the card's multiply-add rate without memory traffic.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() of its launch.
@@ -125,45 +119,6 @@ mont_chain_kernel(const int* __restrict__ a, const int* __restrict__ b,
   for (int k = 0; k < NL; ++k) out[k * T + t] = x[k];
 }
 
-// o = p + q on points held row after row in local memory (row stride 1)
-template <int K>
-__device__ __noinline__ void padd_local(const int* p, const int* q, int* o,
-                                        const int* C) {
-  padd_point<K>(p, 1, q, 1, o, 1, C);
-}
-
-// out (rows, T) = k * pts, pts (rows, T) projective, contiguous; k given
-// LSB first as nbits 0/1 ints shared by all lanes
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-scalar_mul_kernel(const int* __restrict__ pts, int* __restrict__ out,
-                  const int* __restrict__ consts,
-                  const int* __restrict__ bits, int nbits, i64 T) {
-  constexpr int ROWS = 3 * K * NL;
-  __shared__ int C[EC_CONSTS];
-  __shared__ int sbits[MAX_BITS];
-  for (int i = threadIdx.x; i < nbits; i += blockDim.x) sbits[i] = bits[i];
-  stage_consts(consts, C, EC_CONSTS);
-  const i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  int acc[ROWS], base[ROWS], sum[ROWS];
-  // acc = (0 : 1 : 0); over Fq2 the one is (one_mont, 0)
-  for (int k = 0; k < ROWS; ++k) {
-    acc[k] = (k >= K * NL && k < K * NL + NL) ? C[C_ONE + k - K * NL] : 0;
-    base[k] = pts[k * T + t];
-  }
-#pragma unroll 1
-  for (int i = 0; i < nbits; ++i) {
-    if (sbits[i] == 1) {
-      padd_local<K>(acc, base, sum, C);
-      for (int k = 0; k < ROWS; ++k) acc[k] = sum[k];
-    }
-    padd_local<K>(base, base, sum, C);
-    for (int k = 0; k < ROWS; ++k) base[k] = sum[k];
-  }
-  for (int k = 0; k < ROWS; ++k) out[k * T + t] = acc[k];
-}
-
 extern "C" {
 
 int zk_fold_mul(const int* x, int* out, const int* consts, i64 B, i64 h,
@@ -186,19 +141,6 @@ int zk_mont_chain(const int* a, const int* b, int* out, const int* consts,
                   i64 T, int iters, void* stream) {
   mont_chain_kernel<<<blocks_for(T), THREADS, 0, (cudaStream_t)stream>>>(
       a, b, out, consts, T, iters);
-  return (int)cudaGetLastError();
-}
-
-int zk_scalar_mul(int k, const int* pts, int* out, const int* consts,
-                  const int* bits, int nbits, i64 T, void* stream) {
-  if (nbits > MAX_BITS) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1)
-    scalar_mul_kernel<1><<<blocks_for(T), THREADS, 0, s>>>(pts, out, consts,
-                                                           bits, nbits, T);
-  else
-    scalar_mul_kernel<2><<<blocks_for(T), THREADS, 0, s>>>(pts, out, consts,
-                                                           bits, nbits, T);
   return (int)cudaGetLastError();
 }
 

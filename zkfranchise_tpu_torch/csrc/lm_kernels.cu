@@ -15,6 +15,10 @@
 //                                          n levels of the tree a launch
 //   zk_fold_padd_aa      <- fold_padd_aa  (_padd_aa_kernel): affine pair ->
 //                                          projective sum, Z1 = Z2 = 1
+//   zk_scalar_mul        <- device_scalar_mul (scripts/verify_lm_device.py
+//                           scalar_mul_kernel): k*P by double-and-add, a
+//                           scalar per lane or one for all; on the main
+//                           path the assembly's two G1 ladders
 //
 // Design of mont_mul: one thread per lane (element) carries the 21-limb
 // schoolbook in registers and repeats the plain PyTorch version's steps in
@@ -51,6 +55,11 @@
 //     (L2), so it needs no more shared memory than one level and keeps as
 //     many blocks resident; every level is written out once (the MSM reads
 //     them all).  What it saves is launches: host time.
+//   scalar_mul (ladder_kernel): all the bits of the ladder in one launch,
+//     two teams a block, one adding and one doubling, side by side; the
+//     operands stay in shared memory between bits, acc in L1/L2.  A chain
+//     of 2 x 254 dependent adds on 4 blocks at 128 lanes: bound by the
+//     latency of one cooperative add a bit, not by the card's rate.
 // What bounds them: integer multiply-adds (64 a clock per SM on Hopper,
 // half the float32 rate).  With Karatsuba column products a Montgomery
 // product is 342 + 231 + 342 = 915 multiply-adds on 168-252 bytes of
@@ -485,9 +494,9 @@ struct PaddG1 {
     if (threadIdx.x < NL) psm[KC + threadIdx.x] = EC_B3G1[threadIdx.x];
   }
 
-  static __device__ __forceinline__ void rounds(int KC) {
-    const int j = threadIdx.x >> 5, j1 = j == 2 ? 0 : j + 1;
-    const int base = (threadIdx.x & 31) * STRIDE;
+  static __device__ __forceinline__ void rounds(int KC, int at, int j) {
+    const int j1 = j == 2 ? 0 : j + 1;
+    const int base = at + (threadIdx.x & 31) * STRIDE;
     int* s = psm + base;
     // round 1
     s_add<NL>(s + NL * j, s + NL * j1, s + 126 + NL * j);
@@ -551,10 +560,9 @@ __device__ __forceinline__ void g2_consts(int KC) {
   }
 }
 
-// round 3 over Fq2 (every G2 form): warp w reduces output component w
-// into out + 21w
-__device__ __forceinline__ void g2_round3(int base, int out) {
-  const int w = threadIdx.x >> 5;
+// round 3 over Fq2 (every G2 form): warp w of the team reduces output
+// component w into out + 21w
+__device__ __forceinline__ void g2_round3(int base, int out, int w) {
   prod<2>(4, true, base + G2_ROUND3[w][0], base + G2_ROUND3[w][1],
        base + G2_ROUND3[w][2], base + G2_ROUND3[w][3],
        base + G2_ROUND3[w][4], base + G2_ROUND3[w][5],
@@ -582,9 +590,8 @@ struct PaddG2 {
 
   static __device__ __forceinline__ void consts(int KC) { g2_consts(KC); }
 
-  static __device__ __forceinline__ void rounds(int KC) {
-    const int w = threadIdx.x >> 5;
-    const int base = (threadIdx.x & 31) * STRIDE;
+  static __device__ __forceinline__ void rounds(int KC, int at, int w) {
+    const int base = at + (threadIdx.x & 31) * STRIDE;
     int* s = psm + base;
     {  // the round-1 operands: sums and negated imaginary parts
       const int c = w < 3 ? w : w - 3, c1 = c == 2 ? 0 : c + 1;
@@ -635,7 +642,7 @@ struct PaddG2 {
       s_neg(s + 273 + NL * (w - 2), s + 441 + NL * (w - 2));
     }
     __syncthreads();
-    g2_round3(base, base + OUT_AT);
+    g2_round3(base, base + OUT_AT, w);
     __syncthreads();
   }
 
@@ -682,9 +689,8 @@ struct PaddAaG1 {
     PaddG1::consts(KC);
   }
 
-  static __device__ __forceinline__ void rounds(int KC) {
-    const int w = threadIdx.x >> 5;
-    const int base = (threadIdx.x & 31) * STRIDE;
+  static __device__ __forceinline__ void rounds(int KC, int at, int w) {
+    const int base = at + (threadIdx.x & 31) * STRIDE;
     int* s = psm + base;
     if (w == 0) {
       mul1<GRP>(base, base + 43, base + 149);
@@ -754,9 +760,8 @@ struct PaddAaG2 {
 
   static __device__ __forceinline__ void consts(int KC) { g2_consts(KC); }
 
-  static __device__ __forceinline__ void rounds(int KC) {
-    const int w = threadIdx.x >> 5;
-    const int base = (threadIdx.x & 31) * STRIDE;
+  static __device__ __forceinline__ void rounds(int KC, int at, int w) {
+    const int base = at + (threadIdx.x & 31) * STRIDE;
     int* s = psm + base;
     const int* P = s + IN_AT;
     const int* Q = s + IN_AT + 85;
@@ -808,7 +813,7 @@ struct PaddAaG2 {
       s_neg(s + 273 + NL, s + 462);
     }
     __syncthreads();
-    g2_round3(base, base + OUT_AT);
+    g2_round3(base, base + OUT_AT, w);
     __syncthreads();
   }
 
@@ -846,7 +851,7 @@ add_kernel(const int* __restrict__ p, const int* __restrict__ q,
                                                qrs, nvalid);
   F::consts(KC);
   __syncthreads();
-  F::rounds(KC);
+  F::rounds(KC, 0, threadIdx.x >> 5);
   store_out<F, NT, BY_ROWS>(out, ofs, F::ROWS * T, T, nvalid);
 }
 
@@ -894,11 +899,85 @@ fold_levels_kernel(const int* __restrict__ x, int* out, i64 B, i64 h) {
                                         in + hw + g * hl, ofs, 2 * hw,
                                         2 * hw, nvalid);
       __syncthreads();
-      F::rounds(KC);
+      F::rounds(KC, 0, threadIdx.x >> 5);
       store_out<F, NT, false>(out + off + g * hl, ofs, R * hw, hw, nvalid);
     }
     off += B * R * hw;
   }
+}
+
+// k * P for every lane, k given LSB first (tools and assembly: the ladder
+// of groth16/device.py scalar_mul_plane): acc <- bit ? acc + base : acc,
+// base <- base + base, acc starting at the identity (0 : 1 : 0).  pts and
+// out (ROWS, T) contiguous; bit i of lane t at bits[i * sbi + t * sbt] (sbt
+// = 0: one scalar for all lanes).  A block takes 32 lanes and has two
+// teams of F::WARPS warps: team 0 adds acc + base in the first region,
+// team 1 doubles base in the second, side by side (the two adds of a bit
+// are independent) with the same rounds, so with the same barriers.  After
+// a bit the doubled base is copied in shared memory into the operand slots
+// of both regions.  acc lives in `out` (L1, L2): it is staged in before
+// each bit and written back by the threads whose lane's bit is 1, a store
+// under a per-thread predicate, so no warp branches apart.  (The rounds
+// reuse every int of a region, and two G2 regions leave no room for a
+// third copy of acc in shared memory.)
+template <class F>
+__global__ void __launch_bounds__(2 * F::WARPS * 32)
+ladder_kernel(const int* __restrict__ pts, int* out,
+              const int* __restrict__ bits, i64 sbi, i64 sbt, int nbits,
+              i64 T) {
+  constexpr int NT = 2 * F::WARPS * 32, R = F::ROWS, S = F::STRIDE;
+  constexpr int P = F::IN_AT, Q = F::IN_AT + R, O = F::OUT_AT;
+  constexpr int RB = ADDS * S, KC = 2 * ADDS * S;
+  const i64 t0 = (i64)blockIdx.x * ADDS;
+  const int nvalid = (int)(T - t0 < ADDS ? T - t0 : ADDS);
+  F::consts(KC);
+  for (int f = tid(); f < ADDS * R; f += NT) {
+    const int r = f / ADDS, a = f % ADDS;
+    const int v = a < nvalid ? pts[r * T + t0 + a] : 0;
+    psm[a * S + Q + r] = v;
+    psm[RB + a * S + P + r] = v;
+    psm[RB + a * S + Q + r] = v;
+    // the identity: Y = one (over Fq2 (one, 0)), X = Z = 0
+    if (a < nvalid)
+      out[r * T + t0 + a] = r >= R / 3 && r < R / 3 + NL ? FQ_ONE[r - R / 3]
+                                                         : 0;
+  }
+  const int team = threadIdx.x >= F::WARPS * 32;
+  const int w = (threadIdx.x >> 5) - team * F::WARPS;
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < nbits; ++i) {
+    for (int f = tid(); f < ADDS * R; f += NT) {
+      const int r = f / ADDS, a = f % ADDS;
+      psm[a * S + P + r] = a < nvalid ? out[r * T + t0 + a] : 0;
+    }
+    __syncthreads();
+    F::rounds(KC, team * RB, w);       // ends at a barrier
+    for (int f = tid(); f < ADDS * R; f += NT) {
+      const int r = f / ADDS, a = f % ADDS;
+      if (a < nvalid && bits[i * sbi + (t0 + a) * sbt] == 1)
+        out[r * T + t0 + a] = psm[a * S + O + r];
+      const int v = psm[RB + a * S + O + r];
+      psm[a * S + Q + r] = v;
+      psm[RB + a * S + P + r] = v;
+      psm[RB + a * S + Q + r] = v;
+    }
+    __syncthreads();
+  }
+}
+
+template <class F>
+static int launch_ladder(const int* pts, int* out, const int* bits, i64 sbi,
+                         i64 sbt, int nbits, i64 T, cudaStream_t s) {
+  auto kernel = ladder_kernel<F>;
+  const int smem = (2 * ADDS * F::STRIDE + F::NCONST) * 4;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const unsigned blocks = (unsigned)((T + ADDS - 1) / ADDS);
+  kernel<<<blocks, 2 * F::WARPS * 32, smem, s>>>(pts, out, bits, sbi, sbt,
+                                                 nbits, T);
+  return (int)cudaGetLastError();
 }
 
 // launch add_kernel<F, T == 1> for B*T adds
@@ -1002,6 +1081,15 @@ int zk_fold_padd_aa(int k, const int* x, int* out, i64 B, i64 h,
                                        2 * h, 1, ar * 2 * h, 2 * h, 1, s)
                 : launch_add<PaddAaG2>(x, x + h, out, B * h, h, ar * 2 * h,
                                        2 * h, 1, ar * 2 * h, 2 * h, 1, s);
+}
+
+// out (rows, T) = k * pts for every lane, bit i of lane t at bits[i * sbi
+// + t * sbt]
+int zk_scalar_mul(int k, const int* pts, int* out, const int* bits, i64 sbi,
+                  i64 sbt, int nbits, i64 T, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return k == 1 ? launch_ladder<PaddG1>(pts, out, bits, sbi, sbt, nbits, T, s)
+                : launch_ladder<PaddG2>(pts, out, bits, sbi, sbt, nbits, T, s);
 }
 
 // resident blocks per SM of each cooperative kernel at its shared memory:

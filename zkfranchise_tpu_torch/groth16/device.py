@@ -5,13 +5,15 @@ A batch of voters' circuit inputs goes through four stages:
   2. R1CS row evaluation + coset-NTT quotient (ops/sparse.py, ops/ntt.py),
   3. four MSMs (ops/msm_lm.py) with the r/s blinding folded into extended
      scalar/point tables,
-  4. proof assembly (two batched scalar-muls + point adds).
+  4. proof assembly (two batched scalar-muls, one kernel launch each, +
+     point adds).
 
 Every stage shares one data layout (ops/lm.py): field-element vectors are
 ``(N, 21, B)`` int32 planes, elements on the leading axis, limbs next, the
 voter batch B last.  Products go through the CUDA kernels on the card:
-mont_mul (witness, quotient), fold_padd_aa / fold_padd / padd (MSMs,
-assembly).  Only the final projective->affine conversion runs on the host.
+poseidon (witness), mont_mul (witness, quotient), fold_padd_aa /
+fold_padd / padd (MSMs, assembly), scalar_mul (assembly).  Only the
+final projective->affine conversion runs on the host.
 
 The B1/B2 tables are compacted: wires whose B polynomial is zero carry
 identity points (None in the key), and dropping them roughly halves the
@@ -83,8 +85,8 @@ def assemble_stage(pa, pb1, pb2, pc_partial, r_plain, s_plain,
     pi_b = K.padd(pb2, beta2, "g2")
     s_bits = lm.bits_from_plain(s_plain, 254)               # (254, B)
     r_bits = lm.bits_from_plain(r_plain, 254)
-    pi_c = K.padd(pc, scalar_mul_plane(pi_a, s_bits, "g1"), "g1")
-    pi_c = K.padd(pi_c, scalar_mul_plane(pi_b1, r_bits, "g1"), "g1")
+    pi_c = K.padd(pc, K.scalar_mul(pi_a, s_bits, "g1"), "g1")
+    pi_c = K.padd(pi_c, K.scalar_mul(pi_b1, r_bits, "g1"), "g1")
     return pi_a, pi_b, pi_c
 
 
@@ -95,16 +97,9 @@ def neg_rs_scalar(r_plain: torch.Tensor,
     return lm.canon(lm.neg_n(rs, FR), FR)
 
 
-def scalar_mul_plane(p: torch.Tensor, bits: torch.Tensor,
-                     kind: str) -> torch.Tensor:
-    """p: (rows, B) point plane; bits: (nbits, B) -> (rows, B)."""
-    acc = ec_lm.identity_plane(kind, (), p.shape[-1], p.device)
-    base = p
-    for i in range(bits.shape[0]):
-        added = K.padd(acc, base, kind)
-        acc = torch.where((bits[i] == 1)[None, :], added, acc)
-        base = K.padd(base, base, kind)
-    return acc
+# the assembly's ladder as plain PyTorch, (rows, B) points and (nbits, B)
+# bits: the plain version of K.scalar_mul
+scalar_mul_plane = K.scalar_mul_ref
 
 
 class DeviceProver:

@@ -28,7 +28,7 @@ import torch
 
 from ..ops import ff, lm
 from ..ops.lm import FR, N_LIMBS
-from ..ops.poseidon import mix, tables
+from ..ops.cuda import lm_kernels as K
 from ..ops.poseidon_constants import N_ROUNDS_F, N_ROUNDS_P, constants
 from . import r1cs
 from .r1cs import LC, lc, lc_add, lc_const, lc_scale, lc_sub
@@ -233,31 +233,9 @@ def _bits_to_mont(bits: torch.Tensor) -> torch.Tensor:
 def eval_poseidon_trace(inputs_mont: torch.Tensor):
     """Poseidon with sbox-intermediate capture.
     inputs_mont: (k, 21, T) -> (out (21, T), trace (n_sbox*3, 21, T));
-    trace order matches build_poseidon allocation order."""
-    t = inputs_mont.shape[0] + 1
-    c_arr, m_arr = tables(t, inputs_mont.device)
-    r_f, r_p = N_ROUNDS_F, N_ROUNDS_P[t - 2]
-    half = r_f // 2
-    state = torch.cat([torch.zeros_like(inputs_mont[:1]), inputs_mont], 0)
-
-    def sbox_trace(x):
-        x2 = lm.mont_mul(x, x, FR)
-        x4 = lm.mont_mul(x2, x2, FR)
-        x5 = lm.mont_mul(x4, x, FR)
-        tr = torch.stack([x2, x4, x5], 1)               # (j, 3, 21, T)
-        return x5, tr.reshape(-1, N_LIMBS, x.shape[-1])
-
-    trace = []
-    for r in range(r_f + r_p):
-        state = lm.weak_norm(state + c_arr[r])
-        if r < half or r >= half + r_p:
-            state, tr = sbox_trace(state)
-        else:
-            s0, tr = sbox_trace(state[0:1])
-            state = torch.cat([s0, state[1:]], 0)
-        trace.append(tr)
-        state = mix(state, m_arr)
-    return state[0], torch.cat(trace, 0)
+    trace order matches build_poseidon allocation order.  On the card one
+    launch of the permutation kernel; on the CPU its plain version."""
+    return K.poseidon_trace(inputs_mont)
 
 
 def eval_leq_const_trace(bits: torch.Tensor, c_val: int,

@@ -1,9 +1,10 @@
 """CUDA kernels over the limb-major core: build, bind, launch, count.
 
-Thirteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
-(the first four), ``csrc/lm_chains.cu`` (the next four) and
-``csrc/lm_layout.cu`` (the five of the layout experiments), and one
-composite of them:
+Fourteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
+(mont_mul, the cooperative adds and scalar_mul), ``csrc/lm_chains.cu``
+(fold_mul, inv, mont_chain), ``csrc/lm_poseidon.cu`` (the Poseidon
+permutation) and ``csrc/lm_layout.cu`` (the five of the layout
+experiments), and one composite of them:
 
   ============  ============================================  =============
   wrapper       what it computes                              plain version
@@ -17,7 +18,12 @@ composite of them:
   fold_mul      x[..., :m/2] * x[..., m/2:], Fr or Fq         fold_mul_ref
   inv           a^(p-2) = 1/a (inv(0) = 0), Fr or Fq          inv_ref
   mont_chain    a * b^iters, one product after another        mont_chain_ref
-  scalar_mul    k*P, shared scalar bits, a base per lane      scalar_mul_ref
+  scalar_mul    k*P, a base per lane, its scalar's bits one   scalar_mul_ref
+                per lane or shared by all
+  permutation   the Poseidon permutation of width t = 3, 4,   permutation_ref
+                5, one launch for every lane
+  poseidon_     the same from the k = t - 1 inputs, with      poseidon_
+    trace       the S-box trace the witness keeps               trace_ref
   mm2d          a * b^chain on a flat (21, T) lane axis,      mm2d_ref
                 `tile` lanes per block
   mm3d          a * b on (B, 21, T), (blk, tile) per block    mm3d_ref
@@ -56,11 +62,12 @@ import tempfile
 
 import torch
 
-from .. import ec_lm, lm
+from .. import ec_lm, lm, poseidon
+from ..poseidon_constants import N_ROUNDS_F, N_ROUNDS_P
 
 PKG = pathlib.Path(__file__).resolve().parents[2]
 SOURCES = [PKG / "csrc" / "lm_kernels.cu", PKG / "csrc" / "lm_chains.cu",
-           PKG / "csrc" / "lm_layout.cu"]
+           PKG / "csrc" / "lm_layout.cu", PKG / "csrc" / "lm_poseidon.cu"]
 HEADERS = [PKG / "csrc" / "lm_device.cuh"]
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,7 +77,8 @@ LAUNCHES = {"mont_mul": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
             "fold_padd/g2": 0, "fold_padd_aa/g1": 0, "fold_padd_aa/g2": 0,
             "fold_mul": 0, "inv": 0, "mont_chain": 0, "scalar_mul/g1": 0,
             "scalar_mul/g2": 0, "mm2d": 0, "mm3d": 0, "fold2d/g1": 0,
-            "fold2d/g2": 0, "add_one": 0, "fused_upsweep": 0}
+            "fold2d/g2": 0, "add_one": 0, "fused_upsweep": 0,
+            "poseidon/t3": 0, "poseidon/t4": 0, "poseidon/t5": 0}
 # padd launches by plane shape: "g1/B128/T1" counts G1 launches on
 # (128, 63, 1) planes (B adds per lane, T lanes)
 PADD_SHAPES: dict = {}
@@ -140,7 +148,8 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _libs() -> tuple:
-    """(lm_kernels, lm_chains, lm_layout) libraries, built if need be."""
+    """(lm_kernels, lm_chains, lm_layout, lm_poseidon) libraries, built if
+    need be."""
     paths = build()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = ctypes.CDLL(str(paths["lm_kernels"]))
@@ -149,24 +158,26 @@ def _libs() -> tuple:
     lib.zk_fold_padd_levels.argtypes = [I, P, P, L, L, I, P]
     lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
     lib.zk_occupancy.argtypes = [I, P]
+    lib.zk_scalar_mul.argtypes = [I, P, P, P, L, L, I, L, P]
     chains = ctypes.CDLL(str(paths["lm_chains"]))
     chains.zk_fold_mul.argtypes = [P, P, P, L, L, P]
     chains.zk_inv.argtypes = [P, P, P, P, I] + [L] * 5 + [P]
     chains.zk_mont_chain.argtypes = [P, P, P, P, L, I, P]
-    chains.zk_scalar_mul.argtypes = [I, P, P, P, P, I, L, P]
     layout = ctypes.CDLL(str(paths["lm_layout"]))
     layout.zk_mm2d.argtypes = [P, P, P, P, L, L, I, P]
     layout.zk_mm3d.argtypes = [P, P, P, P, L, L, L, L, P]
     layout.zk_fold2d.argtypes = [I, P, P, P, L, L, L, P]
     layout.zk_add_one.argtypes = [P, P, L, L, L, P]
     layout.zk_fused_upsweep.argtypes = [P, P, L, L, P]
+    pos = ctypes.CDLL(str(paths["lm_poseidon"]))
+    pos.zk_poseidon.argtypes = [I, P, P, P, P, P, P, I, L, I, I, P]
     for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd_levels,
-               lib.zk_fold_padd_aa, lib.zk_occupancy,
+               lib.zk_fold_padd_aa, lib.zk_occupancy, lib.zk_scalar_mul,
                chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
-               chains.zk_scalar_mul, layout.zk_mm2d, layout.zk_mm3d,
-               layout.zk_fold2d, layout.zk_add_one, layout.zk_fused_upsweep):
+               layout.zk_mm2d, layout.zk_mm3d, layout.zk_fold2d,
+               layout.zk_add_one, layout.zk_fused_upsweep, pos.zk_poseidon):
         fn.restype = ctypes.c_int
-    return lib, chains, layout
+    return lib, chains, layout, pos
 
 
 def _lib() -> ctypes.CDLL:
@@ -179,6 +190,10 @@ def _chains() -> ctypes.CDLL:
 
 def _layout() -> ctypes.CDLL:
     return _libs()[2]
+
+
+def _poseidon_lib() -> ctypes.CDLL:
+    return _libs()[3]
 
 
 def _check(rc: int, name: str) -> None:
@@ -576,16 +591,21 @@ def mont_chain(a: torch.Tensor, b: torch.Tensor, iters: int,
     return out
 
 
-def _scalar_bits(bits, device) -> torch.Tensor:
+def _scalar_bits(bits, T: int, device) -> torch.Tensor:
+    """bits as an int32 tensor on `device`: (nbits,), one scalar for all
+    T lanes, or (nbits, T), a scalar per lane; raises on any other shape."""
     bits = torch.as_tensor(bits, dtype=torch.int32, device=device)
-    if bits.dim() != 1 or bits.shape[0] > 256:
-        raise ValueError(f"scalar_mul: expected at most 256 bits in one "
-                         f"axis, got {tuple(bits.shape)}")
+    if bits.dim() not in (1, 2) or (bits.dim() == 2 and bits.shape[1] != T):
+        raise ValueError(f"scalar_mul: expected bits (nbits,) or (nbits, "
+                         f"{T}), got {tuple(bits.shape)}")
     return bits.contiguous()
 
 
 def scalar_mul_ref(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
-    bits = _scalar_bits(bits, pts.device)
+    """The assembly's double-and-add (groth16/device.py names it
+    scalar_mul_plane): acc = where(bit, acc + base, acc), base = base +
+    base, least significant bit first, acc starting at the identity."""
+    bits = _scalar_bits(bits, pts.shape[-1], pts.device)
     acc = ec_lm.identity_plane(kind, (), pts.shape[-1], pts.device)
     base = pts
     for i in range(bits.shape[0]):
@@ -597,8 +617,9 @@ def scalar_mul_ref(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
 
 def scalar_mul(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
     """pts: (rows, T) projective base points, one per lane; bits: the
-    scalar k as 0/1 values, least significant first, shared by all lanes
-    -> (rows, T) k*P by double-and-add inside one kernel."""
+    scalar as 0/1 values, least significant first, (nbits,) shared by all
+    lanes or (nbits, T) one scalar per lane -> (rows, T) k*P by
+    double-and-add, every bit inside one launch of the cooperative add."""
     k = _k(kind)
     if not _on_card("scalar_mul", pts):
         return scalar_mul_ref(pts, bits, kind)
@@ -606,18 +627,141 @@ def scalar_mul(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
     if pts.dim() != 2 or pts.shape[0] != rows:
         raise ValueError(f"scalar_mul: expected ({rows}, T), got "
                          f"{tuple(pts.shape)}")
-    bits = _scalar_bits(bits, pts.device)
+    bits = _scalar_bits(bits, pts.shape[1], pts.device)
     pts = pts.contiguous()
     out = torch.empty_like(pts)
     if out.numel():
-        consts = lm.const(_EC_CONSTS, pts.device)
-        rc = _chains().zk_scalar_mul(k, pts.data_ptr(), out.data_ptr(),
-                                     consts.data_ptr(), bits.data_ptr(),
-                                     bits.shape[0], pts.shape[1],
-                                     _stream(pts.device))
+        sbt = 1 if bits.dim() == 2 else 0
+        rc = _lib().zk_scalar_mul(k, pts.data_ptr(), out.data_ptr(),
+                                  bits.data_ptr(), bits.stride(0), sbt,
+                                  bits.shape[0], pts.shape[1],
+                                  _stream(pts.device))
         _check(rc, "scalar_mul")
         LAUNCHES[f"scalar_mul/{kind}"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the Poseidon permutation
+# ---------------------------------------------------------------------------
+
+POSEIDON_WIDTHS = (3, 4, 5)
+
+
+def _poseidon_rounds(t: int) -> tuple:
+    if t not in POSEIDON_WIDTHS:
+        raise ValueError(f"poseidon: width t must be 3, 4 or 5, got {t}")
+    return N_ROUNDS_F, N_ROUNDS_P[t - 2]
+
+
+def permutation_ref(state: torch.Tensor, t: int) -> torch.Tensor:
+    """Plain version of the permutation on state (..., t, 21, T),
+    Montgomery: per round the constant add and one weak round, the S-box
+    (x^5) on every element in full rounds and on element 0 in partial
+    ones, and the MDS mix."""
+    c_arr, m_arr = poseidon.tables(t, state.device)
+    r_f, r_p = _poseidon_rounds(t)
+    half = r_f // 2
+    for r in range(r_f + r_p):
+        state = lm.weak_norm(state + c_arr[r])
+        if r < half or r >= half + r_p:
+            state = poseidon.sbox(state)
+        else:
+            state = torch.cat([poseidon.sbox(state[..., 0:1, :, :]),
+                               state[..., 1:, :, :]], -3)
+        state = poseidon.mix(state, m_arr)
+    return state
+
+
+def poseidon_trace_ref(inputs_mont: torch.Tensor):
+    """Plain version of the hash with its S-box trace: inputs (k, 21, T)
+    Montgomery, t = k + 1 -> (out (21, T), trace (n_sbox*3, 21, T)); the
+    trace in build_poseidon's allocation order (x^2, x^4, x^5 of each
+    S-box)."""
+    t = inputs_mont.shape[0] + 1
+    c_arr, m_arr = poseidon.tables(t, inputs_mont.device)
+    r_f, r_p = _poseidon_rounds(t)
+    half = r_f // 2
+    state = torch.cat([torch.zeros_like(inputs_mont[:1]), inputs_mont], 0)
+
+    def sbox_trace(x):
+        x2 = lm.mont_mul(x, x, lm.FR)
+        x4 = lm.mont_mul(x2, x2, lm.FR)
+        x5 = lm.mont_mul(x4, x, lm.FR)
+        tr = torch.stack([x2, x4, x5], 1)               # (j, 3, 21, T)
+        return x5, tr.reshape(-1, lm.N_LIMBS, x.shape[-1])
+
+    trace = []
+    for r in range(r_f + r_p):
+        state = lm.weak_norm(state + c_arr[r])
+        if r < half or r >= half + r_p:
+            state, tr = sbox_trace(state)
+        else:
+            s0, tr = sbox_trace(state[0:1])
+            state = torch.cat([s0, state[1:]], 0)
+        trace.append(tr)
+        state = poseidon.mix(state, m_arr)
+    return state[0], torch.cat(trace, 0)
+
+
+def poseidon_trace_rows(t: int) -> int:
+    """Rows of the S-box trace of width t: three a S-box (243, 264, 300)."""
+    r_f, r_p = _poseidon_rounds(t)
+    return 3 * (r_f * t + r_p)
+
+
+def _poseidon(x: torch.Tensor, t: int, zero_first: bool, whole: bool,
+              want_trace: bool):
+    """One launch of zk_poseidon over the T lanes of x (t - zero_first,
+    21, T) -> (out (t or 1, 21, T), trace or None)."""
+    r_f, r_p = _poseidon_rounds(t)
+    if x.dim() != 3 or x.shape[:2] != (t - zero_first, lm.N_LIMBS):
+        raise ValueError(f"poseidon: expected ({t - zero_first}, 21, T), "
+                         f"got {tuple(x.shape)}")
+    x = x.contiguous()
+    T = x.shape[-1]
+    out = torch.empty((t if whole else 1, lm.N_LIMBS, T), dtype=torch.int32,
+                      device=x.device)
+    trace = torch.empty((poseidon_trace_rows(t), lm.N_LIMBS, T),
+                        dtype=torch.int32, device=x.device) \
+        if want_trace else None
+    if T:
+        c_arr, m_arr = poseidon.tables(t, x.device)
+        consts = _field_consts("poseidon", lm.FR, x.device)
+        rc = _poseidon_lib().zk_poseidon(
+            t, x.data_ptr(), out.data_ptr(),
+            trace.data_ptr() if want_trace else None, consts.data_ptr(),
+            c_arr.data_ptr(), m_arr.data_ptr(), r_p, T, int(zero_first),
+            int(whole), _stream(x.device))
+        _check(rc, "poseidon")
+        LAUNCHES[f"poseidon/t{t}"] += 1
+    return out, trace
+
+
+def permutation(state: torch.Tensor, t: int) -> torch.Tensor:
+    """The Poseidon permutation of width t on state (..., t, 21, T),
+    Montgomery.  On the card one launch: leading dims ride the lane axis."""
+    if not _on_card("poseidon", state):
+        return permutation_ref(state, t)
+    if state.dim() < 3 or state.shape[-3] != t:
+        raise ValueError(f"poseidon: expected (..., {t}, 21, T), got "
+                         f"{tuple(state.shape)}")
+    lead, T = state.shape[:-3], state.shape[-1]
+    x = state.reshape(-1, t, lm.N_LIMBS, T).permute(1, 2, 0, 3)
+    out, _ = _poseidon(x.reshape(t, lm.N_LIMBS, -1), t, False, True, False)
+    return out.reshape(t, lm.N_LIMBS, -1, T).permute(2, 0, 1, 3).reshape(
+        *lead, t, lm.N_LIMBS, T)
+
+
+def poseidon_trace(inputs_mont: torch.Tensor):
+    """Poseidon hash of k = t - 1 inputs (k, 21, T), Montgomery, with its
+    S-box trace -> (out (21, T), trace (n_sbox*3, 21, T)).  On the card
+    one launch for every lane."""
+    if not _on_card("poseidon", inputs_mont):
+        return poseidon_trace_ref(inputs_mont)
+    t = inputs_mont.shape[0] + 1
+    out, trace = _poseidon(inputs_mont, t, True, False, True)
+    return out[0], trace
 
 
 # ---------------------------------------------------------------------------

@@ -357,12 +357,12 @@ def batch_inv_lanes(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:
 
 def bits_from_plain(x: torch.Tensor, n: int) -> torch.Tensor:
     """x: (..., 21, T) plain exact limbs -> (n, ..., T) int32 0/1 bits,
-    LSB first (the bit axis becomes the new leading axis)."""
-    rows = []
-    for i in range(n):
-        limb, s = divmod(i, LIMB_BITS)
-        rows.append((x[..., limb, :] >> s) & 1)
-    return torch.stack(rows, 0)
+    LSB first (the bit axis becomes the new leading axis).  One gather of
+    each bit's limb, one shift and one mask."""
+    i = torch.arange(n, device=x.device)
+    limbs = x.index_select(-2, i // LIMB_BITS)              # (..., n, T)
+    shift = (i % LIMB_BITS).to(x.dtype)[:, None]
+    return ((limbs >> shift) & 1).movedim(-2, 0)
 
 
 def window_digits(x: torch.Tensor, wbits: int = 8,

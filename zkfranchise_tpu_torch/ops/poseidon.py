@@ -2,8 +2,9 @@
 
 A field element is an int32 plane ``(..., 21, T)``; a hash call takes
 ``(..., k, 21, T)`` (k inputs stacked on a leading axis) and returns
-``(..., 21, T)``.  Every round is lane-parallel limb arithmetic whose
-products go through lm.mont_mul (the CUDA kernel on the card).
+``(..., 21, T)``.  On the card a whole permutation is one launch of the
+CUDA kernel (ops/cuda/lm_kernels.py permutation); on the CPU its plain
+version runs, round by round, on the helpers below.
 
 Constants come from poseidon_constants.py (Grain-LFSR regenerated,
 matching circomlib).
@@ -43,7 +44,7 @@ def tables(t: int, device):
     return lm.const(c_mont, device), lm.const(m_mont, device)
 
 
-def _sbox(x: torch.Tensor) -> torch.Tensor:
+def sbox(x: torch.Tensor) -> torch.Tensor:
     x2 = lm.mont_mul(x, x, FR)
     x4 = lm.mont_mul(x2, x2, FR)
     return lm.mont_mul(x4, x, FR)
@@ -58,19 +59,11 @@ def mix(state: torch.Tensor, m_mont: torch.Tensor) -> torch.Tensor:
 
 
 def permutation(state: torch.Tensor, t: int) -> torch.Tensor:
-    """Full Poseidon permutation on state (..., t, 21, T), Montgomery."""
-    c_arr, m_arr = tables(t, state.device)
-    r_f, r_p = N_ROUNDS_F, N_ROUNDS_P[t - 2]
-    half = r_f // 2
-    for r in range(r_f + r_p):
-        state = lm.weak_norm(state + c_arr[r])
-        if r < half or r >= half + r_p:
-            state = _sbox(state)
-        else:
-            state = torch.cat([_sbox(state[..., 0:1, :, :]),
-                               state[..., 1:, :, :]], -3)
-        state = mix(state, m_arr)
-    return state
+    """Full Poseidon permutation on state (..., t, 21, T), Montgomery: the
+    plain version on the CPU, one launch of the CUDA kernel on the card
+    (ops/cuda/lm_kernels.permutation)."""
+    from .cuda import lm_kernels
+    return lm_kernels.permutation(state, t)
 
 
 def poseidon_mont(inputs: torch.Tensor) -> torch.Tensor:

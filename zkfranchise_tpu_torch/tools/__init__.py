@@ -8,18 +8,24 @@ layout experiments (geometry sweeps held against the plain versions).
     python -m zkfranchise_tpu_torch.tools.layout_expt2 [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.padd_shapes [--device cpu] [--small]
     python -m zkfranchise_tpu_torch.tools.fold_shapes [--device cpu] [--small]
+    python -m zkfranchise_tpu_torch.tools.ladder_teams [--device cpu]
+    python -m zkfranchise_tpu_torch.tools.tree_compare PARENT [CHANGE]
 
     python -m zkfranchise_tpu_torch.tools.prove_from_zkey --zkey F --vk F --nlevels N
 
-Each has a ``main(..., device=None, ...) -> int`` that prints PASS/FAIL lines
-and returns non-zero on any FAIL.  They run on the card unless another device
-is named; on the CPU the kernels' plain versions run (``--small`` keeps
-that short).
+Each but tree_compare (parent against change on the card, see its
+docstring) has a ``main(..., device=None, ...) -> int`` that prints
+PASS/FAIL lines and returns non-zero on any FAIL.  They run on the card
+unless another device is named; on the CPU the kernels' plain versions run
+(``--small`` keeps that short).
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import json
 import statistics
+import subprocess
 
 import torch
 
@@ -94,22 +100,141 @@ def event_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 20) -> float:
-    """Mean device milliseconds per call of `fn`: the summed durations of
-    the CUDA kernels it launched, from torch.profiler, so the host's time
-    between launches is left out (it dominates a call of a few
-    microseconds of device work)."""
+# Spin kernels (torch.cuda._sleep) run at both ends of every profiling
+# window.  On the card, after tens of thousands of launches in a process,
+# torch.profiler loses the first kernel events of a window (seen: 2 to 9;
+# never the last ones): the leading spins take that loss instead of the
+# kernels timed, and how many of each group it recorded is reported.
+SENTINELS = 64
+
+
+def kernel_events(fn, runs: int = 20) -> tuple:
+    """([(name, device us)] of the CUDA kernel events torch.profiler
+    recorded over `runs` calls of `fn`, (leading, trailing) spin kernels
+    recorded of SENTINELS each).  Kernel durations only, so the host's
+    time between launches is left out (it dominates a call of a few
+    microseconds of device work); the spins are left out of the list."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.device_time_total for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / runs / 1e3
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kept = [ev for ev in events if "spin_kernel" not in ev.name]
+    first = min((ev.time_range.start for ev in kept), default=float("inf"))
+    spins = [ev.time_range.start < first for ev in events
+             if "spin_kernel" in ev.name]
+    return [(ev.name, ev.device_time_total) for ev in kept], \
+        (sum(spins), len(spins) - sum(spins))
+
+
+def device_ms(fn, runs: int = 20) -> float:
+    """Mean device milliseconds per call of `fn` (kernel_events)."""
+    return sum(us for _, us in kernel_events(fn, runs)[0]) / runs / 1e3
+
+
+def _torch_kernel(name: str) -> bool:
+    """A device event of PyTorch's own (a kernel of at::, a copy or a
+    fill), not one of the port's."""
+    return "at::" in name or name.startswith(("Memcpy", "Memset"))
+
+
+def burst_ms(fn, min_calls: int = 20, min_ms: float = 10.0) -> float:
+    """ms per call over a burst of back-to-back calls between two CUDA
+    events: at least `min_calls` calls and `min_ms` in all."""
+    est = event_ms(fn, runs=3, warmup=1)
+    calls = max(min_calls, int(min_ms / max(est, 1e-3)) + 1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm): at it the
+    integer ceiling is the lowest any run can reach."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0])
+
+
+def int_ceiling_ms(mads: float, sm_mhz: float) -> float:
+    """Least ms for `mads` 32-bit multiply-adds at 64 a clock per SM."""
+    return mads / (INT_MADS_PER_CLK_SM * SMS * sm_mhz * 1e6) * 1e3
+
+
+def device_reading(name: str, fn, nbytes: float, mads: float,
+                   runs: int = 20, attempts: int = 3) -> dict:
+    """The device time of `fn` that a verdict may use, with what marks it
+    impossible.  One call counts the port's launches (LAUNCHES); then
+    kernel_events, again (at most `attempts` times) while the profiler
+    recorded fewer of the port's kernel events than the port launched (a
+    loss that the leading spins did not take: the sum of the rest reads
+    low), or while it lost more than half of the leading spins (such a
+    window once gave all 20 events of 20 calls summing to half the time
+    the same calls took between CUDA events).  If events are still missing
+    in an undisturbed window and every recorded event is a port kernel,
+    the reading is their mean duration times the launches of a call
+    (``"scaled": true``).  The reading is marked ``"invalid": true`` when
+    it is 0, when it lies below the bytes bound (each input read and each
+    output written once, `nbytes`, at 3.35 TB/s) or below the integer
+    ceiling of `mads` at the card's highest SM clock, when events are
+    missing and it could not be scaled, or when the window stayed
+    disturbed.  Prints one JSON line: the reading beside the event-burst
+    ms."""
+    from ..ops.cuda import lm_kernels as K
+
+    before = sum(K.LAUNCHES.values())
+    fn()
+    launches = sum(K.LAUNCHES.values()) - before
+    for attempt in range(1, attempts + 1):
+        events, (lead, tail) = kernel_events(fn, runs)
+        ours = [us for n, us in events if not _torch_kernel(n)]
+        disturbed = 2 * lead < SENTINELS
+        if len(ours) >= launches * runs and not disturbed:
+            break
+    dev_ms = sum(us for _, us in events) / runs / 1e3
+    short = len(ours) < launches * runs
+    scaled = short and not disturbed and bool(ours) and \
+        len(ours) == len(events)
+    if scaled:
+        dev_ms = sum(ours) / len(ours) * launches / 1e3
+    res = {"reading": name, "device_ms": dev_ms, "burst_ms": burst_ms(fn),
+           "kernel_events": len(ours), "launches": launches * runs,
+           "torch_events": len(events) - len(ours),
+           "sentinels": f"lead {lead}/{SENTINELS}, tail {tail}/{SENTINELS}",
+           "attempts": attempt,
+           "scaled": scaled, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "int_ceiling_ms": int_ceiling_ms(mads, max_sm_mhz())}
+    why = [w for w, bad in (
+        ("zero", dev_ms <= 0),
+        ("below the bytes bound", dev_ms < res["bytes_ms"]),
+        ("below the integer ceiling", dev_ms < res["int_ceiling_ms"]),
+        ("events dropped", short and not scaled),
+        ("window disturbed", disturbed)) if bad]
+    res["invalid"] = bool(why)
+    if why:
+        res["why"] = why
+    print(json.dumps(res), flush=True)
+    return res
 
 
 def check_and_time(failed: list, dev: torch.device, name: str, fn, want,

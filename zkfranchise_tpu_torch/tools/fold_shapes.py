@@ -16,8 +16,10 @@ planes carry infinity-flagged lanes.
 Each shape is first held against its plain version (``torch.equal``);
 then, on the card only, one JSON line per shape gives the median
 milliseconds of a whole call (CUDA events, host time included), the mean
-device time per call (torch.profiler), the time per call of a burst of
-back-to-back calls between two CUDA events (at least 20 calls and 10 ms),
+device time per call (torch.profiler, through ``tools.device_reading``,
+which marks a reading no card can give ``"invalid"``), the time per call
+of a burst of back-to-back calls between two CUDA events (at least 20
+calls and 10 ms),
 ns per add, and the bounds: multiply-adds at 67 T op/s (a multiply-add
 counted as two, the data sheet's 32-bit rate) and the integer ceiling, 64
 multiply-adds per clock per SM at the SM clock read right after the
@@ -48,7 +50,7 @@ from ..ops import ec, ec_affine, ec_lm, msm_lm
 from ..ops.cuda import lm_kernels as K
 from ..utils import devices
 from . import HBM_BYTES_PER_S, INT_MADS_PER_CLK_SM, OPS_PER_S, SMS, \
-    add_mads, check, cli, device_ms, event_ms, verdict
+    add_mads, check, cli, device_reading, event_ms, verdict
 from .padd_shapes import smi
 
 # (form, kind, B, h): one level, output width h
@@ -125,22 +127,6 @@ def bounds(form: str, kind: str, adds: int, in_ints: int, out_ints: int,
     return out
 
 
-def burst_ms(fn, min_calls: int = 20, min_ms: float = 10.0) -> float:
-    """ms per call over a burst of back-to-back calls between two CUDA
-    events: at least `min_calls` calls and `min_ms` in all."""
-    est = event_ms(fn, runs=3, warmup=1)
-    calls = max(min_calls, int(min_ms / max(est, 1e-3)) + 1)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
 def host_ms(fn, runs: int = 10) -> float:
     """Median host milliseconds from calling `fn` to its return, the card
     idle at the call and waited for after it."""
@@ -155,13 +141,15 @@ def host_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def _time(dev, res: dict, fn, form: str, kind: str, adds: int,
+def _time(dev, res: dict, name: str, fn, form: str, kind: str, adds: int,
           in_ints: int, out_ints: int) -> None:
     if dev.type != "cuda":
         return
     res["ms"] = event_ms(fn)
-    res["device_ms"] = device_ms(fn)
-    res["burst_ms"] = burst_ms(fn)
+    mads = add_mads("padd" if form == "fold" else "padd_aa", kind) * adds
+    r = device_reading(name, fn, 4 * (in_ints + out_ints), mads)
+    res.update(device_ms=r["device_ms"], burst_ms=r["burst_ms"],
+               invalid=r["invalid"])
     res["host_ms"] = host_ms(fn)
     res["profiler_vs_events"] = res["device_ms"] / res["burst_ms"]
     res["ns_per_add"] = res["device_ms"] * 1e6 / adds
@@ -183,7 +171,7 @@ def run(dev, shapes, levels, failed: list) -> list:
         check(failed, tag, torch.equal(fn(x, kind), ref(x, kind)))
         res = {"form": form, "kind": kind, "B": B, "h": h, "levels": 1,
                "adds": B * h}
-        _time(dev, res, lambda: fn(x, kind), form, kind, B * h,
+        _time(dev, res, tag, lambda: fn(x, kind), form, kind, B * h,
               x.numel(), B * rows * h)
         print(json.dumps(res), flush=True)
         results.append(res)
@@ -193,18 +181,21 @@ def run(dev, shapes, levels, failed: list) -> list:
         x = fold_inputs("fold", kind, B, 2 * h, rng, dev)
         got = K.fold_padd_levels(x, kind, n)
         want = K.fold_padd_levels_ref(x, kind, n)
-        check(failed, f"fold_padd_levels/{kind} ({B},{rows},{2 * h}) "
-                      f"n {n}", len(got) == n and all(
-                          torch.equal(g, w) for g, w in zip(got, want)))
+        tag = f"fold_padd_levels/{kind} ({B},{rows},{2 * h}) n {n}"
+        check(failed, tag, len(got) == n and all(
+            torch.equal(g, w) for g, w in zip(got, want)))
         adds = B * sum(h >> i for i in range(n))
         res = {"form": "levels", "kind": kind, "B": B, "h": h, "levels": n,
                "adds": adds}
-        _time(dev, res, lambda: K.fold_padd_levels(x, kind, n), "fold",
-              kind, adds, x.numel(), rows * adds)
+        _time(dev, res, tag, lambda: K.fold_padd_levels(x, kind, n),
+              "fold", kind, adds, x.numel(), rows * adds)
         if dev.type == "cuda":
             res["apart_ms"] = event_ms(lambda: levels_apart(x, kind, n))
-            res["apart_device_ms"] = device_ms(
-                lambda: levels_apart(x, kind, n))
+            r = device_reading(tag + " apart", lambda: levels_apart(x, kind, n),
+                               4 * (x.numel() + rows * adds),
+                               add_mads("padd", kind) * adds)
+            res.update(apart_device_ms=r["device_ms"],
+                       apart_invalid=r["invalid"])
             res["apart_host_ms"] = host_ms(lambda: levels_apart(x, kind, n))
         print(json.dumps(res), flush=True)
         results.append(res)

@@ -5,7 +5,7 @@ The MSM and the assembly call ``padd`` on five kinds of plane (B, rows, T):
   walk     (128, rows, 128)   fine_walk and _lane_scan_padd, G*B = 128
   double   (128, rows, 32)    the x128 doublings and W, windows on lanes
   horner   (128, rows, 1)     combine_horner, one point per batch row
-  assemble (1, rows, 128)     scalar_mul_plane and the assembly's adds
+  assemble (1, rows, 128)     the assembly's point adds
   wide     (128, rows, 2048)  no main-path launch: the card filled
 
 Each plane mixes real points (sums of two random multiples of the
@@ -13,7 +13,9 @@ generator: Z != 1) with identity, doubling and P + (-P) positions.  The
 kernel's output is first held against ``padd_ref`` (exact equality); then,
 on the card only, one JSON line per shape gives the median milliseconds of
 a whole call (CUDA events, host time included), the mean device time per
-call (torch.profiler: the kernels' own durations), and the shape's bounds:
+call (torch.profiler: the kernels' own durations, through
+``tools.device_reading``, which marks a reading no card can give
+``"invalid"``), and the shape's bounds:
 bytes at 3.35 TB/s, multiply-adds at 67 T op/s (a multiply-add counted as
 two, the data sheet's 32-bit rate) and at 64 integer multiply-adds per
 clock per SM (the integer ceiling) at the SM clock read right after it.
@@ -33,7 +35,7 @@ from ..ops import ec, ec_lm, msm_lm
 from ..ops.cuda import lm_kernels as K
 from ..utils import devices
 from . import HBM_BYTES_PER_S, INT_MADS_PER_CLK_SM, OPS_PER_S, SMS, \
-    add_mads, check, cli, device_ms, event_ms, verdict
+    add_mads, check, cli, device_reading, event_ms, verdict
 
 # (name, B, T)
 SHAPES = [("walk", 128, 128), ("double", 128, 32), ("horner", 128, 1),
@@ -109,7 +111,11 @@ def run(dev, shapes, failed: list) -> list:
                    "adds": B * T}
             if dev.type == "cuda":
                 res["ms"] = event_ms(lambda: K.padd(p, q, kind))
-                res["device_ms"] = device_ms(lambda: K.padd(p, q, kind))
+                r = device_reading(tag, lambda: K.padd(p, q, kind),
+                                   4 * 3 * rows * B * T,
+                                   add_mads("padd", kind) * B * T)
+                res.update(device_ms=r["device_ms"], burst_ms=r["burst_ms"],
+                           invalid=r["invalid"])
                 # the clock right after the card's busy spell
                 sm_mhz = float(smi("clocks.sm").split()[0])
                 res.update(bounds(kind, B, T, sm_mhz), sm_mhz=sm_mhz)

@@ -1,0 +1,142 @@
+"""The main path and the serving path of two trees of this repository on
+one card, in turns: parent, change, change, parent.
+
+    python -m zkfranchise_tpu_torch.tools.tree_compare PARENT [CHANGE]
+
+PARENT and CHANGE are checkouts (CHANGE defaults to the one this module
+lies in); a parent commit is unpacked with ``git archive <commit> | tar -x
+-C <dir>`` into a directory that ``.gitignore`` lists.  Each run is a fresh
+Python process that imports that tree's own ``chip_smoke.py`` and runs its
+phases ``toolchain`` (the tree's own build), ``main_path`` (with
+``timed_prove``, ``verify`` and ``profile``) and ``stream``, after timing
+the tree's ``scalar_mul`` at (rows, 128) with a 254-bit scalar shared by
+the lanes and, where the tree takes one, a scalar per lane (whole calls,
+CUDA events).  Phase ``profile`` is this tree's in both runs, so that both
+count the host's ops the same way.  Every line a run prints comes out as
+one JSON object tagged with the run ("parent", "change", "change2",
+"parent2"); the last line sums up each run's stage seconds, proofs/s,
+device busy time and idle share, host ops, launches per ``prove_arrays``,
+the stream's slices and the scalar_mul times.  The card's name and power
+limit come first.  Exits non-zero if a run fails.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve()
+ROOT = HERE.parents[2]
+
+
+def worker(tree: str) -> None:
+    """One run, in its own process: the tree's phases, with this tree's
+    phase_profile."""
+    import importlib.util
+
+    sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  ROOT / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    cs.phase_profile = here.phase_profile
+    from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
+    from zkfranchise_tpu_torch.tools import event_ms
+    from zkfranchise_tpu_torch.tools.padd_shapes import padd_inputs
+
+    dev = torch.device("cuda", 0)
+    cs.phase_toolchain(torch, K)
+    rng = np.random.default_rng(9)
+    for kind in ("g1", "g2"):
+        p, q = padd_inputs(kind, 1, 128, rng, dev)
+        pts = K.padd_ref(p[0], q[0], kind)
+        scalars = {"shared": rng.integers(0, 2, size=254),
+                   "per_lane": rng.integers(0, 2, size=(254, 128))}
+        for name, bits in scalars.items():
+            bits = torch.as_tensor(bits.astype(np.int32), device=dev)
+            try:
+                got = K.scalar_mul(pts, bits, kind)
+            except ValueError:              # a tree without per-lane bits
+                continue
+            cs.emit({"scalar_mul": kind, "bits": name,
+                     "equal": bool(torch.equal(
+                         got, K.scalar_mul_ref(pts, bits, kind))),
+                     "ms": event_ms(lambda: K.scalar_mul(pts, bits, kind),
+                                    runs=5)})
+    _, keys = cs.phase_main_path(np, torch, K, dev)
+    cs.phase_stream(torch, K, dev, *keys)
+
+
+def summary(lines: list) -> dict:
+    """What a run's JSON lines say about its step, stream and scalar_mul."""
+    out = {"scalar_mul": {}}
+    for d in lines:
+        phase = d.get("phase")
+        if phase == "timed_prove":
+            out.update(stage_seconds=d["stage_seconds"], step_s=d["total_s"],
+                       proofs_per_s=d["proofs_per_s"],
+                       launches_per_prove_arrays={
+                           k: v for k, v in
+                           d["launches_per_prove_arrays"].items() if v})
+        elif phase == "profile":
+            out.update({k: d[k] for k in (
+                "device_busy_s", "device_idle_share", "host_prove_arrays",
+                "host_witness")})
+        elif phase == "verify":
+            out["verified"] = all(d["accepted"].values()) and not \
+                d["cross_voter_accepted"] and not d["tampered_accepted"]
+        elif phase == "stream":
+            out.update(stream_proofs_per_s=d["proofs_per_s"],
+                       stream_slices_s=[r["seconds"] for r in d["rates"]])
+        elif "scalar_mul" in d:
+            out["scalar_mul"][f"{d['scalar_mul']}/{d['bits']}"] = {
+                "ms": d["ms"], "equal": d["equal"]}
+    return out
+
+
+def main(parent: str, change: str = str(ROOT)) -> int:
+    from ..utils import devices
+
+    devices.resolve(None)                   # raises without a card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    runs = [("parent", parent), ("change", change), ("change2", change),
+            ("parent2", parent)]
+    results, failed = {}, []
+    for tag, tree in runs:
+        proc = subprocess.run([sys.executable, str(HERE), "--worker", tree],
+                              capture_output=True, text=True)
+        lines = []
+        for line in proc.stdout.splitlines():
+            try:
+                d = json.loads(line)
+            except json.JSONDecodeError:
+                d = {"text": line}
+            if isinstance(d, dict):
+                lines.append(d)
+                print(json.dumps({"run": tag, **d}), flush=True)
+        if proc.returncode != 0:
+            failed.append(tag)
+            print(json.dumps({"run": tag, "rc": proc.returncode,
+                              "stderr": proc.stderr[-3000:]}), flush=True)
+        results[tag] = {"tree": tree, **summary(lines)}
+    print(json.dumps({"tree_compare": results, "failed": failed}),
+          flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
+    else:
+        if not 2 <= len(sys.argv) <= 3:
+            sys.exit(__doc__)
+        sys.exit(main(*sys.argv[1:]))
