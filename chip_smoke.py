@@ -7,11 +7,15 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
 
   1. prints the toolchain, the card, the build time, each kernel's
      registers and spills (from ``nvcc -Xptxas -v``; a cooperative add,
-     the scalar_mul ladder or the Poseidon kernel that spills fails the
-     run), the resident blocks per SM of the cooperative kernels and
-     their SASS instruction mix;
+     the scalar_mul ladder, the Poseidon kernel, mont_mul, ntt_level or
+     inv that spills fails the run), the resident blocks per SM of the
+     cooperative kernels and the SASS instruction mix of those kernels;
   2. holds every kernel against its plain PyTorch version on the card at
-     the shapes its path gives it (padd at the five plane shapes of
+     the shapes its path gives it (mont_mul at its operand patterns,
+     ntt_level at every level of the forward and inverse 2^14 schedules
+     with 128 and 4 lanes beside the level it replaced, inv at 1, 128 and
+     129 lanes beside a mont_chain of as many products, padd at the five
+     plane shapes of
      tools.padd_shapes, the folds at every width of the sum tree and at
      every several-level launch of its plan, tools.fold_shapes, the
      Poseidon permutation at widths 3, 4, 5 with 128 and 4 lanes, the
@@ -36,7 +40,7 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      dev setup, mock_batch(16, 128, seed=7) -> batch_to_arrays ->
      DeviceProver -> prove_batch(seed=1), then a second timed prove_arrays
      with per-stage seconds, proofs/s and peak device memory (and the
-     launches of padd and of the folds by shape in the first, the folds'
+     launches of mont_mul, padd and the folds by shape, the folds'
      held against the count from the MSM plan), verifies
      sampled proofs against the committed dev/16 verification key (a
      cross-voter check and a tampered signal must be rejected), and
@@ -62,6 +66,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -80,6 +85,8 @@ _EXPT = "scripts/layout_expt"
 KERNELS = {
     "mont_mul": (_CSRC + "lm_kernels.cu", _PALLAS + ":217", "main_path",
                  ["mont_mul"]),
+    "ntt_level": (_CSRC + "lm_ntt.cu", _PALLAS + ":217", "main_path",
+                  ["ntt_level"]),
     "padd": (_CSRC + "lm_kernels.cu", _PALLAS + ":89", "main_path",
              ["padd/g1", "padd/g2"]),
     "fold_padd": (_CSRC + "lm_kernels.cu", _PALLAS + ":122", "main_path",
@@ -109,7 +116,8 @@ KERNELS = {
 }
 # what each path must launch at least once
 PATH_KERNELS = {
-    "main_path": ["mont_mul", "padd/g1", "padd/g2", "fold_padd/g1",
+    "main_path": ["mont_mul", "ntt_level", "padd/g1", "padd/g2",
+                  "fold_padd/g1",
                   "fold_padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2",
                   "poseidon/t3", "poseidon/t4", "poseidon/t5",
                   "scalar_mul/g1"],
@@ -194,8 +202,12 @@ def phase_toolchain(torch, K) -> None:
 
     cooperative = ("add_kernel", "fold_levels_kernel", "ladder_kernel",
                    "prod", "poseidon_kernel")
-    mix = {name: m for name, m in sass_mix(libs["lm_kernels"]).items()
-           if any(c in name for c in cooperative)}
+    # kernels that fail the run if they spill
+    no_spill = cooperative + ("mont_mul_kernel", "ntt_level_kernel",
+                              "inv_kernel")
+    mix = {name: m for lib in ("lm_kernels", "lm_ntt", "lm_chains")
+           for name, m in sass_mix(libs[lib]).items()
+           if any(c in name for c in no_spill)}
     emit({"phase": "toolchain", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc[-1], "nvidia_smi": smi_line(),
@@ -206,10 +218,10 @@ def phase_toolchain(torch, K) -> None:
           "resident_blocks_per_sm": {n: K.occupancy(n) for n in (1, 2, 3)},
           "sass_mix": mix})
     spills = {f: r for f, r in resources.items()
-              if any(c in f for c in cooperative) and
+              if any(c in f for c in no_spill) and
               (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
     if spills:
-        raise AssertionError(f"cooperative adds spill: {spills}")
+        raise AssertionError(f"kernels spill: {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -264,14 +276,15 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
-    from zkfranchise_tpu_torch.tools import MAD_MONT, add_mads, \
-        device_reading, event_ms
+    from zkfranchise_tpu_torch.tools import MAD_MONT, MAD_MONT_KARATSUBA, \
+        add_mads, device_reading, event_ms
     from zkfranchise_tpu_torch.tools import fold_shapes
     from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
 
     rng = np.random.default_rng(2024)
     results, table = {}, {}
-    n_set = int(lm.FQ.p_minus_2_bits.sum())              # 110 of 254
+    # inv's products: 253 squares and one per set bit of p - 2 (110)
+    chain = len(lm.FQ.p_minus_2_bits) - 1 + int(lm.FQ.p_minus_2_bits.sum())
 
     def check(name, kernel, plain, nbytes, mads, key, plain_runs=10,
               library=None):
@@ -322,18 +335,45 @@ def phase_kernels(np, torch, K, dev) -> dict:
             raise AssertionError(f"{name}: kernel differs from plain version "
                                  f"(max abs err {err})")
 
-    for fs, fname in ((lm.FR, "fr"), (lm.FQ, "fq")):
-        for n, bl in ((8192, 1), (4096, 128)):
-            a = torch.as_tensor(_random_limbs(np, rng, (n, 21, 128)),
-                                device=dev)
-            b = torch.as_tensor(_random_limbs(np, rng, (n, 21, bl)),
-                                device=dev)
-            name = f"mont_mul/{fname}/{n}x21x128*{n}x21x{bl}"
-            nbytes = 4 * (a.numel() + b.numel() + a.numel())
-            check(name, lambda: K.mont_mul(a, b, fs),
-                  lambda: K.mont_mul_ref(a, b, fs), nbytes,
-                  MAD_MONT * a.numel() / 21,
-                  "mont_mul" if (fname, bl) == ("fr", 1) else None)
+    # mont_mul at row 1's shape in both fields, and at the operand
+    # patterns the port launches it with (MONT_SHAPES): a constant column
+    # (n_inv), a column per row at 4 lanes (shift_pows in the stream's
+    # last slice), a shared table, two full operands (the quotient's a*b)
+    # and batch_inv's strided half-slices against a column; more than
+    # three leading dims that do not merge are held for equality only
+    def limbs(shape):
+        return torch.as_tensor(_random_limbs(np, rng, shape), device=dev)
+
+    patterns = [("fr", (8192, 21, 128), (8192, 21, 1), "mont_mul"),
+                ("fq", (8192, 21, 128), (8192, 21, 1), None),
+                ("fr", (16384, 21, 128), (21, 1), "mont_mul/const"),
+                ("fr", (16384, 21, 4), (16384, 21, 1), "mont_mul/col_T4"),
+                ("fq", (64, 21, 128), (21, 128), "mont_mul/table"),
+                ("fr", (16384, 21, 128), (16384, 21, 128), "mont_mul/full")]
+    for fname, sa, sb, key in patterns:
+        fs = lm.FR if fname == "fr" else lm.FQ
+        a, b = limbs(sa), limbs(sb)
+        out = torch.broadcast_shapes(a.shape, b.shape)
+        check(f"mont_mul/{fname}/{'x'.join(map(str, sa))}*"
+              f"{'x'.join(map(str, sb))}", lambda: K.mont_mul(a, b, fs),
+              lambda: K.mont_mul_ref(a, b, fs),
+              4 * (a.numel() + b.numel() + math.prod(out)),
+              MAD_MONT_KARATSUBA * math.prod(out) / 21, key)
+        del a, b
+    col, cur = limbs((128, 21, 1)), limbs((128, 21, 16384))
+    check("mont_mul/fq/128x21x1*128x21x16384[8192:] (strided)",
+          lambda: K.mont_mul(col, cur[..., 8192:], lm.FQ),
+          lambda: K.mont_mul_ref(col, cur[..., 8192:], lm.FQ),
+          4 * (col.numel() + 2 * cur.numel() // 2),
+          MAD_MONT_KARATSUBA * 128 * 8192, "mont_mul/strided")
+    y = limbs((3, 2, 5, 7, 21, 3))
+    if not torch.equal(K.mont_mul(y, y[:, :1, :, :1], lm.FQ),
+                       K.mont_mul_ref(y, y[:, :1, :, :1], lm.FQ)):
+        raise AssertionError("mont_mul differs on six dims")
+    del col, cur, y
+    torch.cuda.empty_cache()
+    _ntt_levels(np, torch, K, dev, rng, check, results, table)
+    torch.cuda.empty_cache()
 
     # padd at the shapes the main path launches it with (walk: the
     # table's row), and the card filled (wide)
@@ -388,18 +428,39 @@ def phase_kernels(np, torch, K, dev) -> dict:
           lambda: K.fold_mul_ref(x, lm.FQ), 4 * 21 * (32768 + 16384) * B,
           MAD_MONT * B * 16384, "fold_mul")
     d = x[..., :16384].contiguous()
+    # the tree up (fold_mul), the chain over the roots (inv), two products
+    # a lane down (mont_mul)
     check(f"batch_inv/fq/{B}x21x16384 (composite)",
           lambda: K.batch_inv(d, lm.FQ), lambda: K.batch_inv_ref(d, lm.FQ),
-          4 * 21 * 2 * 16384 * B, MAD_MONT * B * (3 * (16384 - 1) + 254 + n_set),
+          4 * 21 * 2 * 16384 * B,
+          B * (MAD_MONT * (16384 - 1 + chain) +
+               MAD_MONT_KARATSUBA * 2 * (16384 - 1)),
           "batch_inv", plain_runs=3)
     del x, d
-    # one Fermat chain over the 128 roots: 254 squares and a product per
-    # set bit of p - 2
-    a = torch.as_tensor(_random_limbs(np, rng, (21, B)), device=dev)
-    a[:, 5] = 0                                          # inv(0) = 0
-    check(f"inv/fq/21x{B}", lambda: K.inv(a, lm.FQ),
-          lambda: K.inv_ref(a, lm.FQ), 4 * (2 * 21 * B + 254),
-          MAD_MONT * (254 + n_set) * B, "inv", plain_runs=3)
+    # the Fermat chain: 253 squares (the last is not needed) and a product
+    # per set bit of p - 2, a warp a lane, at 1 lane, the batch's 128 and
+    # 129 (a block more than the SMs a lane takes), a zero lane in each;
+    # beside it a mont_chain of 364 dependent products at 128 lanes, one
+    # thread a lane (how inv ran before)
+    for T in (1, B, B + 1):
+        a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
+        a[:, T // 2] = 0                                 # inv(0) = 0
+        name = f"inv/fq/21x{T}"
+        check(name, lambda: K.inv(a, lm.FQ), lambda: K.inv_ref(a, lm.FQ),
+              4 * (2 * 21 * T + 254), MAD_MONT * chain * T,
+              "inv" if T == B else f"inv/T{T}",
+              plain_runs=3 if T == B else 1)
+    yard = device_reading(f"mont_chain/fq/21x{B}x364 (inv's yardstick)",
+                          lambda: K.mont_chain(a[:, :B], a[:, :B], 364,
+                                               lm.FQ),
+                          4 * 3 * 21 * B, MAD_MONT * 364 * B)
+    for key in ("inv", "inv/T1", f"inv/T{B + 1}"):
+        row = table[key]
+        row.update(products=chain, product_us=row["device_ms"] / chain * 1e3,
+                   chain_products=364, critical_path_ms=yard["device_ms"],
+                   critical_path_invalid=yard["invalid"],
+                   chain_product_us=yard["device_ms"] / 364 * 1e3)
+        results[row["shape"]].update(row)
     # the chains of the tools
     T, iters = 128 * 1024, 20
     a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
@@ -416,6 +477,81 @@ def phase_kernels(np, torch, K, dev) -> dict:
     emit({"phase": "kernels", "kernels": results,
           "fold_shapes": fold_results})
     return table
+
+
+def _ntt_levels(np, torch, K, dev, rng, check, results, table) -> None:
+    """zk_ntt_level at every level of the forward and the inverse 2^14
+    schedules, at 128 lanes (the batch) and 4 (the stream's last slice),
+    each level fed the previous one's output: held against the plain
+    version (ntt_level_ref with mont_mul_ref) with torch.equal and read
+    through tools.device_reading beside the level as it ran before this
+    kernel (ntt_level_ref with the general mont_mul kernel and PyTorch's
+    gather, adds and cat), read the same way at 128 lanes.  The first
+    forward level is the table's row (with whole-call and plain times);
+    the row also carries the slowest level and the least speed-up."""
+    from zkfranchise_tpu_torch.ops import lm, ntt
+    from zkfranchise_tpu_torch.tools import MAD_MONT_KARATSUBA, \
+        device_reading
+
+    pl = ntt.plan(14)
+    n = pl.n
+    tabs = pl.on(str(dev))
+    for T in (BATCH, 4):
+        key = "ntt_level" if T == BATCH else f"ntt_level/T{T}"
+        levels = []
+        for sched in ("fwd", "inv"):
+            gs, tws, _ = tabs[sched]
+            x = lm.to_mont(torch.as_tensor(
+                _random_limbs(np, rng, (n, 21, T)), device=dev))
+            for lvl, (g, tw) in enumerate(zip(gs, tws)):
+                nbytes = 4 * (2 * x.numel() + tw.numel()) + 8 * g.numel()
+                mads = MAD_MONT_KARATSUBA * (n // 2) * T
+                name = f"ntt_level/fr/{n}x21x{T}/{sched}{lvl}"
+
+                def kernel():
+                    return K.ntt_level(x, g, tw)
+
+                def plain():
+                    return ntt.ntt_level_ref(x, g, tw, mul=lm.mont_mul_ref)
+
+                if (sched, lvl) == ("fwd", 0):
+                    check(name, kernel, plain, nbytes, mads, key,
+                          plain_runs=3)
+                    dev_ms = results[name]["device_ms"]
+                    invalid = results[name]["device_invalid"]
+                else:
+                    if not torch.equal(kernel(), plain()):
+                        raise AssertionError(f"{name}: kernel differs from "
+                                             f"plain version")
+                    r = device_reading(name, kernel, nbytes, mads)
+                    dev_ms, invalid = r["device_ms"], r["invalid"]
+                level = {"level": f"{sched}{lvl}", "device_ms": dev_ms,
+                         "invalid": invalid}
+                if T == BATCH:
+                    was = device_reading(
+                        name + " (before: ntt_level_ref, mont_mul kernel)",
+                        lambda: ntt.ntt_level_ref(x, g, tw), nbytes, mads)
+                    level.update(before_device_ms=was["device_ms"],
+                                 before_invalid=was["invalid"],
+                                 speedup=was["device_ms"] / dev_ms)
+                levels.append(level)
+                x = kernel()
+            del x
+        summary = {"levels": len(levels),
+                   "max_device_ms": max(v["device_ms"] for v in levels),
+                   "any_invalid": any(v["invalid"] or
+                                      v.get("before_invalid", False)
+                                      for v in levels)}
+        if T == BATCH:
+            summary["min_speedup"] = min(v["speedup"] for v in levels)
+            summary["before_device_ms"] = [min(v["before_device_ms"]
+                                               for v in levels),
+                                           max(v["before_device_ms"]
+                                               for v in levels)]
+        emit({"phase": "kernels", "ntt_levels": key, **summary,
+              "each": levels})
+        table[key].update(summary)
+        results[table[key]["shape"]].update(summary)
 
 
 def _ladders(np, torch, K, dev, rng, check, results, table) -> None:
@@ -514,7 +650,7 @@ def _layout_kernels(np, torch, K, dev, rng, check) -> None:
     sizes, at two geometries each (the first is the table's row)."""
     from zkfranchise_tpu_torch.ops import ec_lm, lm
     from zkfranchise_tpu_torch.tools import COLS_SCHOOLBOOK, MAD_MONT, \
-        add_mads
+        MAD_MONT_KARATSUBA, add_mads
     from zkfranchise_tpu_torch.tools.layout_expt2 import level_adds
 
     T = 1 << 20
@@ -536,7 +672,7 @@ def _layout_kernels(np, torch, K, dev, rng, check) -> None:
     check(f"mont_mul/fq/128x21x{T // 128} (beside mm3d)",
           lambda: K.mont_mul(a3, b3, lm.FQ),
           lambda: K.mont_mul_ref(a3, b3, lm.FQ), 4 * 3 * 21 * T,
-          MAD_MONT * T, None)
+          MAD_MONT_KARATSUBA * T, None)
     for i, tile in enumerate((512, 8192)):
         check(f"add_one/21x{T}/tile{tile}", lambda: K.add_one(a, tile),
               lambda: K.add_one_ref(a, tile), 4 * 2 * 21 * T, 0,
@@ -779,6 +915,7 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
     emit({"phase": "main_path", "inputs_s": inputs_s,
           "prover_init_s": prover_init_s, "first_prove_batch_s": first_s,
           "proofs": len(proofs), "launches": launches,
+          "mont_launches_by_shape": dict(sorted(K.MONT_SHAPES.items())),
           "padd_launches_by_shape": dict(sorted(K.PADD_SHAPES.items())),
           "fold_launches_by_shape": folds,
           "fold_launches": sum(folds.values())})
@@ -805,7 +942,8 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
           "stage_seconds": stages, "total_s": total,
           "proofs_per_s": BATCH / total,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-          "launches_per_prove_arrays": dict(K.LAUNCHES)})
+          "launches_per_prove_arrays": dict(K.LAUNCHES),
+          "mont_launches_by_shape": dict(sorted(K.MONT_SHAPES.items()))})
 
     # correctness by the repo's own means: the pairing verifier
     sample = [0, 42, 85, BATCH - 1]

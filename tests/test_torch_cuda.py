@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from zkfranchise_tpu_torch.ops import ec, ec_affine, ec_lm, lm, msm_lm
+from zkfranchise_tpu_torch.ops import ec, ec_affine, ec_lm, lm, msm_lm, ntt
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
 from zkfranchise_tpu_torch.tools.fold_shapes import fold_inputs
 from zkfranchise_tpu_torch.tools.padd_shapes import padd_inputs
@@ -43,6 +43,86 @@ def test_mont_mul(dev, field):
     assert torch.equal(got, K.mont_mul_ref(a, b, fs))
     assert torch.equal(K.mont_mul(a, a.flip(-1), fs),
                        K.mont_mul_ref(a, a.flip(-1), fs))
+
+
+# (a shape, b shape or a view of a, field): every operand pattern the port
+# launches mont_mul with (MONT_SHAPES) and more than three leading dims
+MONT_PATTERNS = {
+    "col": ((300, 21, 128), (300, 21, 1), "fr"),
+    "const": ((300, 21, 128), (21, 1), "fr"),
+    "table": ((6, 21, 130), (21, 130), "fq"),
+    "full": ((300, 21, 33), (300, 21, 33), "fr"),
+    "narrow": ((1000, 21, 4), (1000, 21, 1), "fr"),
+    "rows_T1": ((128, 21, 1), (128, 21, 1), "fq"),
+    "strided": ((128, 21, 1), "half", "fq"),
+    "three_dims": ((3, 4, 5, 21, 9), (3, 1, 5, 21, 1), "fq"),
+    "six_dims": ((3, 2, 5, 7, 21, 3), "sub", "fq"),
+}
+
+
+@pytest.mark.parametrize("pattern", sorted(MONT_PATTERNS))
+def test_mont_mul_patterns(dev, pattern):
+    sa, sb, field = MONT_PATTERNS[pattern]
+    fs = lm.FR if field == "fr" else lm.FQ
+    rng = np.random.default_rng(20)
+    a = _limbs(rng, sa, dev)
+    if sb == "half":                         # batch_inv's strided half
+        b = _limbs(rng, (128, 21, 64), dev)[..., 32:]
+    elif sb == "sub":
+        b = a[:, :1, :, :1]
+    else:
+        b = _limbs(rng, sb, dev)
+    K.reset_launches()
+    got = K.mont_mul(a, b, fs)
+    assert K.LAUNCHES["mont_mul"] == 1 and sum(K.MONT_SHAPES.values()) == 1
+    assert torch.equal(got, K.mont_mul_ref(a, b, fs))
+    assert torch.equal(K.mont_mul(b, a, fs), got)
+
+
+@pytest.mark.parametrize("log_n,T", [(6, 1), (6, 4), (6, 128), (14, 4),
+                                     (14, 128)])
+def test_ntt_level_every_level(dev, log_n, T):
+    """Every level of both schedules, each fed the previous output, against
+    the plain version (mont_mul_ref) and the level before this kernel (the
+    general mont_mul kernel); one launch a level."""
+    rng = np.random.default_rng(21)
+    tabs = ntt.plan(log_n).on(str(dev))
+    for sched in ("fwd", "inv"):
+        gs, tws, _ = tabs[sched]
+        x = lm.to_mont(_limbs(rng, (1 << log_n, 21, T), dev))
+        for g, tw in zip(gs, tws):
+            K.reset_launches()
+            got = K.ntt_level(x, g, tw)
+            assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                                  "ntt_level": 1}
+            assert torch.equal(got, ntt.ntt_level_ref(x, g, tw,
+                                                      mul=lm.mont_mul_ref))
+            assert torch.equal(got, ntt.ntt_level_ref(x, g, tw))
+            x = got
+
+
+def test_ntt_on_card_equals_cpu(dev):
+    rng = np.random.default_rng(22)
+    x = lm.to_mont(_limbs(rng, (1 << 10, 21, 3), dev))
+    K.reset_launches()
+    got = ntt.coset_evals_from_domain_evals(x)
+    assert K.LAUNCHES["ntt_level"] == 20
+    assert torch.equal(got.cpu(), ntt.coset_evals_from_domain_evals(x.cpu()))
+
+
+@pytest.mark.parametrize("T", [1, 31, 128, 129, 1000])
+def test_inv_warp(dev, T):
+    """A warp a lane, a zero lane, and a strided view."""
+    rng = np.random.default_rng(23)
+    a = _limbs(rng, (21, T), dev)
+    a[:, T // 2] = 0
+    K.reset_launches()
+    got = K.inv(a, lm.FQ)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "inv": 1}
+    assert torch.equal(got, K.inv_ref(a, lm.FQ))
+    assert not got[:, T // 2].any()
+    at = a.T.contiguous().T
+    assert torch.equal(K.inv(at, lm.FQ), got)
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])

@@ -162,3 +162,21 @@ def test_tree_compare_sums_up_a_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tree_compare.main("parent")
+
+
+def test_tree_compare_keeps_what_a_tree_prints_beside_the_stages():
+    """Peak memory and mont_mul's launches by shape where the run's
+    timed_prove line has them, and the kernel readings."""
+    line = {"phase": "timed_prove", "stage_seconds": {"quotient": 0.05},
+            "total_s": 2.0, "proofs_per_s": 64.0,
+            "launches_per_prove_arrays": {"ntt_level": 84},
+            "peak_memory_bytes": 5, "mont_launches_by_shape":
+            {"full*col/R16384/T128": 6}}
+    reading = {"reading": "inv/fq/21x128", "device_ms": 0.13,
+               "invalid": False, "burst_ms": 0.14}
+    got = tree_compare.summary([line, reading])
+    assert got["readings"] == {"inv/fq/21x128": {"device_ms": 0.13,
+                                                 "invalid": False}}
+    assert got["peak_memory_bytes"] == 5
+    assert got["mont_launches_by_shape"] == {"full*col/R16384/T128": 6}
+    assert got["launches_per_prove_arrays"] == {"ntt_level": 84}

@@ -62,23 +62,69 @@ __device__ __forceinline__ void low_mul(const int* a, const int* b, int* c) {
   }
 }
 
-// out = cols * R^-1 mod p, limbs <= 2^13 + 2 (lm.mont_reduce); cols is
-// clobbered.  pc points at p, then n' = -p^-1 mod R (21 limbs each).
-__device__ __forceinline__ void mont_reduce(int* t, const int* pc, int* out) {
-  weak_norm<WIDE>(t);
-  weak_norm<WIDE>(t);
-  int m[NL];
-  low_mul(t, pc + C_NP, m);
-  weak_norm<NL>(m);
-  weak_norm<NL>(m);
-  int mp[WIDE];
-  wide_mul(m, pc + C_P, mp);
+// Karatsuba column sums: one level over an 11 + 10 limb split forms a
+// product's 43 column sums from 121 + 100 + 121 = 342 multiply-adds
+// instead of the schoolbook's 441 (the low half a0*b0, the high half
+// a1*b1, and the middle (a0+a1)(b0+b1) - a0*b0 - a1*b1), for a few more
+// registers and adds.  The middle columns may pass 2^31, so they are
+// formed modulo 2^32 (unsigned); every true column sum of a*b fits in an
+// int, so each column equals the schoolbook's, and so does every limb
+// after it.
+
+// limb j of an operand held in an array (registers, shared memory)
+struct FromPtr {
+  const int* b;
+  __device__ __forceinline__ unsigned operator()(int j) const {
+    return (unsigned)b[j];
+  }
+};
+
+// c[0..42] += column sums of a * b (b(j): limb j of the other operand)
+template <class Bv>
+__device__ __forceinline__ void cols_add(const int* a, Bv b, int* c) {
+  unsigned lo[21], mid[21], hi[19], sa[11], sb[11];
 #pragma unroll
-  for (int k = 0; k < WIDE; ++k) t[k] += mp[k];
+  for (int i = 0; i < 11; ++i) {
+    sa[i] = (unsigned)a[i] + (i < 10 ? (unsigned)a[11 + i] : 0u);
+    sb[i] = b(i) + (i < 10 ? b(11 + i) : 0u);
+  }
+#pragma unroll
+  for (int k = 0; k < 21; ++k) lo[k] = mid[k] = 0u;
+#pragma unroll
+  for (int k = 0; k < 19; ++k) hi[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < 11; ++i) {
+#pragma unroll
+    for (int j = 0; j < 11; ++j) {
+      lo[i + j] += (unsigned)a[i] * b(j);
+      mid[i + j] += sa[i] * sb[j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+#pragma unroll
+    for (int j = 0; j < 10; ++j)
+      hi[i + j] += (unsigned)a[11 + i] * b(11 + j);
+  }
+#pragma unroll
+  for (int k = 0; k < 21; ++k) {
+    mid[k] -= lo[k] + (k < 19 ? hi[k] : 0u);
+    c[k] = (int)((unsigned)c[k] + lo[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 21; ++k)
+    c[11 + k] = (int)((unsigned)c[11 + k] + mid[k]);
+#pragma unroll
+  for (int k = 0; k < 19; ++k)
+    c[22 + k] = (int)((unsigned)c[22 + k] + hi[k]);
+}
+
+// The end of mont_reduce, t = weak_norm(t + m*p, 3) given t + m*p: the
+// low half is exactly 0 or R, so carry one iff any low limb is nonzero
+__device__ __forceinline__ void reduce_tail(int* t, int* out) {
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
   weak_norm<WIDE>(t);
-  // the low half is exactly 0 or R: carry one iff any low limb is nonzero
   int nz = 0;
 #pragma unroll
   for (int k = 0; k < NL; ++k) nz |= t[k];
@@ -87,11 +133,46 @@ __device__ __forceinline__ void mont_reduce(int* t, const int* pc, int* out) {
   out[0] += (nz != 0);
 }
 
+// out = cols * R^-1 mod p, limbs <= 2^13 + 2 (lm.mont_reduce); cols is
+// clobbered.  pc points at p, then n' = -p^-1 mod R (21 limbs each).
+// KARATSUBA forms m*p with cols_add (the same integers, so the same
+// limbs) instead of the schoolbook.
+template <bool KARATSUBA = false>
+__device__ __forceinline__ void mont_reduce(int* t, const int* pc, int* out) {
+  weak_norm<WIDE>(t);
+  weak_norm<WIDE>(t);
+  int m[NL];
+  low_mul(t, pc + C_NP, m);
+  weak_norm<NL>(m);
+  weak_norm<NL>(m);
+  if constexpr (KARATSUBA) {
+    cols_add(m, FromPtr{pc + C_P}, t);
+  } else {
+    int mp[WIDE];
+    wide_mul(m, pc + C_P, mp);
+#pragma unroll
+    for (int k = 0; k < WIDE; ++k) t[k] += mp[k];
+  }
+  reduce_tail(t, out);
+}
+
+// the schoolbook Montgomery product: 441 + 231 + 441 = 1,113 multiply-adds
 __device__ __forceinline__ void mont_mul(const int* a, const int* b,
                                          const int* pc, int* out) {
   int c[WIDE];
   wide_mul(a, b, c);
   mont_reduce(c, pc, out);
+}
+
+// the Karatsuba Montgomery product, all in registers: 342 + 231 + 342 =
+// 915 multiply-adds, every limb equal to the schoolbook's
+__device__ __forceinline__ void mont_mul_karatsuba(const int* a, const int* b,
+                                                   const int* pc, int* out) {
+  int c[WIDE];
+#pragma unroll
+  for (int k = 0; k < WIDE; ++k) c[k] = 0;
+  cols_add(a, FromPtr{b}, c);
+  mont_reduce<true>(c, pc, out);
 }
 
 // acc += weak_norm(weak_norm(wide(a, b))): one lazy term of a sum that is
@@ -336,10 +417,26 @@ __device__ __forceinline__ void padd_point(const int* P, i64 prs,
   }
 }
 
+// s[0, n) = g[0, n) by every thread of the block (1-D or 2-D), then a
+// barrier
 __device__ __forceinline__ void stage_consts(const int* g, int* s, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = g[i];
+  const int nt = blockDim.x * blockDim.y;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n; i += nt)
+    s[i] = g[i];
   __syncthreads();
 }
 
 
 static unsigned blocks_for(i64 n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+
+// Grids of the kernels whose block is tx lanes by THREADS / tx rows: the
+// blocks that cover T lanes, and the blocks that cover n rows `per` at a
+// time, capped at the y / z grid limit (the kernels loop past it)
+static unsigned lane_blocks(i64 T, int tx) {
+  return (unsigned)((T + tx - 1) / tx);
+}
+
+static unsigned grid_cap(i64 n, int per) {
+  const i64 b = (n + per - 1) / per;
+  return (unsigned)(b < 65535 ? b : 65535);
+}

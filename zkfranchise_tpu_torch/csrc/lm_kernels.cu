@@ -10,6 +10,7 @@
 // Kernels and the TPU kernels they replace
 // (zkfranchise_tpu/ops/pallas/lm_kernels.py):
 //   zk_mont_mul          <- mont_mul      (_mont_mul_kernel): a*b*R^-1 mod p
+//                           (the NTT's butterfly level: lm_ntt.cu)
 //   zk_padd              <- padd          (_padd_kernel): p + q, RCB15
 //   zk_fold_padd_levels  <- fold_padd     (_padd_kernel): x[j] + x[j + m/2],
 //                                          n levels of the tree a launch
@@ -20,12 +21,20 @@
 //                           scalar per lane or one for all; on the main
 //                           path the assembly's two G1 ladders
 //
-// Design of mont_mul: one thread per lane (element) carries the 21-limb
-// schoolbook in registers and repeats the plain PyTorch version's steps in
-// the same order (ops/lm.py mont_reduce with its carry trick), so every
-// output limb equals the plain version's.  Neighbouring threads own
-// neighbouring lanes, so every limb-row load and store is coalesced; the
-// constants block is staged in shared memory per block.
+// Design of mont_mul: one thread per element carries the product in
+// registers and repeats the plain PyTorch version's steps in the same
+// order (ops/lm.py mont_reduce with its carry trick), with the Karatsuba
+// column sums of lm_device.cuh (915 multiply-adds instead of the
+// schoolbook's 1,113; the same columns, so every output limb equals the
+// plain version's).  Lanes sit on neighbouring threads, so every limb-row
+// load and store is coalesced and a broadcast column is one load a warp;
+// the leading dims go on the grid, so no thread divides 64-bit indices
+// (they cost 26-41% of the time before); p and n' are launch parameters.
+// What bounds it on an H100: integer issue.  At
+// (8192, 21, 128) x (8192, 21, 1) it moves 176 MB (0.053 ms at 3.35
+// TB/s) and issues about 1,800 instructions a product, 940 of them on the
+// multiply-add pipe (0.057-0.06 ms at the card's highest clock); at 128
+// registers four blocks fit an SM (at 168, three fit, and it read slower).
 //
 // Design of padd, fold_padd and fold_padd_aa: the cooperative add.  A
 // block takes 32 adds, one per lane, and each add a team of warps (padd
@@ -83,34 +92,48 @@
 // ---------------------------------------------------------------------------
 
 // out (N, 21, T) contiguous, N = d0*d1*d2; a and b are read through
-// arbitrary element strides (a lane stride of 0 reads a broadcast column)
-__global__ void __launch_bounds__(THREADS)
+// arbitrary element strides (a lane stride of 0 reads a broadcast column,
+// a leading stride of 0 a shared table).  A block is blockDim.x lanes by
+// blockDim.y rows of the last leading dim (lane_block); grid x covers the
+// lanes, y the rows of d2 and z the d0*d1 pairs, each with a loop where
+// it exceeds the grid.  Nothing is divided per thread but the one 32-bit
+// split of a block's d0*d1 index.  At most 128 registers a thread, so
+// that four blocks fit an SM.  p and n' arrive by value, in the constant
+// bank of the launch's parameters, so the products take them as operands
+// straight from there (no staging in shared memory, no barrier).
+struct FieldPN {
+  int c[2 * NL];  // p, then n' (the first two rows of ops/lm.pack_consts)
+};
+
+__global__ void __launch_bounds__(THREADS, 4)
 mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                int* __restrict__ out, const int* __restrict__ consts,
-                i64 d1, i64 d2, i64 T, i64 total, i64 sa0, i64 sa1, i64 sa2,
+                int* __restrict__ out, const FieldPN pn, unsigned d01,
+                unsigned d1, i64 d2, i64 T, i64 sa0, i64 sa1, i64 sa2,
                 i64 sal, i64 sat, i64 sb0, i64 sb1, i64 sb2, i64 sbl,
                 i64 sbt) {
-  __shared__ int C[2 * NL];
-  stage_consts(consts, C, 2 * NL);
-  const i64 idx = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const i64 t = idx % T;
-  const i64 n = idx / T;
-  const i64 i2 = n % d2;
-  const i64 i1 = (n / d2) % d1;
-  const i64 i0 = n / (d1 * d2);
-  const int* pa = a + i0 * sa0 + i1 * sa1 + i2 * sa2 + t * sat;
-  const int* pb = b + i0 * sb0 + i1 * sb1 + i2 * sb2 + t * sbt;
-  int x[NL], y[NL], z[NL];
+  const i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  for (unsigned n01 = blockIdx.z; n01 < d01; n01 += gridDim.z) {
+    const unsigned i0 = n01 / d1, i1 = n01 - i0 * d1;
+    const int* pa0 = a + i0 * sa0 + i1 * sa1 + t * sat;
+    const int* pb0 = b + i0 * sb0 + i1 * sb1 + t * sbt;
+    int* po0 = out + (i64)n01 * d2 * NL * T + t;
+    for (i64 i2 = (i64)blockIdx.y * blockDim.y + threadIdx.y; i2 < d2;
+         i2 += (i64)gridDim.y * blockDim.y) {
+      const int* pa = pa0 + i2 * sa2;
+      const int* pb = pb0 + i2 * sb2;
+      int x[NL], y[NL], z[NL];
 #pragma unroll
-  for (int k = 0; k < NL; ++k) {
-    x[k] = pa[k * sal];
-    y[k] = pb[k * sbl];
+      for (int k = 0; k < NL; ++k) {
+        x[k] = pa[k * sal];
+        y[k] = pb[k * sbl];
+      }
+      mont_mul_karatsuba(x, y, pn.c, z);
+      int* po = po0 + i2 * NL * T;
+#pragma unroll
+      for (int k = 0; k < NL; ++k) po[k * T] = z[k];
+    }
   }
-  mont_mul(x, y, C, z);
-  int* po = out + n * NL * T + t;
-#pragma unroll
-  for (int k = 0; k < NL; ++k) po[k * T] = z[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -168,68 +191,15 @@ __constant__ int EC_B3G2[2 * NL] = {
 // the padd kernels' dynamic shared memory
 extern __shared__ int psm[];
 
-// Products of the cooperative adds: one level of Karatsuba over an 11 + 10
-// limb split forms a product's 43 column sums from 121 + 100 + 121 = 342
-// multiply-adds instead of the schoolbook's 441 (the low half a0*b0, the
-// high half a1*b1, and the middle (a0+a1)(b0+b1) - a0*b0 - a1*b1), for a
-// few more registers and adds.  The middle columns may pass 2^31, so they
-// are formed modulo 2^32 (unsigned); every true column sum of a*b fits in
-// an int, so each column equals the schoolbook's, and so does every limb
-// after it.  On the card it made both groups' folds 4-7% faster than the
-// schoolbook (PERF.md).
-
-struct FromPtr {
-  const int* b;
-  __device__ __forceinline__ unsigned operator()(int j) const {
-    return (unsigned)b[j];
-  }
-};
+// Products of the cooperative adds: the Karatsuba column sums of
+// lm_device.cuh (cols_add).  On the card they made both groups' folds
+// 4-7% faster than the schoolbook (PERF.md).
 
 struct FromP {
   __device__ __forceinline__ unsigned operator()(int j) const {
     return (unsigned)FQ_P[j];
   }
 };
-
-// c[0..42] += column sums of a * b (b(j): limb j of the other operand)
-template <class Bv>
-__device__ __forceinline__ void cols_add(const int* a, Bv b, int* c) {
-  unsigned lo[21], mid[21], hi[19], sa[11], sb[11];
-#pragma unroll
-  for (int i = 0; i < 11; ++i) {
-    sa[i] = (unsigned)a[i] + (i < 10 ? (unsigned)a[11 + i] : 0u);
-    sb[i] = b(i) + (i < 10 ? b(11 + i) : 0u);
-  }
-#pragma unroll
-  for (int k = 0; k < 21; ++k) lo[k] = mid[k] = 0u;
-#pragma unroll
-  for (int k = 0; k < 19; ++k) hi[k] = 0u;
-#pragma unroll
-  for (int i = 0; i < 11; ++i) {
-#pragma unroll
-    for (int j = 0; j < 11; ++j) {
-      lo[i + j] += (unsigned)a[i] * b(j);
-      mid[i + j] += sa[i] * sb[j];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-#pragma unroll
-    for (int j = 0; j < 10; ++j)
-      hi[i + j] += (unsigned)a[11 + i] * b(11 + j);
-  }
-#pragma unroll
-  for (int k = 0; k < 21; ++k) {
-    mid[k] -= lo[k] + (k < 19 ? hi[k] : 0u);
-    c[k] = (int)((unsigned)c[k] + lo[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < 21; ++k)
-    c[11 + k] = (int)((unsigned)c[11 + k] + mid[k]);
-#pragma unroll
-  for (int k = 0; k < 19; ++k)
-    c[22 + k] = (int)((unsigned)c[22 + k] + hi[k]);
-}
 
 // mont_reduce (lm_device.cuh) with p and n' from constant memory, and m*p
 // added into t column by column: the same integers, so the same limbs
@@ -247,15 +217,7 @@ __device__ __forceinline__ void mont_reduce_fq(int* t, int* out) {
   weak_norm<NL>(m);
   weak_norm<NL>(m);
   cols_add(m, FromP(), t);
-  weak_norm<WIDE>(t);
-  weak_norm<WIDE>(t);
-  weak_norm<WIDE>(t);
-  int nz = 0;
-#pragma unroll
-  for (int k = 0; k < NL; ++k) nz |= t[k];
-#pragma unroll
-  for (int k = 0; k < NL; ++k) out[k] = t[NL + k];
-  out[0] += (nz != 0);
+  reduce_tail(t, out);
 }
 
 template <int N>
@@ -1042,14 +1004,26 @@ static int occupancy(const void* kernel, int smem) {
 
 extern "C" {
 
-int zk_mont_mul(const int* a, const int* b, int* out, const int* consts,
-                i64 d0, i64 d1, i64 d2, i64 T, i64 sa0, i64 sa1, i64 sa2,
-                i64 sal, i64 sat, i64 sb0, i64 sb1, i64 sb2, i64 sbl, i64 sbt,
-                void* stream) {
-  const i64 total = d0 * d1 * d2 * T;
-  mont_mul_kernel<<<blocks_for(total), THREADS, 0, (cudaStream_t)stream>>>(
-      a, b, out, consts, d1, d2, T, total, sa0, sa1, sa2, sal, sat, sb0, sb1,
-      sb2, sbl, sbt);
+// pn: p and n' of the field (42 ints) in HOST memory; tx: lanes a block
+// (a power of two <= THREADS, lane_block); d0 * d1 < 2^32 (the wrapper
+// checks).  The grid holds at most about max_blocks
+// blocks (two rounds of four resident blocks an SM): the rows beyond loop
+// inside the blocks, which read faster than one block a row of 128 lanes
+// at (8192, 21, 128) on an H100, and than one round of blocks.
+int zk_mont_mul(const int* a, const int* b, int* out, const int* pn,
+                i64 d0, i64 d1, i64 d2, i64 T, int tx, i64 max_blocks,
+                i64 sa0, i64 sa1, i64 sa2, i64 sal, i64 sat, i64 sb0,
+                i64 sb1, i64 sb2, i64 sbl, i64 sbt, void* stream) {
+  const dim3 block(tx, THREADS / tx);
+  const unsigned gx = lane_blocks(T, tx), gz = grid_cap(d0 * d1, 1);
+  const i64 room = max_blocks / ((i64)gx * gz);
+  const unsigned gy = grid_cap(d2, THREADS / tx);
+  const dim3 grid(gx, room < gy ? (room > 1 ? (unsigned)room : 1u) : gy, gz);
+  FieldPN f;
+  for (int k = 0; k < 2 * NL; ++k) f.c[k] = pn[k];
+  mont_mul_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      a, b, out, f, (unsigned)(d0 * d1), (unsigned)d1, d2, T, sa0, sa1, sa2,
+      sal, sat, sb0, sb1, sb2, sbl, sbt);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,19 @@
 """CUDA kernels over the limb-major core: build, bind, launch, count.
 
-Fourteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
-(mont_mul, the cooperative adds and scalar_mul), ``csrc/lm_chains.cu``
-(fold_mul, inv, mont_chain), ``csrc/lm_poseidon.cu`` (the Poseidon
-permutation) and ``csrc/lm_layout.cu`` (the five of the layout
-experiments), and one composite of them:
+Fifteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
+(mont_mul, the cooperative adds and scalar_mul), ``csrc/lm_ntt.cu`` (one
+NTT butterfly level), ``csrc/lm_chains.cu`` (fold_mul, inv, mont_chain),
+``csrc/lm_poseidon.cu`` (the Poseidon permutation) and
+``csrc/lm_layout.cu`` (the five of the layout experiments), and one
+composite of them:
 
   ============  ============================================  =============
   wrapper       what it computes                              plain version
   ============  ============================================  =============
   mont_mul      a*b*R^-1 mod p, elementwise, Fr or Fq         mont_mul_ref
+  ntt_level     one butterfly level of the NTT over Fr: the   ntt.ntt_level_
+                row gather, a product by the twiddles, the      ref
+                lazy add and the spread subtract
   padd          p + q, RCB15 complete add, G1 or G2           padd_ref
   fold_padd     x[..., :m/2] + x[..., m/2:], projective       fold_padd_ref
   fold_padd_    n levels of that halving tree in ONE launch   fold_padd_
@@ -45,40 +49,49 @@ at the same time), into ``zkfranchise_tpu_torch/build/`` under a name
 keyed by a hash of the source and the shared header (an edit rebuilds),
 and loaded with ctypes.  Each wrapper adds one to its ``LAUNCHES`` entry
 per kernel launch and nowhere else; the EC kernels count G1 and G2 apart
-(``"padd/g1"``, ``"padd/g2"``); ``PADD_SHAPES`` counts padd's launches
-by plane shape and ``FOLD_SHAPES`` the folds' by batch, width and levels.
-``fold_plan`` decides how many levels a fold launch takes.
+(``"padd/g1"``, ``"padd/g2"``); ``MONT_SHAPES`` counts mont_mul's
+launches by operand pattern and shape, ``PADD_SHAPES`` padd's by plane
+shape and ``FOLD_SHAPES`` the folds' by batch, width and levels.
+``fold_plan`` decides how many levels a fold launch takes; ``lane_block``
+how the kernels that take a lane axis of any width shape their blocks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
-from .. import ec_lm, lm, poseidon
+from .. import ec_lm, lm, ntt, poseidon
 from ..poseidon_constants import N_ROUNDS_F, N_ROUNDS_P
 
 PKG = pathlib.Path(__file__).resolve().parents[2]
 SOURCES = [PKG / "csrc" / "lm_kernels.cu", PKG / "csrc" / "lm_chains.cu",
-           PKG / "csrc" / "lm_layout.cu", PKG / "csrc" / "lm_poseidon.cu"]
+           PKG / "csrc" / "lm_layout.cu", PKG / "csrc" / "lm_poseidon.cu",
+           PKG / "csrc" / "lm_ntt.cu"]
 HEADERS = [PKG / "csrc" / "lm_device.cuh"]
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
+LAUNCHES = {"mont_mul": 0, "ntt_level": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
             "fold_padd/g2": 0, "fold_padd_aa/g1": 0, "fold_padd_aa/g2": 0,
             "fold_mul": 0, "inv": 0, "mont_chain": 0, "scalar_mul/g1": 0,
             "scalar_mul/g2": 0, "mm2d": 0, "mm3d": 0, "fold2d/g1": 0,
             "fold2d/g2": 0, "add_one": 0, "fused_upsweep": 0,
             "poseidon/t3": 0, "poseidon/t4": 0, "poseidon/t5": 0}
+# mont_mul launches by operand pattern and shape: "full*col/R8192/T128"
+# counts launches of an (8192, 21, 128) plane by a column per row
+# (mont_pattern names the patterns; R is the product of the leading dims)
+MONT_SHAPES: dict = {}
 # padd launches by plane shape: "g1/B128/T1" counts G1 launches on
 # (128, 63, 1) planes (B adds per lane, T lanes)
 PADD_SHAPES: dict = {}
@@ -91,6 +104,7 @@ FOLD_SHAPES: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    MONT_SHAPES.clear()
     PADD_SHAPES.clear()
     FOLD_SHAPES.clear()
 
@@ -148,12 +162,12 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _libs() -> tuple:
-    """(lm_kernels, lm_chains, lm_layout, lm_poseidon) libraries, built if
-    need be."""
+    """(lm_kernels, lm_chains, lm_layout, lm_poseidon, lm_ntt) libraries,
+    built if need be."""
     paths = build()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = ctypes.CDLL(str(paths["lm_kernels"]))
-    lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 14 + [P]
+    lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 4 + [I] + [L] * 11 + [P]
     lib.zk_padd.argtypes = [I, P, P, P] + [L] * 8 + [P]
     lib.zk_fold_padd_levels.argtypes = [I, P, P, L, L, I, P]
     lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
@@ -171,13 +185,15 @@ def _libs() -> tuple:
     layout.zk_fused_upsweep.argtypes = [P, P, L, L, P]
     pos = ctypes.CDLL(str(paths["lm_poseidon"]))
     pos.zk_poseidon.argtypes = [I, P, P, P, P, P, P, I, L, I, I, P]
-    for fn in (lib.zk_mont_mul, lib.zk_padd, lib.zk_fold_padd_levels,
+    nttl = ctypes.CDLL(str(paths["lm_ntt"]))
+    nttl.zk_ntt_level.argtypes = [P, P, P, P, P, L, L, I, P]
+    for fn in (lib.zk_mont_mul, nttl.zk_ntt_level, lib.zk_padd, lib.zk_fold_padd_levels,
                lib.zk_fold_padd_aa, lib.zk_occupancy, lib.zk_scalar_mul,
                chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
                layout.zk_mm2d, layout.zk_mm3d, layout.zk_fold2d,
                layout.zk_add_one, layout.zk_fused_upsweep, pos.zk_poseidon):
         fn.restype = ctypes.c_int
-    return lib, chains, layout, pos
+    return lib, chains, layout, pos, nttl
 
 
 def _lib() -> ctypes.CDLL:
@@ -196,6 +212,10 @@ def _poseidon_lib() -> ctypes.CDLL:
     return _libs()[3]
 
 
+def _ntt_lib() -> ctypes.CDLL:
+    return _libs()[4]
+
+
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -207,6 +227,9 @@ def _stream(device) -> int:
 
 _FIELD_CONSTS = {lm.FR.p: lm.pack_consts(lm.FR),
                  lm.FQ.p: lm.pack_consts(lm.FQ)}
+# p and n' of each field in host memory: mont_mul passes them by value
+_FIELD_PN = {k: np.ascontiguousarray(v[:2 * lm.N_LIMBS, 0])
+             for k, v in _FIELD_CONSTS.items()}
 _EC_CONSTS = ec_lm.pack_ec_consts()
 
 
@@ -231,6 +254,27 @@ def _on_card(name: str, *ts: torch.Tensor) -> bool:
 
 mont_mul_ref = lm.mont_mul_ref
 
+THREADS = 128                     # threads a block (csrc/lm_device.cuh)
+# mont_mul's grid: at most this many blocks an SM, two rounds of its four
+# resident ones (csrc/lm_kernels.cu zk_mont_mul)
+MONT_BLOCKS_PER_SM = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def lane_block(T: int) -> tuple:
+    """(lanes, rows) of a block of THREADS threads over a lane axis of T
+    (mont_mul, ntt_level): the least power of two >= T up to THREADS
+    lanes, and as many rows as make up the block, so a narrow lane axis
+    still fills the warps."""
+    tx = 1
+    while tx < min(T, THREADS):
+        tx *= 2
+    return tx, THREADS // tx
+
 
 def _collapse(shape, sa, sb):
     """Merge leading dims that are contiguous in both operands and drop
@@ -246,12 +290,48 @@ def _collapse(shape, sa, sb):
     return out
 
 
+def mont_pattern(shape, strides) -> str:
+    """How an operand of a (..., 21, T) product is read, from its
+    expanded strides: "const" (one column for every row and lane),
+    "col" (a column per row: lane stride 0), "table" (one plane for
+    several rows: a leading stride 0), "strided" (a view that is not
+    laid out contiguously) or "full"."""
+    lead = [s for n, s in zip(shape[:-2], strides[:-2]) if n != 1]
+    col = shape[-1] > 1 and strides[-1] == 0
+    if col:
+        return "const" if not any(lead) else "col"
+    if 0 in lead:
+        return "table"
+    want = 1
+    for n, s in reversed(list(zip(shape, strides))):
+        if n != 1 and s != want:
+            return "strided"
+        want *= n
+    return "full"
+
+
+def mont_launch(shape, sa, sb) -> tuple:
+    """The launch of mont_mul on operands of the broadcast `shape`, read
+    through the expanded strides sa and sb -> (leading dims (d0, d1, d2)
+    as (size, stride a, stride b), or None when more than three leading
+    dims stay apart (the wrapper then copies both operands contiguous),
+    lanes a block, its MONT_SHAPES key)."""
+    dims = _collapse(shape[:-2], sa[:-2], sb[:-2])
+    key = f"{mont_pattern(shape, sa)}*{mont_pattern(shape, sb)}/R" \
+        f"{math.prod(shape[:-2])}/T{shape[-1]}"
+    if len(dims) > 3:
+        return None, lane_block(shape[-1])[0], key
+    return [(1, 0, 0)] * (3 - len(dims)) + dims, lane_block(shape[-1])[0], \
+        key
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor,
              fs: lm.FieldSpec = lm.FR) -> torch.Tensor:
     """(..., 21, T) x (..., 21, T) (broadcastable) -> (..., 21, T)
     Montgomery product over Fr or Fq.  On the card, broadcast operands
     (a (..., 21, 1) column, a shared table) are read in place through
-    stride 0, never expanded in memory."""
+    stride 0, never expanded in memory; only more than three leading dims
+    that do not merge are copied."""
     if not _on_card("mont_mul", a, b):
         return mont_mul_ref(a, b, fs)
     if a.shape[-2] != lm.N_LIMBS or b.shape[-2] != lm.N_LIMBS:
@@ -264,22 +344,62 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
     if out.numel() == 0:
         return out
     ae, be = a.expand(shape), b.expand(shape)
-    dims = _collapse(shape[:-2], ae.stride()[:-2], be.stride()[:-2])
-    if len(dims) > 3:
+    dims, tx, key = mont_launch(shape, ae.stride(), be.stride())
+    if dims is None:
         ae, be = ae.contiguous(), be.contiguous()
-        dims = _collapse(shape[:-2], ae.stride()[:-2], be.stride()[:-2])
-    dims = [(1, 0, 0)] * (3 - len(dims)) + dims
-    T = shape[-1]
-    consts = lm.const(_FIELD_CONSTS[fs.p], a.device)
+        dims, tx, _ = mont_launch(shape, ae.stride(), be.stride())
+    if dims[0][0] * dims[1][0] >= 1 << 32:
+        raise ValueError(f"mont_mul: too many leading rows: {shape}")
     rc = _lib().zk_mont_mul(
-        ae.data_ptr(), be.data_ptr(), out.data_ptr(), consts.data_ptr(),
-        dims[0][0], dims[1][0], dims[2][0], T,
-        dims[0][1], dims[1][1], dims[2][1], ae.stride(-2), ae.stride(-1),
+        ae.data_ptr(), be.data_ptr(), out.data_ptr(),
+        _FIELD_PN[fs.p].ctypes.data,
+        dims[0][0], dims[1][0], dims[2][0], shape[-1], tx,
+        MONT_BLOCKS_PER_SM * _sms(a.device), dims[0][1], dims[1][1], dims[2][1], ae.stride(-2), ae.stride(-1),
         dims[0][2], dims[1][2], dims[2][2], be.stride(-2), be.stride(-1),
         _stream(a.device))
     _check(rc, "mont_mul")
     LAUNCHES["mont_mul"] += 1
+    MONT_SHAPES[key] = MONT_SHAPES.get(key, 0) + 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# ntt_level: one butterfly level of the NTT
+# ---------------------------------------------------------------------------
+
+def ntt_level(x: torch.Tensor, g: torch.Tensor,
+              tw: torch.Tensor) -> torch.Tensor:
+    """One butterfly level of ops/ntt.py over Fr: x (n, 21, T) Montgomery,
+    the level's gather g (n,) int64 and twiddles tw (n/2, 21, 1) -> y
+    (n, 21, T), y[j] = weak_norm(lo + hi), y[n/2 + j] = sub_n(lo, hi) with
+    lo = x[g[j]] and hi = x[g[n/2 + j]] * tw[j].  On the card one launch;
+    x[g] is never written out."""
+    on_card = _on_card("ntt_level", x, tw)
+    if x.dim() != 3 or x.shape[1] != lm.N_LIMBS or x.shape[0] % 2:
+        raise ValueError(f"ntt_level: expected x (even n, 21, T), got "
+                         f"{tuple(x.shape)}")
+    n = x.shape[0]
+    if g.dtype != torch.int64 or tuple(g.shape) != (n,) or \
+            g.device != x.device:
+        raise ValueError(f"ntt_level: expected g ({n},) int64 on "
+                         f"{x.device}, got {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device}")
+    if tuple(tw.shape) != (n // 2, lm.N_LIMBS, 1):
+        raise ValueError(f"ntt_level: expected tw ({n // 2}, 21, 1), got "
+                         f"{tuple(tw.shape)}")
+    if not on_card:
+        return ntt.ntt_level_ref(x, g, tw)
+    x, g, tw = x.contiguous(), g.contiguous(), tw.contiguous()
+    y = torch.empty_like(x)
+    if y.numel():
+        consts = lm.const(_FIELD_CONSTS[lm.FR.p], x.device)
+        rc = _ntt_lib().zk_ntt_level(
+            x.data_ptr(), g.data_ptr(), tw.data_ptr(), y.data_ptr(),
+            consts.data_ptr(), n // 2, x.shape[2], lane_block(x.shape[2])[0],
+            _stream(x.device))
+        _check(rc, "ntt_level")
+        LAUNCHES["ntt_level"] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ Radix-2 Cooley-Tukey, decimation in time.  All data movement is static:
 one row gather per stage whose indices are precomputed on the host with
 the previous stage's inverse permutation composed in (so the initial
 bit reversal is free).  The butterfly is one mont_mul over n/2 rows (the
-(n/2, 21, 1) twiddles read with lane stride 0), a lazy add and a
-spread-constant subtract.  Host oracle: groth16/poly.py.
+(n/2, 21, 1) twiddles), a lazy add and a spread-constant subtract: one
+level is ``ntt_level``, which runs the plain version ``ntt_level_ref`` on
+a CPU tensor and one kernel launch on a CUDA tensor
+(ops/cuda/lm_kernels.ntt_level).  Host oracle: groth16/poly.py.
 """
 from __future__ import annotations
 
@@ -105,14 +107,33 @@ def plan(log_n: int) -> NTTPlan:
     return NTTPlan(log_n)
 
 
+def ntt_level_ref(x: torch.Tensor, g: torch.Tensor, tw: torch.Tensor,
+                  mul=lm.mont_mul) -> torch.Tensor:
+    """Plain version of one butterfly level: x (n, 21, T), the level's
+    gather g (n,) and twiddles tw (n/2, 21, 1) -> weak_norm(lo + hi) over
+    sub_n(lo, hi), lo = x[g[:n/2]], hi = x[g[n/2:]] * tw.  The product is
+    `mul`: lm.mont_mul (the plain version on the CPU, the general kernel
+    on the card, as each level ran before it had its own kernel), or
+    lm.mont_mul_ref for plain PyTorch on either device."""
+    h = x.shape[0] // 2
+    paired = x[g]
+    lo = paired[:h]
+    hi = mul(paired[h:], tw, FR)
+    return torch.cat([lm.weak_norm(lo + hi), lm.sub_n(lo, hi, FR)], 0)
+
+
+def ntt_level(x: torch.Tensor, g: torch.Tensor,
+              tw: torch.Tensor) -> torch.Tensor:
+    """One butterfly level: the plain version on the CPU, one kernel
+    launch on the card (ops/cuda/lm_kernels.ntt_level)."""
+    from .cuda import lm_kernels
+    return lm_kernels.ntt_level(x, g, tw)
+
+
 def _transform(x: torch.Tensor, gathers, tws, final) -> torch.Tensor:
     """x: (n, 21, T) Montgomery form, natural order in and out."""
-    h = x.shape[0] // 2
     for g, tw in zip(gathers, tws):
-        paired = x[g]
-        lo = paired[:h]
-        hi = lm.mont_mul(paired[h:], tw, FR)
-        x = torch.cat([lm.weak_norm(lo + hi), lm.sub_n(lo, hi, FR)], 0)
+        x = ntt_level(x, g, tw)
     return x[final]
 
 

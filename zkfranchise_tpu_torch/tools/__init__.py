@@ -38,12 +38,15 @@ OPS_PER_S = 67e12
 INT_MADS_PER_CLK_SM, SMS = 64, 132
 
 # Multiply-adds, counted from csrc/.  The column sums of a product of two
-# 21-limb elements take 441 in the schoolbook (the one-thread kernels:
-# mont_mul, the chains, padd_point) and 342 with the one level of
-# Karatsuba of the cooperative adds (lm_kernels.cu cols_add, which also
-# forms the reduction's m*p); a reduction adds the triangular m = t*n'.
+# 21-limb elements take 441 in the schoolbook (the one-thread chains,
+# fold_mul, Poseidon, the layout kernels, padd_point, and the warp inv,
+# whose lanes form the schoolbook's columns) and 342 with the one level of
+# Karatsuba of lm_device.cuh cols_add (the cooperative adds, mont_mul and
+# ntt_level, which also form the reduction's m*p with it); a reduction
+# adds the triangular m = t*n'.
 COLS_SCHOOLBOOK, COLS_KARATSUBA, MAD_LOW = 441, 342, 231
 MAD_MONT = 2 * COLS_SCHOOLBOOK + MAD_LOW                # 1113
+MAD_MONT_KARATSUBA = 2 * COLS_KARATSUBA + MAD_LOW       # 915
 # an EC add as (products, reductions of 2 lazy terms, of 4): RCB15 (padd)
 # and the mixed add of two affine points (padd_aa), over Fq (G1) or Fq2
 _ADD_TERMS = {("padd", "g1"): (8, 3, 0), ("padd", "g2"): (0, 16, 6),

@@ -11,13 +11,17 @@ phases ``toolchain`` (the tree's own build), ``main_path`` (with
 ``timed_prove``, ``verify`` and ``profile``) and ``stream``, after timing
 the tree's ``scalar_mul`` at (rows, 128) with a 254-bit scalar shared by
 the lanes and, where the tree takes one, a scalar per lane (whole calls,
-CUDA events).  Phase ``profile`` is this tree's in both runs, so that both
+CUDA events), and reading the device time of its ``mont_mul``, one NTT
+butterfly level, ``inv`` and ``batch_inv`` at the main path's shapes
+(``tools.device_reading``).  Phase ``profile`` is this tree's in both runs, so that both
 count the host's ops the same way.  Every line a run prints comes out as
 one JSON object tagged with the run ("parent", "change", "change2",
 "parent2"); the last line sums up each run's stage seconds, proofs/s,
 device busy time and idle share, host ops, launches per ``prove_arrays``,
-the stream's slices and the scalar_mul times.  The card's name and power
-limit come first.  Exits non-zero if a run fails.
+the kernel readings,
+mont_mul's launches by shape where the tree counts them, peak device
+memory, the stream's slices and the scalar_mul times.  The card's name and
+power limit come first.  Exits non-zero if a run fails.
 """
 from __future__ import annotations
 
@@ -69,8 +73,51 @@ def worker(tree: str) -> None:
                          got, K.scalar_mul_ref(pts, bits, kind))),
                      "ms": event_ms(lambda: K.scalar_mul(pts, bits, kind),
                                     runs=5)})
+    _slice_readings(np, torch, K, dev)
     _, keys = cs.phase_main_path(np, torch, K, dev)
     cs.phase_stream(torch, K, dev, *keys)
+
+
+def _slice_readings(np, torch, K, dev) -> None:
+    """mont_mul at (8192, 21, 128) x (8192, 21, 1) Fr, one NTT butterfly
+    level at (16384, 21, T) Fr for T = 128 and 4 (the tree's ntt_level,
+    or the loop body of its _transform where it has none), inv at (21,
+    128) Fq and batch_inv at (128, 21, 16384) Fq, as the tree runs them:
+    device ms through tools.device_reading (one JSON line each)."""
+    from zkfranchise_tpu_torch.ops import lm, ntt
+    from zkfranchise_tpu_torch.tools import device_reading
+
+    rng = np.random.default_rng(10)
+
+    def limbs(shape):
+        x = rng.integers(0, 1 << 13, size=shape, dtype=np.int32)
+        x[..., 19, :] &= 0x7F
+        x[..., 20, :] = 0
+        return torch.as_tensor(x, device=dev)
+
+    def body(x, g, tw):
+        h = x.shape[0] // 2
+        paired = x[g]
+        lo = paired[:h]
+        hi = lm.mont_mul(paired[h:], tw, lm.FR)
+        return torch.cat([lm.weak_norm(lo + hi), lm.sub_n(lo, hi, lm.FR)], 0)
+
+    a, b = limbs((8192, 21, 128)), limbs((8192, 21, 1))
+    device_reading("mont_mul/fr/8192x21x128*8192x21x1",
+                   lambda: K.mont_mul(a, b, lm.FR),
+                   4 * (2 * a.numel() + b.numel()), 0)
+    level = getattr(ntt, "ntt_level", body)
+    gs, tws, _ = ntt.plan(14).on(str(dev))["fwd"]
+    for T in (128, 4):
+        x = lm.to_mont(limbs((16384, 21, T)))
+        device_reading(f"ntt level/fr/16384x21x{T}",
+                       lambda: level(x, gs[5], tws[5]), 8 * x.numel(), 0)
+    c = limbs((21, 128))
+    device_reading("inv/fq/21x128", lambda: K.inv(c, lm.FQ), 8 * c.numel(),
+                   0)
+    d = limbs((128, 21, 16384))
+    device_reading("batch_inv/fq/128x21x16384",
+                   lambda: K.batch_inv(d, lm.FQ), 8 * d.numel(), 0)
 
 
 def summary(lines: list) -> dict:
@@ -84,6 +131,10 @@ def summary(lines: list) -> dict:
                        launches_per_prove_arrays={
                            k: v for k, v in
                            d["launches_per_prove_arrays"].items() if v})
+            # what a tree prints beside them (an older tree less)
+            out.update({k: d[k] for k in ("peak_memory_bytes",
+                                          "mont_launches_by_shape")
+                        if k in d})
         elif phase == "profile":
             out.update({k: d[k] for k in (
                 "device_busy_s", "device_idle_share", "host_prove_arrays",
@@ -94,6 +145,9 @@ def summary(lines: list) -> dict:
         elif phase == "stream":
             out.update(stream_proofs_per_s=d["proofs_per_s"],
                        stream_slices_s=[r["seconds"] for r in d["rates"]])
+        elif "reading" in d:
+            out.setdefault("readings", {})[d["reading"]] = {
+                "device_ms": d["device_ms"], "invalid": d["invalid"]}
         elif "scalar_mul" in d:
             out["scalar_mul"][f"{d['scalar_mul']}/{d['bits']}"] = {
                 "ms": d["ms"], "equal": d["equal"]}
