@@ -7,8 +7,8 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
 
   1. prints the toolchain, the card, the build time, each kernel's
      registers and spills (from ``nvcc -Xptxas -v``; a cooperative add,
-     the scalar_mul ladder, the Poseidon kernel, mont_mul, ntt_level or
-     inv that spills fails the run), the resident blocks per SM of the
+     the scalar_mul ladder, the Poseidon kernel, mont_mul, ntt_level, inv
+     or mm2d that spills fails the run), the resident blocks per SM of the
      cooperative kernels and the SASS instruction mix of those kernels;
   2. holds every kernel against its plain PyTorch version on the card at
      the shapes its path gives it (mont_mul at its operand patterns,
@@ -107,7 +107,7 @@ KERNELS = {
              ["mm2d"]),
     "mm3d": (_CSRC + "lm_layout.cu", _EXPT + ".py:83", "layout_tools",
              ["mm3d"]),
-    "fold2d": (_CSRC + "lm_layout.cu", _EXPT + ".py:111", "layout_tools",
+    "fold2d": (_CSRC + "lm_kernels.cu", _EXPT + ".py:111", "layout_tools",
                ["fold2d/g1", "fold2d/g2"]),
     "add_one": (_CSRC + "lm_layout.cu", _EXPT + "2.py:50", "layout_tools",
                 ["add_one"]),
@@ -140,17 +140,6 @@ def require_launches(path: str, launches: dict) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def bound(nbytes: float, mads: float) -> tuple[float, str]:
-    """Least time in ms for this work on the card, and what bounds it:
-    bytes over the H100's memory rate or multiply-adds over its 32-bit rate
-    (zkfranchise_tpu_torch.tools, which also counts the multiply-adds)."""
-    from zkfranchise_tpu_torch.tools import HBM_BYTES_PER_S, OPS_PER_S
-
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * mads / OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def smi_line() -> str:
@@ -200,12 +189,13 @@ def phase_toolchain(torch, K) -> None:
                 spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
     from zkfranchise_tpu_torch.tools.fold_shapes import sass_mix
 
-    cooperative = ("add_kernel", "fold_levels_kernel", "ladder_kernel",
-                   "prod", "poseidon_kernel")
+    cooperative = ("add_kernel", "fold_levels_kernel", "flat_fold_kernel",
+                   "flat_group", "ladder_kernel", "prod", "poseidon_kernel")
     # kernels that fail the run if they spill
     no_spill = cooperative + ("mont_mul_kernel", "ntt_level_kernel",
-                              "inv_kernel")
-    mix = {name: m for lib in ("lm_kernels", "lm_ntt", "lm_chains")
+                              "inv_kernel", "mm2d_kernel")
+    mix = {name: m for lib in ("lm_kernels", "lm_ntt", "lm_chains",
+                               "lm_layout")
            for name, m in sass_mix(libs[lib]).items()
            if any(c in name for c in no_spill)}
     emit({"phase": "toolchain", "python": sys.version.split()[0],
@@ -227,6 +217,12 @@ def phase_toolchain(torch, K) -> None:
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version, at main-path shapes
 # ---------------------------------------------------------------------------
+
+def _ratio(a, b):
+    """a / b, or None where the reading b is 0 (an invalid reading, marked
+    as such beside the ratio)."""
+    return a / b if b > 0 else None
+
 
 def _random_limbs(np, rng, shape):
     """Normalized limbs of values < 2^254 (what the path feeds mont_mul)."""
@@ -277,7 +273,7 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
     from zkfranchise_tpu_torch.tools import MAD_MONT, MAD_MONT_KARATSUBA, \
-        add_mads, device_reading, event_ms
+        add_mads, bound_ms, device_reading, event_ms
     from zkfranchise_tpu_torch.tools import fold_shapes
     from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
 
@@ -317,7 +313,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
                                          mads)
             library_dev_ms = lib_reading["device_ms"]
             library_invalid = lib_reading["invalid"]
-        b_ms, b_by = bound(nbytes, mads)
+        b_ms, b_by = bound_ms(nbytes, mads)
         marks = {"device_invalid": reading["invalid"],
                  "burst_ms": reading["burst_ms"],
                  "library_device_invalid": library_invalid}
@@ -473,7 +469,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
     _ladders(np, torch, K, dev, rng, check, results, table)
     _poseidon(np, torch, K, dev, rng, check, results, table)
     torch.cuda.empty_cache()
-    _layout_kernels(np, torch, K, dev, rng, check)
+    _layout_kernels(np, torch, K, dev, rng, check, results, table)
     emit({"phase": "kernels", "kernels": results,
           "fold_shapes": fold_results})
     return table
@@ -533,7 +529,7 @@ def _ntt_levels(np, torch, K, dev, rng, check, results, table) -> None:
                         lambda: ntt.ntt_level_ref(x, g, tw), nbytes, mads)
                     level.update(before_device_ms=was["device_ms"],
                                  before_invalid=was["invalid"],
-                                 speedup=was["device_ms"] / dev_ms)
+                                 speedup=_ratio(was["device_ms"], dev_ms))
                 levels.append(level)
                 x = kernel()
             del x
@@ -638,19 +634,22 @@ def _poseidon(np, torch, K, dev, rng, check, results, table) -> None:
             yard = {"chain_products": depth,
                     "critical_path_ms": chain["device_ms"],
                     "critical_path_invalid": chain["invalid"],
-                    "vs_critical_path": results[name]["device_ms"] /
-                    chain["device_ms"]}
+                    "vs_critical_path": _ratio(results[name]["device_ms"],
+                                               chain["device_ms"])}
             results[name].update(yard)
             table[key].update(yard)
             del x, a
 
 
-def _layout_kernels(np, torch, K, dev, rng, check) -> None:
+def _layout_kernels(np, torch, K, dev, rng, check, results, table) -> None:
     """The five kernels of the layout experiments at the experiments'
-    sizes, at two geometries each (the first is the table's row)."""
+    sizes, at two or three geometries each (the first is the table's row).
+    fold2d's row also carries its readings at tiles 32 and 4096 and the
+    reading of fold_padd on the same points as a segmented (B, rows, m)
+    plane (vs_segmented: fold2d's device ms over fold_padd's)."""
     from zkfranchise_tpu_torch.ops import ec_lm, lm
-    from zkfranchise_tpu_torch.tools import COLS_SCHOOLBOOK, MAD_MONT, \
-        MAD_MONT_KARATSUBA, add_mads
+    from zkfranchise_tpu_torch.tools import MAD_MONT, MAD_MONT_KARATSUBA, \
+        device_reading, fold2d_work, mm2d_work
     from zkfranchise_tpu_torch.tools.layout_expt2 import level_adds
 
     T = 1 << 20
@@ -661,8 +660,8 @@ def _layout_kernels(np, torch, K, dev, rng, check) -> None:
             key = None if i else ("mm2d" if chain == 1 else "mm2d/chain8")
             check(f"mm2d/fq/21x{T}/chain{chain}/tile{tile}",
                   lambda: K.mm2d(a, b, tile, chain),
-                  lambda: K.mm2d_ref(a, b, tile, chain), 4 * 3 * 21 * T,
-                  MAD_MONT * chain * T, key, plain_runs=3)
+                  lambda: K.mm2d_ref(a, b, tile, chain),
+                  *mm2d_work(T, chain), key, plain_runs=3)
     a3, b3 = a.reshape(128, 21, T // 128), b.reshape(128, 21, T // 128)
     for i, (tile, blk) in enumerate(((512, 1), (512, 8), (8192, 1))):
         check(f"mm3d/fq/128x21x{T // 128}/tile{tile}/blk{blk}",
@@ -685,23 +684,41 @@ def _layout_kernels(np, torch, K, dev, rng, check) -> None:
           "fused_upsweep", library=lambda: level_adds(x))
     del x
     # one fold level of real points on the flat lane axis: segment b of
-    # the flat plane is row b of the (B, rows, m) plane
+    # the flat plane is row b of the segmented (B, rows, m) plane
     B, m = 128, 8192
     for kind in ("g1", "g2"):
         rows = ec_lm.ROWS[kind]
         p, q, _ = _point_inputs(np, torch, rng, kind, B, m, dev)
-        x = torch.cat([p[..., :m // 2], q[..., :m // 2]], -1)
+        seg = torch.cat([p[..., :m // 2], q[..., :m // 2]], -1).contiguous()
         del p, q
-        x = x.permute(1, 0, 2).reshape(rows, B * m).contiguous()
-        for i, tile in enumerate((512, 4096)):
-            key = None if i else ("fold2d" if kind == "g1" else "fold2d/g2")
-            check(f"fold2d/{kind}/{rows}x{B * m}/m{m}/tile{tile}",
-                  lambda: K.fold2d(x, tile, kind, m),
-                  lambda: K.fold2d_ref(x, tile, kind, m),
-                  4 * rows * (B * m + B * m // 2),
-                  add_mads("padd", kind, COLS_SCHOOLBOOK) * B * m // 2, key,
-                  plain_runs=3)
-        del x
+        x = seg.permute(1, 0, 2).reshape(rows, B * m).contiguous()
+        key = "fold2d" if kind == "g1" else "fold2d/g2"
+        work = fold2d_work(kind, B, m)
+        for i, tile in enumerate((512, 32, 4096)):
+            name = f"fold2d/{kind}/{rows}x{B * m}/m{m}/tile{tile}"
+            check(name, lambda: K.fold2d(x, tile, kind, m),
+                  lambda: K.fold2d_ref(x, tile, kind, m), *work,
+                  None if i else key, plain_runs=3)
+            if i:
+                table[key].update({
+                    f"tile{tile}_device_ms": results[name]["device_ms"],
+                    f"tile{tile}_invalid": results[name]["device_invalid"]})
+        flat = K.fold2d(x, 512, kind, m).reshape(rows, B, m // 2)
+        if not torch.equal(K.fold_padd(seg, kind),
+                           flat.permute(1, 0, 2)):
+            raise AssertionError(f"fold2d/{kind}: differs from fold_padd on "
+                                 f"the segmented plane")
+        del flat
+        segr = device_reading(f"fold_padd/{kind}/{B}x{rows}x{m} (fold2d's "
+                              f"points, segmented)",
+                              lambda: K.fold_padd(seg, kind), *work)
+        row = {"segmented_device_ms": segr["device_ms"],
+               "segmented_invalid": segr["invalid"],
+               "vs_segmented": _ratio(table[key]["device_ms"],
+                                      segr["device_ms"])}
+        table[key].update(row)
+        results[table[key]["shape"]].update(row)
+        del x, seg
         torch.cuda.empty_cache()
 
 

@@ -379,9 +379,11 @@ def test_fold_affine_on_card_equals_cpu(dev, kind):
         assert torch.equal(y.cpu(), x)
 
 
-@pytest.mark.parametrize("tile,chain", [(512, 1), (100, 3), (4096, 8)])
+@pytest.mark.parametrize("tile,chain", [(512, 1), (100, 3), (4096, 8),
+                                        (33, 0)])
 def test_mm2d(dev, tile, chain):
-    """Ragged edge (T not a multiple of tile), tile above and below T."""
+    """Ragged edge (T not a multiple of tile), tile above and below T; a
+    chain of 0 products copies a."""
     rng = np.random.default_rng(8)
     a, b = _limbs(rng, (21, 1300), dev), _limbs(rng, (21, 1300), dev)
     K.reset_launches()
@@ -402,22 +404,26 @@ def test_mm3d(dev, tile, blk):
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])
-@pytest.mark.parametrize("tile", [3, 512])
-def test_fold2d(dev, kind, tile):
-    """Flat lane axis of B = 5 segments of m = 32 real points, with an
-    identity lane, a doubling pair and an opposite pair."""
+@pytest.mark.parametrize("h", [37, 64])
+@pytest.mark.parametrize("tile", [1, 3, 31, 32, 33, 512])
+def test_fold2d(dev, kind, tile, h):
+    """Flat lane axis of B = 5 segments of m = 2h real points, with an
+    identity lane, a doubling pair and an opposite pair: a block walks
+    groups of 32 adds, the last one ragged where tile or h is not a
+    multiple of 32; one fold2d launch and no other."""
     rng = np.random.default_rng(10)
-    B, m = 5, 32
+    B, m = 5, 2 * h
     table = ec_lm.g1_table if kind == "g1" else ec_lm.g2_table
     grp = ec.G1 if kind == "g1" else ec.G2
-    pts = (_pool(kind, rng) * 10)[:B * m]
+    pts = (_pool(kind, rng) * 40)[:B * m]
     pts[1] = None
-    pts[16 + 2] = pts[2]
-    pts[16 + 3] = grp.neg(pts[3])
+    pts[h + 2] = pts[2]
+    pts[h + 3] = grp.neg(pts[3])
     x = torch.as_tensor(table(pts).T.copy(), device=dev)
     K.reset_launches()
     got = K.fold2d(x, tile, kind, m)
-    assert K.LAUNCHES[f"fold2d/{kind}"] == 1
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          f"fold2d/{kind}": 1}
     assert torch.equal(got, K.fold2d_ref(x, tile, kind, m))
     seg = x.reshape(-1, B, m).permute(1, 0, 2).contiguous()
     assert torch.equal(K.fold_padd(seg, kind).permute(1, 0, 2)
@@ -475,5 +481,7 @@ def test_layout_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         K.mm3d(a, a, 16, 1)                                 # not (B, 21, T)
     with pytest.raises(ValueError):
         K.mm2d(a, a.cpu(), 16, 1)
+    with pytest.raises(ValueError):
+        K.mm2d(a, a, 0, 1)                                  # tile < 1
     with pytest.raises(TypeError):
         K.fused_upsweep(a[:, :16].float())

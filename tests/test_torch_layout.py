@@ -45,11 +45,17 @@ def test_mm3d_matches_jax(tile, blk):
         assert np.array_equal(np.asarray(want), got.numpy())
 
 
-@pytest.mark.parametrize("kind,tile", [("g1", 2), ("g1", 8), ("g2", 4)])
-def test_fold2d_matches_jax_padd_on_paired_lanes(kind, tile):
+@pytest.mark.parametrize("kind,tile,m", [
+    pytest.param("g1", 2, 8, id="g1-2"), pytest.param("g1", 8, 8, id="g1-8"),
+    pytest.param("g2", 4, 8, id="g2-4"),
+    # a segment half-width of 37: not a multiple of the kernel's groups of
+    # 32 adds, so a block's last group is ragged
+    pytest.param("g1", 33, 74, id="g1-33-m74"),
+    pytest.param("g2", 512, 74, id="g2-512-m74")])
+def test_fold2d_matches_jax_padd_on_paired_lanes(kind, tile, m):
     """(rows, B*m) flat: lane b*m + j is added to lane b*m + m/2 + j.
     Real points, with an identity lane and a doubling pair."""
-    B, m = 3, 8
+    B = 3
     rng = np.random.default_rng(5)
     mul, table, jpadd = (
         (ec.g1_mul, ec_lm.g1_table, jec_lm.padd_g1) if kind == "g1"

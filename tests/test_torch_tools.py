@@ -111,19 +111,25 @@ def _events(n, us, name="k"):
      2.0),
     ([([("k", 1500.0)] * 20, (4, 64))] * 3, True, ["window disturbed"],
      1.5),
+    # windows the profiler traced nothing in, not even a spin: profiled
+    # again; if every window stays empty, the event burst is the reading
+    ([([], (0, 0))] * 4 + [_events(20, 2000.0)], False, [], 2.0),
+    ([([], (0, 0))] * 8, False, [], 2.5),
 ])
 def test_device_reading_marks_readings_no_card_can_give(
         monkeypatch, capsys, profiles, invalid, why, dev_ms):
     """A reading of one launch a call: 0, below the bytes bound (1 ms),
     below the integer ceiling (1.25 ms at 1,000 MHz), or with kernel
     events missing after every retry that cannot be scaled is invalid; a
-    retry that records every event is kept."""
+    retry that records every event is kept, and a reading whose every
+    window the profiler left empty comes from CUDA events."""
     import zkfranchise_tpu_torch.tools as tools
 
     seen = iter(profiles)
     monkeypatch.setattr(tools, "kernel_events", lambda fn, runs: next(seen))
     monkeypatch.setattr(tools, "burst_ms", lambda fn: 2.5)
     monkeypatch.setattr(tools, "max_sm_mhz", lambda: 1000.0)
+    monkeypatch.setattr(tools, "EMPTY_PAUSE_S", 0.0)
 
     def one_launch():
         K.LAUNCHES["mont_mul"] += 1
@@ -135,7 +141,32 @@ def test_device_reading_marks_readings_no_card_can_give(
     assert res["device_ms"] == pytest.approx(dev_ms)
     assert res["launches"] == 20 and res["burst_ms"] == 2.5
     assert res["attempts"] == len(profiles)
+    assert res["source"] == ("cuda_events" if profiles[-1] == ([], (0, 0))
+                             else "profiler")
     assert '"reading": "r"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("work,want_ms,by", [
+    (("fold2d", "g1", 128, 8192), 0.1736, "operations"),
+    (("fold2d", "g2", 128, 8192), 0.4970, "operations"),
+    (("mm2d", 1 << 20, 8), 0.2291, "operations"),
+    (("mm2d", 1 << 20, 1), 0.0789, "bytes")])
+def test_layout_bounds_count_the_karatsuba_work(work, want_ms, by):
+    """The bounds of fold2d and mm2d at the layout tool's full sizes, as
+    chip_smoke.py computes them: the cooperative add's and the register
+    product's Karatsuba multiply-adds (add_mads, MAD_MONT_KARATSUBA)."""
+    from zkfranchise_tpu_torch import tools
+
+    name, *args = work
+    nbytes, mads = getattr(tools, f"{name}_work")(*args)
+    if name == "fold2d":
+        kind, B, m = args
+        assert mads == tools.add_mads("padd", kind) * B * m // 2
+    else:
+        T, chain = args
+        assert mads == tools.MAD_MONT_KARATSUBA * chain * T
+    ms, got_by = tools.bound_ms(nbytes, mads)
+    assert ms == pytest.approx(want_ms, abs=5e-5) and got_by == by
 
 
 def test_tree_compare_sums_up_a_run():
@@ -151,14 +182,23 @@ def test_tree_compare_sums_up_a_run():
          "device_idle_share": 0.5, "host_prove_arrays": {"ops": 9},
          "host_witness": {"ops": 3}},
         {"phase": "stream", "proofs_per_s": 50.0,
-         "rates": [{"seconds": 2.0}, {"seconds": 0.4}]}]
+         "rates": [{"seconds": 2.0}, {"seconds": 0.4}]},
+        {"reading": "fold2d/g1/63x1048576/m8192/tile512", "device_ms": 0.9,
+         "invalid": False, "burst_ms": 0.95},
+        {"reading": "mm2d/fq/21x1048576/chain8/tile512", "device_ms": 0.5,
+         "invalid": False, "burst_ms": 0.52}]
     assert tree_compare.summary(lines) == {
         "scalar_mul": {"g1/per_lane": {"ms": 4.0, "equal": True}},
         "stage_seconds": {"witness": 0.05}, "step_s": 2.0,
         "proofs_per_s": 64.0, "launches_per_prove_arrays": {"mont_mul": 236},
         "verified": True, "device_busy_s": 1.0, "device_idle_share": 0.5,
         "host_prove_arrays": {"ops": 9}, "host_witness": {"ops": 3},
-        "stream_proofs_per_s": 50.0, "stream_slices_s": [2.0, 0.4]}
+        "stream_proofs_per_s": 50.0, "stream_slices_s": [2.0, 0.4],
+        "readings": {
+            "fold2d/g1/63x1048576/m8192/tile512": {"device_ms": 0.9,
+                                                   "invalid": False},
+            "mm2d/fq/21x1048576/chain8/tile512": {"device_ms": 0.5,
+                                                  "invalid": False}}}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tree_compare.main("parent")

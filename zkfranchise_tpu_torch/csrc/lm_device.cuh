@@ -1,8 +1,8 @@
 // Device code shared by the kernel sources of this directory: the 21 x 13
-// bit limb arithmetic (ops/lm.py) and the RCB15 point additions
-// (ops/ec_lm.py), repeated step for step so that every limb equals the
-// plain PyTorch version's.  Each .cu file includes this header and is
-// compiled on its own into its own library.
+// bit limb arithmetic (ops/lm.py), repeated step for step so that every
+// limb equals the plain PyTorch version's.  (The point additions are the
+// cooperative forms of lm_kernels.cu.)  Each .cu file includes this header
+// and is compiled on its own into its own library.
 #pragma once
 
 #include <cstdint>
@@ -14,16 +14,12 @@
 #define MASK 8191
 #define THREADS 128
 
-// rows of the 189-int EC constants block (ops/ec_lm.pack_ec_consts); the
-// first six are also the 126-int field block (ops/lm.pack_consts)
+// rows of the 126-int field block (ops/lm.pack_consts) that the kernels
+// read: p, n' = -p^-1 mod R, the spread constant sub_d and one (R mod p)
 #define C_P 0
 #define C_NP 21
 #define C_SUBD 42
 #define C_ONE 63
-#define C_SUBD2 105
-#define C_B3G1 126
-#define C_B3G2 147
-#define EC_CONSTS 189
 
 typedef long long i64;
 
@@ -164,6 +160,14 @@ __device__ __forceinline__ void mont_mul(const int* a, const int* b,
   mont_reduce(c, pc, out);
 }
 
+// p and n' of a field (the first two rows of ops/lm.pack_consts), passed
+// by value: a kernel that takes them as a launch parameter reads its
+// product's operands straight from the parameter bank (no staging in
+// shared memory, no barrier)
+struct FieldPN {
+  int c[2 * NL];
+};
+
 // the Karatsuba Montgomery product, all in registers: 342 + 231 + 342 =
 // 915 multiply-adds, every limb equal to the schoolbook's
 __device__ __forceinline__ void mont_mul_karatsuba(const int* a, const int* b,
@@ -175,246 +179,26 @@ __device__ __forceinline__ void mont_mul_karatsuba(const int* a, const int* b,
   mont_reduce<true>(c, pc, out);
 }
 
-// acc += weak_norm(weak_norm(wide(a, b))): one lazy term of a sum that is
-// reduced once
-__device__ __forceinline__ void add_wide_wn2(const int* a, const int* b,
-                                             int* acc) {
-  int c[WIDE];
-  wide_mul(a, b, c);
-  weak_norm<WIDE>(c);
-  weak_norm<WIDE>(c);
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] += c[k];
+// threadIdx.x, blockIdx.x and blockIdx.y, read afresh at each use: the
+// compiler may not merge two of these reads, so indices derived from them
+// are recomputed where they are used instead of held in registers across
+// a kernel's products (a fold launch stages and stores up to seven times)
+__device__ __forceinline__ int tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
 }
 
-// Out-of-line forms for the EC kernels.  Inlining a whole G2 add (about
-// 40,000 multiply-adds) makes one function too large for ptxas to
-// allocate registers in reasonable time; each helper below is compiled
-// once and keeps its own limbs in registers, and only the call arguments
-// pass through local memory.
-__device__ __noinline__ void ec_reduce(int* t, const int* pc, int* out) {
-  mont_reduce(t, pc, out);
+__device__ __forceinline__ unsigned ctaid_x() {
+  unsigned c;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(c));
+  return c;
 }
 
-__device__ __noinline__ void ec_mont_mul(const int* a, const int* b,
-                                         const int* pc, int* out) {
-  mont_mul(a, b, pc, out);
-}
-
-__device__ __noinline__ void ec_add_wide(const int* a, const int* b,
-                                         int* acc) {
-  add_wide_wn2(a, b, acc);
-}
-
-// out = weak_norm(D2 - v) over one Fq component (ec_lm n2 / nb1)
-__device__ __forceinline__ void neg_d2(const int* v, const int* C, int* out) {
-#pragma unroll
-  for (int k = 0; k < NL; ++k) out[k] = C[C_SUBD2 + k] - v[k];
-  weak_norm<NL>(out);
-}
-
-// ---------------------------------------------------------------------------
-// Fq / Fq2 steps of RCB15 (ops/ec_lm.py), K = 1 (Fq) or 2 (Fq2 stacked)
-// ---------------------------------------------------------------------------
-
-// out = weak_norm(a + b) over K*21 limbs
-template <int K>
-__device__ __forceinline__ void add_n(const int* a, const int* b, int* out) {
-#pragma unroll
-  for (int k = 0; k < K * NL; ++k) out[k] = a[k] + b[k];
-  weak_norm<K * NL>(out);
-}
-
-// out = weak_norm(a + (D - b)), D = sub_d per component (_fq_sub_n,
-// _fq2_sub_n)
-template <int K>
-__device__ __forceinline__ void sub_n(const int* a, const int* b,
-                                      const int* C, int* out) {
-#pragma unroll
-  for (int k = 0; k < K * NL; ++k) out[k] = a[k] + (C[C_SUBD + k % NL] - b[k]);
-  weak_norm<K * NL>(out);
-}
-
-// Fq product (K = 1) or lazy Fq2 product (K = 2, _mul_stack_fq2):
-//   re = reduce(a0*b0 + a1*(D2 - b1)),  im = reduce(a0*b1 + a1*b0)
-template <int K>
-__device__ __forceinline__ void fmul(const int* a, const int* b,
-                                     const int* C, int* out) {
-  if constexpr (K == 1) {
-    ec_mont_mul(a, b, C, out);
-  } else {
-    int nb1[NL];
-    neg_d2(b + NL, C, nb1);
-    int acc[WIDE];
-#pragma unroll
-    for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-    ec_add_wide(a, b, acc);
-    ec_add_wide(a + NL, nb1, acc);
-    ec_reduce(acc, C, out);
-#pragma unroll
-    for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-    ec_add_wide(a, b + NL, acc);
-    ec_add_wide(a + NL, b, acc);
-    ec_reduce(acc, C, out + NL);
-  }
-}
-
-// Round 3 over Fq (_round3_fq): x3 = t3*t1 - t4*y3b, y3 = y3b*x3 + t1*z3,
-// z3 = z3*t4 + x3*t3, each as two wide products and one reduction
-__device__ __forceinline__ void round3_fq(const int* t3, const int* t4,
-                                          const int* y3b, const int* t1,
-                                          const int* z3, const int* x3,
-                                          const int* C, int* X, int* Y,
-                                          int* Z) {
-  int ny3b[NL];
-  neg_d2(y3b, C, ny3b);
-  int acc[WIDE];
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(t3, t1, acc);
-  ec_add_wide(t4, ny3b, acc);
-  ec_reduce(acc, C, X);
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(y3b, x3, acc);
-  ec_add_wide(t1, z3, acc);
-  ec_reduce(acc, C, Y);
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(z3, t4, acc);
-  ec_add_wide(x3, t3, acc);
-  ec_reduce(acc, C, Z);
-}
-
-// One Fq2 output of round 3 (_round3_fq2): A*B - C*D (minus) or A*B + C*D
-__device__ __forceinline__ void r3_fq2_term(const int* A, const int* B,
-                                            const int* Cc, const int* D,
-                                            bool minus, const int* C,
-                                            int* out) {
-  int n[NL];
-  int acc[WIDE];
-  // re: (a0b0 - a1b1) +- (c0d0 - c1d1)
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(A, B, acc);
-  neg_d2(B + NL, C, n);
-  ec_add_wide(A + NL, n, acc);
-  if (minus) {
-    neg_d2(D, C, n);
-    ec_add_wide(Cc, n, acc);
-    ec_add_wide(Cc + NL, D + NL, acc);
-  } else {
-    ec_add_wide(Cc, D, acc);
-    neg_d2(D + NL, C, n);
-    ec_add_wide(Cc + NL, n, acc);
-  }
-  ec_reduce(acc, C, out);
-  // im: (a0b1 + a1b0) +- (c0d1 + c1d0)
-#pragma unroll
-  for (int k = 0; k < WIDE; ++k) acc[k] = 0;
-  ec_add_wide(A, B + NL, acc);
-  ec_add_wide(A + NL, B, acc);
-  if (minus) {
-    neg_d2(D + NL, C, n);
-    ec_add_wide(Cc, n, acc);
-    neg_d2(D, C, n);
-    ec_add_wide(Cc + NL, n, acc);
-  } else {
-    ec_add_wide(Cc, D + NL, acc);
-    ec_add_wide(Cc + NL, D, acc);
-  }
-  ec_reduce(acc, C, out + NL);
-}
-
-template <int K>
-__device__ __forceinline__ void round3(const int* t3, const int* t4,
-                                       const int* y3b, const int* t1,
-                                       const int* z3, const int* x3,
-                                       const int* C, int* X, int* Y, int* Z) {
-  if constexpr (K == 1) {
-    round3_fq(t3, t4, y3b, t1, z3, x3, C, X, Y, Z);
-  } else {
-    r3_fq2_term(t3, t1, t4, y3b, true, C, X);
-    r3_fq2_term(y3b, x3, t1, z3, false, C, Y);
-    r3_fq2_term(z3, t4, x3, t3, false, C, Z);
-  }
-}
-
-// RCB15 Algorithm 7 (a = 0), projective + projective (ec_lm._padd).
-// P and Q point at coordinate 0 of a point: coordinate c, limb k at
-// [(c*K*21 + k) * rs]; O likewise with stride ors.
-template <int K>
-__device__ __forceinline__ void padd_point(const int* P, i64 prs,
-                                           const int* Q, i64 qrs, int* O,
-                                           i64 ors, const int* C) {
-  constexpr int W = K * NL;
-  int t0[W], t1[W], t2[W], pa[W], pb[W], pc[W];
-  {
-    int u[W], v[W], s[W], r[W];
-    // round 1: X1X2, Y1Y2, Z1Z2 and the three cross sums
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        u[k] = P[(c * W + k) * prs];
-        v[k] = Q[(c * W + k) * qrs];
-      }
-      fmul<K>(u, v, C, c == 0 ? t0 : (c == 1 ? t1 : t2));
-    }
-    // (x1 + y1)(x2 + y2)
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      s[k] = P[k * prs] + P[(W + k) * prs];
-      r[k] = Q[k * qrs] + Q[(W + k) * qrs];
-    }
-    weak_norm<W>(s);
-    weak_norm<W>(r);
-    fmul<K>(s, r, C, pa);
-    // (y1 + z1)(y2 + z2)
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      s[k] = P[(W + k) * prs] + P[(2 * W + k) * prs];
-      r[k] = Q[(W + k) * qrs] + Q[(2 * W + k) * qrs];
-    }
-    weak_norm<W>(s);
-    weak_norm<W>(r);
-    fmul<K>(s, r, C, pb);
-    // (x1 + z1)(x2 + z2)
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      s[k] = P[k * prs] + P[(2 * W + k) * prs];
-      r[k] = Q[k * qrs] + Q[(2 * W + k) * qrs];
-    }
-    weak_norm<W>(s);
-    weak_norm<W>(r);
-    fmul<K>(s, r, C, pc);
-  }
-  int t3[W], t4[W], y3[W], x3[W], tmp[W];
-  add_n<K>(t0, t1, tmp);
-  sub_n<K>(pa, tmp, C, t3);
-  add_n<K>(t1, t2, tmp);
-  sub_n<K>(pb, tmp, C, t4);
-  add_n<K>(t0, t2, tmp);
-  sub_n<K>(pc, tmp, C, y3);
-#pragma unroll
-  for (int k = 0; k < W; ++k) x3[k] = t0[k] + t0[k] + t0[k];
-  weak_norm<W>(x3);
-  // round 2: the two b3 scalings
-  const int* b3 = C + (K == 1 ? C_B3G1 : C_B3G2);
-  int t2b[W], y3b[W], z3[W];
-  fmul<K>(t2, b3, C, t2b);
-  fmul<K>(y3, b3, C, y3b);
-  add_n<K>(t1, t2b, z3);
-  sub_n<K>(t1, t2b, C, tmp);  // tmp = new t1
-  // round 3
-  int X[W], Y[W], Z[W];
-  round3<K>(t3, t4, y3b, tmp, z3, x3, C, X, Y, Z);
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    O[k * ors] = X[k];
-    O[(W + k) * ors] = Y[k];
-    O[(2 * W + k) * ors] = Z[k];
-  }
+__device__ __forceinline__ int ctaid_y() {
+  int c;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(c));
+  return c;
 }
 
 // s[0, n) = g[0, n) by every thread of the block (1-D or 2-D), then a

@@ -20,6 +20,9 @@
 //                           scalar_mul_kernel): k*P by double-and-add, a
 //                           scalar per lane or one for all; on the main
 //                           path the assembly's two G1 ladders
+//   zk_fold2d            <- fold2d (scripts/layout_expt.py): one fold level
+//                           on a FLAT lane axis (rows, B*m), per segment b
+//                           lane b*m + j plus lane b*m + m/2 + j
 //
 // Design of mont_mul: one thread per element carries the product in
 // registers and repeats the plain PyTorch version's steps in the same
@@ -36,15 +39,15 @@
 // multiply-add pipe (0.057-0.06 ms at the card's highest clock); at 128
 // registers four blocks fit an SM (at 168, three fit, and it read slower).
 //
-// Design of padd, fold_padd and fold_padd_aa: the cooperative add.  A
-// block takes 32 adds, one per lane, and each add a team of warps (padd
-// and fold_padd G1 3, G2 6; fold_padd_aa G1 4, G2 6); the products of
-// RCB15 are dealt out, round by round, to the team's warps, whose lanes
-// all play the same role for their own adds, and the operands, every
-// intermediate field element and the result stay in the add's region of
-// shared memory between the rounds (__syncthreads() between them).  Every
-// product runs through one out-of-line routine (prod) whose operands and
-// result are in shared memory, so nothing passes through local memory.
+// Design of the EC kernels: the cooperative add.  A block takes 32 adds,
+// one per lane, and each add a team of warps (padd, fold_padd and fold2d
+// G1 3, G2 6; fold_padd_aa G1 4, G2 6); the products of RCB15 are dealt
+// out, round by round, to the team's warps, whose lanes all play the same
+// role for their own adds, and the operands, every intermediate field
+// element and the result stay in the add's region of shared memory
+// between the rounds (__syncthreads() between them).  Every product runs
+// through one out-of-line routine (prod) whose operands and result are in
+// shared memory, so nothing passes through local memory.
 // The column sums are exact integers and the same weak_norm / mont_reduce
 // steps run in the same order, so the limbs equal the plain versions'.
 // One template (add_kernel) stages, runs a form's rounds and stores for
@@ -64,6 +67,10 @@
 //     (L2), so it needs no more shared memory than one level and keeps as
 //     many blocks resident; every level is written out once (the MSM reads
 //     them all).  What it saves is launches: host time.
+//   fold2d (flat_fold_kernel): the fold's add on the layout experiment's
+//     flat lane axis; a block owns `tile` output lanes of one segment and
+//     walks them 32 adds at a time, so a tile above 32 measures a block
+//     that stays resident over several groups against one group a block.
 //   scalar_mul (ladder_kernel): all the bits of the ladder in one launch,
 //     two teams a block, one adding and one doubling, side by side; the
 //     operands stay in shared memory between bits, acc in L1/L2.  A chain
@@ -98,13 +105,8 @@
 // lanes, y the rows of d2 and z the d0*d1 pairs, each with a loop where
 // it exceeds the grid.  Nothing is divided per thread but the one 32-bit
 // split of a block's d0*d1 index.  At most 128 registers a thread, so
-// that four blocks fit an SM.  p and n' arrive by value, in the constant
-// bank of the launch's parameters, so the products take them as operands
-// straight from there (no staging in shared memory, no barrier).
-struct FieldPN {
-  int c[2 * NL];  // p, then n' (the first two rows of ops/lm.pack_consts)
-};
-
+// that four blocks fit an SM.  p and n' arrive by value (FieldPN, in the
+// constant bank of the launch's parameters).
 __global__ void __launch_bounds__(THREADS, 4)
 mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
                 int* __restrict__ out, const FieldPN pn, unsigned d01,
@@ -354,16 +356,6 @@ __device__ __forceinline__ void add_offsets(Offsets<TWO>& ofs, i64 total,
     ofs.b[threadIdx.x] = (int)b;
     ofs.t[threadIdx.x] = (int)t;
   }
-}
-
-// threadIdx.x, read afresh at each use: the compiler may not merge two of
-// these reads, so the element indices of staging, storing and copying are
-// recomputed where they are used instead of held in registers across the
-// rounds' products (a fold launch stages and stores up to seven times)
-__device__ __forceinline__ int tid() {
-  int t;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
-  return t;
 }
 
 // Element u of this thread's share of a block's (ADDS, ROWS) points ->
@@ -868,6 +860,58 @@ fold_levels_kernel(const int* __restrict__ x, int* out, i64 B, i64 h) {
   }
 }
 
+// One fold level on a FLAT lane axis (the layout experiment's fold2d): x
+// (rows, B*2h) contiguous, segment b the lanes [b*2h, (b+1)*2h); out (rows,
+// B*h) contiguous, out lane b*h + j = x lane b*2h + j plus x lane b*2h + h
+// + j.  Block (i, b) owns output lanes [i*tile, (i+1)*tile) of segment b
+// and walks them in groups of ADDS = 32 adds, the last group masked at the
+// segment's or the tile's end: each group is one cooperative add of the
+// form F, its operands read through the flat layout's strides (row stride
+// B*2h, lane stride 1, q = p + h), its result stored through the output's
+// (row stride B*h).  At tile 32 a block is one group, as in
+// fold_levels_kernel; a larger tile keeps a block resident for
+// ceil(tile / 32) groups (the constants are staged once).
+
+// One group: output lanes [j0, j0 + nvalid) of segment blockIdx.y.  Out of
+// line, so that what the rounds derive from a thread's role is computed
+// for each group, as in a one-level fold, and not hoisted out of the
+// block's loop and carried across every group's products (so the G2
+// kernel spilled).
+template <class F>
+__device__ __noinline__ void flat_group(const int* x, int* out, i64 B, i64 h,
+                                        i64 j0, int nvalid) {
+  constexpr int NT = F::WARPS * 32;
+  __shared__ Offsets<false> ofs;
+  __syncthreads();                  // the previous group is stored
+  if (tid() < ADDS) {
+    ofs.p[tid()] = (i64)ctaid_y() * 2 * h + j0 + tid();
+    ofs.b[tid()] = ctaid_y();
+    ofs.t[tid()] = (int)(j0 + tid());
+  }
+  __syncthreads();
+  stage_in<F::ROWS_IN, F::STRIDE, NT, false>(F::IN_AT, x, x + h, ofs,
+                                             B * 2 * h, B * 2 * h, nvalid);
+  __syncthreads();
+  F::rounds(ADDS * F::STRIDE, 0, threadIdx.x >> 5);
+  store_out<F, NT, false>(out, ofs, h, B * h, nvalid);
+}
+
+template <class F, int MIN_BLOCKS>
+__global__ void __launch_bounds__(F::WARPS * 32, MIN_BLOCKS)
+flat_fold_kernel(const int* __restrict__ x, int* __restrict__ out, i64 B,
+                 i64 h, i64 tile) {
+  F::consts(ADDS * F::STRIDE);
+  // only g lives across a group; the lanes are recomputed from the block
+  // index
+#pragma unroll 1
+  for (int g = 0;; ++g) {
+    const i64 lane0 = (i64)ctaid_x() * tile, j0 = lane0 + (i64)g * ADDS;
+    const i64 end = h - lane0 < tile ? h : lane0 + tile;
+    if (j0 >= end) break;
+    flat_group<F>(x, out, B, h, j0, (int)(end - j0 < ADDS ? end - j0 : ADDS));
+  }
+}
+
 // k * P for every lane, k given LSB first (tools and assembly: the ladder
 // of groth16/device.py scalar_mul_plane): acc <- bit ? acc + base : acc,
 // base <- base + base, acc starting at the identity (0 : 1 : 0).  pts and
@@ -991,6 +1035,19 @@ static int launch_levels(const int* x, int* out, i64 B, i64 h, int n,
   return (int)cudaErrorInvalidValue;
 }
 
+template <class F, int MIN_BLOCKS>
+static int launch_flat_fold(const int* x, int* out, i64 B, i64 h, i64 tile,
+                            cudaStream_t s) {
+  auto kernel = flat_fold_kernel<F, MIN_BLOCKS>;
+  const int smem = form_smem<F>();
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((unsigned)((h + tile - 1) / tile), (unsigned)B);
+  kernel<<<grid, F::WARPS * 32, smem, s>>>(x, out, B, h, tile);
+  return (int)cudaGetLastError();
+}
+
 template <class F>
 static int occupancy(const void* kernel, int smem) {
   int blocks = 0;
@@ -1055,6 +1112,18 @@ int zk_fold_padd_aa(int k, const int* x, int* out, i64 B, i64 h,
                                        2 * h, 1, ar * 2 * h, 2 * h, 1, s)
                 : launch_add<PaddAaG2>(x, x + h, out, B * h, h, ar * 2 * h,
                                        2 * h, 1, ar * 2 * h, 2 * h, 1, s);
+}
+
+// out (rows, B*h) from x (rows, B*2h), both flat and contiguous; tile:
+// output lanes a block (grid (ceil(h / tile), B))
+int zk_fold2d(int k, const int* x, int* out, i64 B, i64 h, i64 tile,
+              void* stream) {
+  if (tile < 1 || B < 1 || B > 65535 || (h + tile - 1) / tile > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return k == 1
+             ? launch_flat_fold<PaddG1, G1_FOLD_BLOCKS>(x, out, B, h, tile, s)
+             : launch_flat_fold<PaddG2, G2_FOLD_BLOCKS>(x, out, B, h, tile, s);
 }
 
 // out (rows, T) = k * pts for every lane, bit i of lane t at bits[i * sbi

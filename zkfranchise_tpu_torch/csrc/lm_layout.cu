@@ -7,9 +7,6 @@
 //   zk_mm3d           <- mm3d (scripts/layout_expt.py): one product on
 //                        (B, 21, T), a block owning a (blk, tile) patch of
 //                        the (batch, lane) plane
-//   zk_fold2d         <- fold2d (scripts/layout_expt.py): one projective
-//                        fold level on a FLAT lane axis (rows, B*m): lane
-//                        b*m + j plus lane b*m + m/2 + j, per segment b
 //   zk_add_one        <- pallas_id (scripts/layout_expt2.py): o = a + 1,
 //                        the launch-and-copy floor of this binding; 16-byte
 //                        int4 loads and stores
@@ -31,18 +28,24 @@
 // carry the (batch, tile) coordinates that zk_mont_mul and zk_fold_mul
 // recover from a flat index with 64-bit divisions.
 //
-// What bounds them on an H100: mm2d, mm3d and fold2d are bound by integer
-// multiply-adds (schoolbook products: 1,113 per product, 13,566 per G1
-// add, 39,480 per G2 add; fold2d adds with the one-thread padd_point of
-// lm_device.cuh, not the cooperative padd of lm_kernels.cu); add_one and
-// fused_upsweep by bytes.  add_one moves 16 bytes per access: each row's
-// part of a block's lanes is a scalar head up to the first 16-byte
-// boundary, a body of int4s and a scalar tail (any T and tile stay legal),
-// a thread puts COPY_UNROLL int4 loads in flight before its stores, and
-// the indices are 32-bit when R*T < 2^31.  What is left against a flat
-// copy is the tile itself: a block streams 21 separate runs of `tile`
-// lanes, one per row, and with 8,192 lanes a block there are only 128
-// blocks for 132 SMs.
+// (The experiments' fold2d, zk_fold2d, runs on the cooperative add and so
+// lives in lm_kernels.cu.)
+//
+// What bounds them on an H100: mm2d and mm3d are bound by integer
+// multiply-adds; add_one and fused_upsweep by bytes.  mm2d forms its
+// products with the Karatsuba register product of lm_device.cuh (915
+// multiply-adds a product against the schoolbook's 1,113: a chain of
+// products issues nothing else worth counting, so fewer multiply-adds is
+// the only gain left), p and n' by value in the launch's parameters (no
+// staging, no barrier) and at most 128 registers so that four blocks fit
+// an SM; mm3d keeps the schoolbook product and its staged constants.
+// add_one moves 16 bytes per access: each row's part of a block's lanes
+// is a scalar head up to the first 16-byte boundary, a body of int4s and
+// a scalar tail (any T and tile stay legal), a thread puts COPY_UNROLL
+// int4 loads in flight before its stores, and the indices are 32-bit when
+// R*T < 2^31.  What is left against a flat copy is the tile itself: a
+// block streams 21 separate runs of `tile` lanes, one per row, and with
+// 8,192 lanes a block there are only 128 blocks for 132 SMs.
 // fused_upsweep gives one block to each row: level 1 is read straight
 // from device memory (a 65,536-lane int32 row is 256 KB, more than a
 // block's 227 KB of shared memory), its 128 KB result is kept in dynamic
@@ -68,33 +71,34 @@ static unsigned tiles_for(i64 n, i64 tile) {
   return (unsigned)((n + tile - 1) / tile);
 }
 
-// out (21, T) = a * b^chain, a and b (21, T) contiguous; block i owns lanes
-// [i*tile, (i+1)*tile)
-__global__ void __launch_bounds__(THREADS)
+// out (21, T) = a * b^chain, a and b (21, T) contiguous, T < 2^31; block i
+// owns lanes [i*tile, (i+1)*tile), tile <= T.  x lives in registers for
+// the whole chain; b is read again (from L1) for every product, its lane
+// recomputed from the block index, so that only x, the lane's offset in
+// the block and the chain's count live between products (the product
+// takes the 128 registers; y held beside it spilled).
+__global__ void __launch_bounds__(THREADS, 4)
 mm2d_kernel(const int* __restrict__ a, const int* __restrict__ b,
-            int* __restrict__ out, const int* __restrict__ consts, i64 T,
-            i64 tile, int chain) {
-  __shared__ int C[2 * NL];
-  stage_consts(consts, C, 2 * NL);
-  const i64 base = (i64)blockIdx.x * tile;
+            int* __restrict__ out, const FieldPN pn, unsigned T,
+            unsigned tile, int chain) {
 #pragma unroll 1
-  for (i64 l = threadIdx.x; l < tile; l += blockDim.x) {
-    const i64 t = base + l;
+  for (unsigned l = tid(); l < tile; l += THREADS) {
+    const unsigned t = ctaid_x() * tile + l;
     if (t >= T) break;
-    int x[NL], y[NL], z[NL];
+    int x[NL];
 #pragma unroll
-    for (int k = 0; k < NL; ++k) {
-      x[k] = a[k * T + t];
-      y[k] = b[k * T + t];
-    }
+    for (int k = 0; k < NL; ++k) x[k] = a[(i64)k * T + t];
 #pragma unroll 1
     for (int i = 0; i < chain; ++i) {
-      mont_mul(x, y, C, z);
+      const int* pb = b + ctaid_x() * tile + l;
+      int y[NL];
 #pragma unroll
-      for (int k = 0; k < NL; ++k) x[k] = z[k];
+      for (int k = 0; k < NL; ++k) y[k] = pb[(i64)k * T];
+      mont_mul_karatsuba(x, y, pn.c, x);
     }
+    int* o = out + ctaid_x() * tile + l;
 #pragma unroll
-    for (int k = 0; k < NL; ++k) out[k * T + t] = x[k];
+    for (int k = 0; k < NL; ++k) o[(i64)k * T] = x[k];
   }
 }
 
@@ -126,27 +130,6 @@ mm3d_kernel(const int* __restrict__ a, const int* __restrict__ b,
 #pragma unroll
       for (int k = 0; k < NL; ++k) out[off + k * T + t] = z[k];
     }
-  }
-}
-
-// out (rows, B*h) = per segment b: x[:, b*2h + j] + x[:, b*2h + h + j],
-// x (rows, B*2h) contiguous; block (i, b) owns lanes [i*tile, (i+1)*tile)
-// of segment b's output half
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-fold2d_kernel(const int* __restrict__ x, int* __restrict__ out,
-              const int* __restrict__ consts, i64 B, i64 h, i64 tile) {
-  __shared__ int C[EC_CONSTS];
-  stage_consts(consts, C, EC_CONSTS);
-  const i64 b = blockIdx.y;
-  const i64 lane0 = (i64)blockIdx.x * tile;
-  const i64 L = B * 2 * h;
-#pragma unroll 1
-  for (i64 l = threadIdx.x; l < tile; l += blockDim.x) {
-    const i64 j = lane0 + l;
-    if (j >= h) break;
-    const int* p = x + b * 2 * h + j;
-    padd_point<K>(p, L, p + h, L, out + b * h + j, B * h, C);
   }
 }
 
@@ -282,11 +265,17 @@ fused_upsweep_kernel(const int* x, int* out, i64 m) {
 
 extern "C" {
 
-int zk_mm2d(const int* a, const int* b, int* out, const int* consts, i64 T,
+// pn: p and n' of the field (42 ints) in HOST memory
+int zk_mm2d(const int* a, const int* b, int* out, const int* pn, i64 T,
             i64 tile, int chain, void* stream) {
-  if (tile < 1 || chain < 0) return (int)cudaErrorInvalidValue;
-  mm2d_kernel<<<tiles_for(T, tile), THREADS, 0, (cudaStream_t)stream>>>(
-      a, b, out, consts, T, tile, chain);
+  if (tile < 1 || chain < 0 || T < 1 || T >= ((i64)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = tiles_for(T, tile);
+  if (tile > T) tile = T;  // one block either way
+  FieldPN f;
+  for (int k = 0; k < 2 * NL; ++k) f.c[k] = pn[k];
+  mm2d_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, out, f, (unsigned)T, (unsigned)tile, chain);
   return (int)cudaGetLastError();
 }
 
@@ -297,18 +286,6 @@ int zk_mm3d(const int* a, const int* b, int* out, const int* consts, i64 B,
   const dim3 grid(tiles_for(T, tile), tiles_for(B, blk));
   mm3d_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a, b, out, consts,
                                                           B, T, tile, blk);
-  return (int)cudaGetLastError();
-}
-
-int zk_fold2d(int k, const int* x, int* out, const int* consts, i64 B, i64 h,
-              i64 tile, void* stream) {
-  if (tile < 1 || B > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
-  const dim3 grid(tiles_for(h, tile), (unsigned)B);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1)
-    fold2d_kernel<1><<<grid, THREADS, 0, s>>>(x, out, consts, B, h, tile);
-  else
-    fold2d_kernel<2><<<grid, THREADS, 0, s>>>(x, out, consts, B, h, tile);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,11 @@
 """CUDA kernels over the limb-major core: build, bind, launch, count.
 
 Fifteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
-(mont_mul, the cooperative adds and scalar_mul), ``csrc/lm_ntt.cu`` (one
-NTT butterfly level), ``csrc/lm_chains.cu`` (fold_mul, inv, mont_chain),
-``csrc/lm_poseidon.cu`` (the Poseidon permutation) and
-``csrc/lm_layout.cu`` (the five of the layout experiments), and one
-composite of them:
+(mont_mul, the cooperative adds, scalar_mul and the layout experiments'
+fold2d), ``csrc/lm_ntt.cu`` (one NTT butterfly level),
+``csrc/lm_chains.cu`` (fold_mul, inv, mont_chain), ``csrc/lm_poseidon.cu``
+(the Poseidon permutation) and ``csrc/lm_layout.cu`` (the other four of
+the layout experiments), and one composite of them:
 
   ============  ============================================  =============
   wrapper       what it computes                              plain version
@@ -173,6 +173,7 @@ def _libs() -> tuple:
     lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
     lib.zk_occupancy.argtypes = [I, P]
     lib.zk_scalar_mul.argtypes = [I, P, P, P, L, L, I, L, P]
+    lib.zk_fold2d.argtypes = [I, P, P, L, L, L, P]
     chains = ctypes.CDLL(str(paths["lm_chains"]))
     chains.zk_fold_mul.argtypes = [P, P, P, L, L, P]
     chains.zk_inv.argtypes = [P, P, P, P, I] + [L] * 5 + [P]
@@ -180,7 +181,6 @@ def _libs() -> tuple:
     layout = ctypes.CDLL(str(paths["lm_layout"]))
     layout.zk_mm2d.argtypes = [P, P, P, P, L, L, I, P]
     layout.zk_mm3d.argtypes = [P, P, P, P, L, L, L, L, P]
-    layout.zk_fold2d.argtypes = [I, P, P, P, L, L, L, P]
     layout.zk_add_one.argtypes = [P, P, L, L, L, P]
     layout.zk_fused_upsweep.argtypes = [P, P, L, L, P]
     pos = ctypes.CDLL(str(paths["lm_poseidon"]))
@@ -190,7 +190,7 @@ def _libs() -> tuple:
     for fn in (lib.zk_mont_mul, nttl.zk_ntt_level, lib.zk_padd, lib.zk_fold_padd_levels,
                lib.zk_fold_padd_aa, lib.zk_occupancy, lib.zk_scalar_mul,
                chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
-               layout.zk_mm2d, layout.zk_mm3d, layout.zk_fold2d,
+               lib.zk_fold2d, layout.zk_mm2d, layout.zk_mm3d,
                layout.zk_add_one, layout.zk_fused_upsweep, pos.zk_poseidon):
         fn.restype = ctypes.c_int
     return lib, chains, layout, pos, nttl
@@ -230,7 +230,6 @@ _FIELD_CONSTS = {lm.FR.p: lm.pack_consts(lm.FR),
 # p and n' of each field in host memory: mont_mul passes them by value
 _FIELD_PN = {k: np.ascontiguousarray(v[:2 * lm.N_LIMBS, 0])
              for k, v in _FIELD_CONSTS.items()}
-_EC_CONSTS = ec_lm.pack_ec_consts()
 
 
 def _on_card(name: str, *ts: torch.Tensor) -> bool:
@@ -911,8 +910,9 @@ def mm2d_ref(a: torch.Tensor, b: torch.Tensor, tile: int, chain: int,
 def mm2d(a: torch.Tensor, b: torch.Tensor, tile: int, chain: int,
          fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
     """a, b: (21, T) flat lane axis -> a * b^chain, `chain` Montgomery
-    products x <- x*b in one pass (x stays in registers).  tile: lanes per
-    block of 128 threads; the grid has ceil(T / tile) blocks."""
+    products x <- x*b in one pass (x stays in registers; the Karatsuba
+    register product, p and n' passed by value).  tile: lanes per block of
+    128 threads; the grid has ceil(T / tile) blocks."""
     _geometry("mm2d", tile=tile)
     if chain < 0:
         raise ValueError(f"mm2d: chain must be >= 0, got {chain}")
@@ -921,13 +921,14 @@ def mm2d(a: torch.Tensor, b: torch.Tensor, tile: int, chain: int,
     if a.dim() != 2 or a.shape[0] != lm.N_LIMBS or a.shape != b.shape:
         raise ValueError(f"mm2d: expected two (21, T), got {tuple(a.shape)} "
                          f"{tuple(b.shape)}")
-    consts = _field_consts("mm2d", fs, a.device)
+    if fs.p not in _FIELD_PN:
+        raise ValueError("mm2d: kernel takes Fr or Fq only")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     if out.numel():
         rc = _layout().zk_mm2d(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               consts.data_ptr(), a.shape[1], tile, chain,
-                               _stream(a.device))
+                               _FIELD_PN[fs.p].ctypes.data, a.shape[1], tile,
+                               chain, _stream(a.device))
         _check(rc, "mm2d")
         LAUNCHES["mm2d"] += 1
     return out
@@ -983,8 +984,9 @@ def fold2d_ref(x: torch.Tensor, tile: int, kind: str,
 def fold2d(x: torch.Tensor, tile: int, kind: str, m: int) -> torch.Tensor:
     """x: (rows, B*m) projective points on a FLAT lane axis, B segments of
     m lanes -> (rows, B*m/2): within each segment b, lane b*m + j is added
-    to lane b*m + m/2 + j (one level of the sum tree).  tile: output lanes
-    per block of 128 threads; the grid is (ceil(m/2 / tile), B)."""
+    to lane b*m + m/2 + j (one level of the sum tree), on the cooperative
+    add of fold_padd.  tile: output lanes a block owns, walked 32 adds at
+    a time; the grid is (ceil(m/2 / tile), B)."""
     k = _k(kind)
     _geometry("fold2d", tile=tile)
     rows, B, h = _fold2d_args(x, kind, m)
@@ -993,10 +995,8 @@ def fold2d(x: torch.Tensor, tile: int, kind: str, m: int) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((rows, B * h), dtype=torch.int32, device=x.device)
     if out.numel():
-        consts = lm.const(_EC_CONSTS, x.device)
-        rc = _layout().zk_fold2d(k, x.data_ptr(), out.data_ptr(),
-                                 consts.data_ptr(), B, h, tile,
-                                 _stream(x.device))
+        rc = _lib().zk_fold2d(k, x.data_ptr(), out.data_ptr(), B, h, tile,
+                              _stream(x.device))
         _check(rc, "fold2d")
         LAUNCHES[f"fold2d/{kind}"] += 1
     return out

@@ -26,8 +26,11 @@ import functools
 import json
 import statistics
 import subprocess
+import time
 
 import torch
+
+from ..ops import ec_lm
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the 32-bit
 # non-tensor rate (67 T op/s float32, a multiply-add counted as two); the
@@ -39,11 +42,11 @@ INT_MADS_PER_CLK_SM, SMS = 64, 132
 
 # Multiply-adds, counted from csrc/.  The column sums of a product of two
 # 21-limb elements take 441 in the schoolbook (the one-thread chains,
-# fold_mul, Poseidon, the layout kernels, padd_point, and the warp inv,
-# whose lanes form the schoolbook's columns) and 342 with the one level of
-# Karatsuba of lm_device.cuh cols_add (the cooperative adds, mont_mul and
-# ntt_level, which also form the reduction's m*p with it); a reduction
-# adds the triangular m = t*n'.
+# fold_mul, Poseidon, mm3d, and the warp inv, whose lanes form the
+# schoolbook's columns) and 342 with the one level of Karatsuba of
+# lm_device.cuh cols_add (the cooperative adds and fold2d, mont_mul,
+# ntt_level and mm2d, which also form the reduction's m*p with it); a
+# reduction adds the triangular m = t*n'.
 COLS_SCHOOLBOOK, COLS_KARATSUBA, MAD_LOW = 441, 342, 231
 MAD_MONT = 2 * COLS_SCHOOLBOOK + MAD_LOW                # 1113
 MAD_MONT_KARATSUBA = 2 * COLS_KARATSUBA + MAD_LOW       # 915
@@ -56,12 +59,36 @@ _ADD_TERMS = {("padd", "g1"): (8, 3, 0), ("padd", "g2"): (0, 16, 6),
 def add_mads(form: str, kind: str, cols: int = COLS_KARATSUBA) -> int:
     """Multiply-adds of one EC add of `form` ("padd" or "padd_aa") in
     group `kind` whose column products take `cols` each: the cooperative
-    adds' Karatsuba by default (G1 11,091 / 7,431, G2 31,758 / 21,702), the
-    schoolbook for padd_point (G1 13,566 / 9,114, G2 39,480 / 27,048)."""
+    adds' Karatsuba by default (G1 11,091 / 7,431, G2 31,758 / 21,702), or
+    the schoolbook's (G1 13,566 / 9,114, G2 39,480 / 27,048)."""
     prods, lazy2, lazy4 = _ADD_TERMS[(form, kind)]
     red = MAD_LOW + cols
     return prods * (cols + red) + lazy2 * (2 * cols + red) + \
         lazy4 * (4 * cols + red)
+
+
+def bound_ms(nbytes: float, mads: float) -> tuple:
+    """Least time in ms for this work on the card, and what bounds it:
+    bytes over the H100's memory rate or multiply-adds over its 32-bit
+    rate, a multiply-add counted as two operations -> (ms, "bytes" or
+    "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * mads / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mm2d_work(T: int, chain: int) -> tuple:
+    """(bytes, multiply-adds) of mm2d on (21, T): a and b read and the
+    result written once, `chain` Karatsuba products a lane."""
+    return 4 * 3 * 21 * T, MAD_MONT_KARATSUBA * chain * T
+
+
+def fold2d_work(kind: str, B: int, m: int) -> tuple:
+    """(bytes, multiply-adds) of one fold2d level over (rows, B*m): every
+    input lane read and every output lane written once, B*m/2 cooperative
+    adds (Karatsuba)."""
+    rows = ec_lm.ROWS[kind]
+    return 4 * rows * (B * m + B * m // 2), add_mads("padd", kind) * B * m // 2
 
 
 def check(failed: list, name: str, ok: bool) -> None:
@@ -109,6 +136,10 @@ def event_ms(fn, runs: int = 10, warmup: int = 2) -> float:
 # never the last ones): the leading spins take that loss instead of the
 # kernels timed, and how many of each group it recorded is reported.
 SENTINELS = 64
+# Windows in which the profiler traced nothing: how many device_reading
+# profiles at most, and the pause before each retry.
+EMPTY_WINDOWS = 8
+EMPTY_PAUSE_S = 0.5
 
 
 def kernel_events(fn, runs: int = 20) -> tuple:
@@ -202,25 +233,43 @@ def device_reading(name: str, fn, nbytes: float, mads: float,
     ceiling of `mads` at the card's highest SM clock, when events are
     missing and it could not be scaled, or when the window stayed
     disturbed.  Prints one JSON line: the reading beside the event-burst
-    ms."""
+    ms.
+
+    A window in which the profiler recorded no device event at all, not
+    even a spin, is a window it failed to trace (seen on the card: three
+    such windows in a row, then whole ones again).  It is profiled again,
+    EMPTY_PAUSE_S apart, at most EMPTY_WINDOWS times; if every window
+    stays empty the reading is the event-burst ms (``"source":
+    "cuda_events"``: the kernels' time with the host's gaps between
+    launches, never less than their device time), else ``"source":
+    "profiler"``."""
     from ..ops.cuda import lm_kernels as K
 
     before = sum(K.LAUNCHES.values())
     fn()
     launches = sum(K.LAUNCHES.values()) - before
-    for attempt in range(1, attempts + 1):
+    attempt = empty = 0
+    while attempt < attempts or (empty and empty < EMPTY_WINDOWS):
+        if empty:
+            time.sleep(EMPTY_PAUSE_S)
+        attempt += 1
         events, (lead, tail) = kernel_events(fn, runs)
+        empty = empty + 1 if not events and lead + tail == 0 else 0
         ours = [us for n, us in events if not _torch_kernel(n)]
         disturbed = 2 * lead < SENTINELS
         if len(ours) >= launches * runs and not disturbed:
             break
+    burst = burst_ms(fn)
     dev_ms = sum(us for _, us in events) / runs / 1e3
     short = len(ours) < launches * runs
     scaled = short and not disturbed and bool(ours) and \
         len(ours) == len(events)
     if scaled:
         dev_ms = sum(ours) / len(ours) * launches / 1e3
-    res = {"reading": name, "device_ms": dev_ms, "burst_ms": burst_ms(fn),
+    if empty:
+        dev_ms, short, disturbed = burst, False, False
+    res = {"reading": name, "device_ms": dev_ms, "burst_ms": burst,
+           "source": "cuda_events" if empty else "profiler",
            "kernel_events": len(ours), "launches": launches * runs,
            "torch_events": len(events) - len(ours),
            "sentinels": f"lead {lead}/{SENTINELS}, tail {tail}/{SENTINELS}",

@@ -8,11 +8,15 @@ Swept (counterparts of the TPU experiments of the same names):
           `tile` lanes per block from 512 to 32,768; chains of 2 and 8
           show what a product costs once the operands are in registers
   mm3d    one product on (128, 21, 8192), a block owning (blk, tile)
-  fold2d  one G1 fold level on a flat (63, 128 * 8192) lane axis
+  fold2d  one G1 fold level on a flat (63, 128 * 8192) lane axis, on the
+          cooperative add, at `tile` output lanes per block from 32 (one
+          group of 32 adds, fold_padd's geometry) to 4096 (a block walking
+          128 groups)
 
 beside the production kernels mont_mul and fold_padd at the same sizes
-(mont_mul reads through general strides and recovers its coordinates from
-a flat index by 64-bit division; mm3d does neither).
+(mont_mul reads through general strides; mm3d does not) and on the same
+data (fold_padd folds the segmented (128, 63, 8192) view of fold2d's
+points: segmented against flat, on the same add).
 
 Every geometry's output is first held against the plain PyTorch version
 (exact equality); a geometry that differs is a FAIL and the run returns
@@ -40,9 +44,12 @@ from . import check_and_time, cli, verdict
 FULL = dict(T=1 << 20, tiles=(512, 2048, 8192, 32768),
             chains=((512, 2), (512, 8), (2048, 8)), B3=128,
             mm3d=((512, 8), (512, 1), (8192, 1)), B=128, m=8192,
-            fold_tiles=(512, 2048, 4096))
+            fold_tiles=(32, 512, 2048, 4096))
+# fold tiles: below, at and past one group of 32 adds (40: a block of two
+# groups, the second ragged), on segments of 40 output lanes
 SMALL = dict(T=256, tiles=(16, 64, 256), chains=((16, 2), (64, 8)), B3=4,
-             mm3d=((16, 2), (16, 1), (64, 1)), B=2, m=16, fold_tiles=(2, 8))
+             mm3d=((16, 2), (16, 1), (64, 1)), B=2, m=80,
+             fold_tiles=(2, 8, 32, 40))
 
 
 def random_limbs(rng, shape) -> np.ndarray:
@@ -93,11 +100,12 @@ def main(device=None, small: bool = False) -> int:
           lambda: K.mont_mul(a3, b3, lm.FQ), want3)
     del a2, b2, a3, b3, want3
 
-    # one fold level of (B, 63, m), segmented and flat
+    # one fold level of the same points, flat (rows, B*m) and segmented
+    # (B, rows, m)
     B, m = cfg["B"], cfg["m"]
     rows = ec_lm.ROWS["g1"]
-    x3 = torch.as_tensor(random_limbs(rng, (B, rows, m)), device=dev)
     x2 = torch.as_tensor(random_limbs(rng, (rows, B * m)), device=dev)
+    x3 = x2.reshape(rows, B, m).permute(1, 0, 2).contiguous()
     n_padd = B * m // 2
     timed(failed, dev, f"K.fold_padd g1 {tuple(x3.shape)}", n_padd,
           lambda: K.fold_padd(x3, "g1"), K.fold_padd_ref(x3, "g1"))

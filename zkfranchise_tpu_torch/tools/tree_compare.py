@@ -12,9 +12,11 @@ phases ``toolchain`` (the tree's own build), ``main_path`` (with
 the tree's ``scalar_mul`` at (rows, 128) with a 254-bit scalar shared by
 the lanes and, where the tree takes one, a scalar per lane (whole calls,
 CUDA events), and reading the device time of its ``mont_mul``, one NTT
-butterfly level, ``inv`` and ``batch_inv`` at the main path's shapes
-(``tools.device_reading``).  Phase ``profile`` is this tree's in both runs, so that both
-count the host's ops the same way.  Every line a run prints comes out as
+butterfly level, ``inv`` and ``batch_inv`` at the main path's shapes and
+of the layout experiments' ``fold2d`` (G1, G2) and ``mm2d`` (chains 1 and
+8) at the layout tool's (``tools.device_reading``).  Phase ``profile`` is
+this tree's in both runs, so that both count the host's ops the same
+way.  Every line a run prints comes out as
 one JSON object tagged with the run ("parent", "change", "change2",
 "parent2"); the last line sums up each run's stage seconds, proofs/s,
 device busy time and idle share, host ops, launches per ``prove_arrays``,
@@ -82,10 +84,14 @@ def _slice_readings(np, torch, K, dev) -> None:
     """mont_mul at (8192, 21, 128) x (8192, 21, 1) Fr, one NTT butterfly
     level at (16384, 21, T) Fr for T = 128 and 4 (the tree's ntt_level,
     or the loop body of its _transform where it has none), inv at (21,
-    128) Fq and batch_inv at (128, 21, 16384) Fq, as the tree runs them:
-    device ms through tools.device_reading (one JSON line each)."""
+    128) Fq, batch_inv at (128, 21, 16384) Fq, fold2d at (rows, 2^20), m
+    8192, G1 and G2, and mm2d at (21, 2^20) Fq, chains 1 and 8, both at
+    tile 512, as the tree runs them: device ms through
+    tools.device_reading (one JSON line each).  fold2d's adds are formulas
+    without branches, so random limbs time them as points would."""
     from zkfranchise_tpu_torch.ops import lm, ntt
-    from zkfranchise_tpu_torch.tools import device_reading
+    from zkfranchise_tpu_torch.tools import MAD_MONT_KARATSUBA, add_mads, \
+        device_reading
 
     rng = np.random.default_rng(10)
 
@@ -118,6 +124,19 @@ def _slice_readings(np, torch, K, dev) -> None:
     d = limbs((128, 21, 16384))
     device_reading("batch_inv/fq/128x21x16384",
                    lambda: K.batch_inv(d, lm.FQ), 8 * d.numel(), 0)
+    del d
+    T = 1 << 20
+    for kind, rows in (("g1", 63), ("g2", 126)):
+        x = limbs((rows // 21, 21, T)).reshape(rows, T)
+        device_reading(f"fold2d/{kind}/{rows}x{T}/m8192/tile512",
+                       lambda: K.fold2d(x, 512, kind, 8192),
+                       6 * x.numel(), add_mads("padd", kind) * T // 2)
+        del x
+    a, b = limbs((21, T)), limbs((21, T))
+    for chain in (1, 8):
+        device_reading(f"mm2d/fq/21x{T}/chain{chain}/tile512",
+                       lambda: K.mm2d(a, b, 512, chain), 12 * a.numel(),
+                       MAD_MONT_KARATSUBA * chain * T)
 
 
 def summary(lines: list) -> dict:
