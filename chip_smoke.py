@@ -7,14 +7,17 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
 
   1. prints the toolchain, the card, the build time, each kernel's
      registers and spills (from ``nvcc -Xptxas -v``; a cooperative add,
-     the scalar_mul ladder, the Poseidon kernel, mont_mul, ntt_level, inv
-     or mm2d that spills fails the run), the resident blocks per SM of the
-     cooperative kernels and the SASS instruction mix of those kernels;
+     the scalar_mul ladder, the Poseidon kernel, mont_mul, ntt_level, inv,
+     mm2d, mont_chain or a batch_inv kernel that spills fails the run),
+     the resident blocks per SM of the cooperative kernels and the SASS
+     instruction mix of those kernels;
   2. holds every kernel against its plain PyTorch version on the card at
      the shapes its path gives it (mont_mul at its operand patterns,
      ntt_level at every level of the forward and inverse 2^14 schedules
      with 128 and 4 lanes beside the level it replaced, inv at 1, 128 and
-     129 lanes beside a mont_chain of as many products, padd at the five
+     129 lanes beside a mont_chain of as many products, batch_inv at
+     (128, 21, 16384) launch by launch and as a whole, and at every width
+     2^0 .. 2^14 the affine tree calls it with, padd at the five
      plane shapes of
      tools.padd_shapes, the folds at every width of the sum tree and at
      every several-level launch of its plan, tools.fold_shapes, the
@@ -28,7 +31,8 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      launches);
   3. folds a G1 affine plane of (128, 43, 32768) and a G2 plane of
      (128, 85, 8192) to width 1 with ec_affine.fold_affine (one batch
-     inversion per level: the fold_mul, inv and mont_mul kernels) and
+     inversion per level: fold_mul_levels, batch_inv_top and
+     batch_inv_down, and mont_mul for the fold's own products) and
      holds all 128 totals against the projective tree (fold_padd_aa, then
      fold_padd), with seconds per tree for both routes;
   4. runs the three tools (tools.verify_kernels, tools.verify_lm,
@@ -93,10 +97,14 @@ KERNELS = {
                   ["fold_padd/g1", "fold_padd/g2"]),
     "fold_padd_aa": (_CSRC + "lm_kernels.cu", _PALLAS + ":163", "main_path",
                      ["fold_padd_aa/g1", "fold_padd_aa/g2"]),
+    # fold_mul at one level, and at several (batch_inv's walk up)
     "fold_mul": (_CSRC + "lm_chains.cu", _PALLAS + ":269", "affine_tree",
                  ["fold_mul"]),
-    "inv": (_CSRC + "lm_chains.cu", _PALLAS + ":316", "affine_tree",
+    "inv": (_CSRC + "lm_chains.cu", _PALLAS + ":316", "verify_tools",
             ["inv"]),
+    # its own top and walk down; the walk up counts as fold_mul
+    "batch_inv": (_CSRC + "lm_chains.cu", _PALLAS + ":334", "affine_tree",
+                  ["batch_inv/top", "batch_inv/down"]),
     "mont_chain": (_CSRC + "lm_chains.cu", "scripts/micro_montmul.py:36",
                    "verify_tools", ["mont_chain"]),
     "scalar_mul": (_CSRC + "lm_kernels.cu", "scripts/verify_lm_device.py:58",
@@ -121,9 +129,11 @@ PATH_KERNELS = {
                   "fold_padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2",
                   "poseidon/t3", "poseidon/t4", "poseidon/t5",
                   "scalar_mul/g1"],
-    "affine_tree": ["fold_mul", "inv", "mont_mul"],
+    "affine_tree": ["fold_mul", "batch_inv/top", "batch_inv/down",
+                    "mont_mul"],
     "verify_tools": ["mont_chain", "scalar_mul/g1", "scalar_mul/g2",
-                     "fold_mul", "inv", "mont_mul", "padd/g1", "padd/g2",
+                     "fold_mul", "inv", "batch_inv/top", "batch_inv/down",
+                     "mont_mul", "padd/g1", "padd/g2",
                      "fold_padd/g1", "fold_padd/g2", "fold_padd_aa/g1",
                      "fold_padd_aa/g2"],
     "layout_tools": ["mm2d", "mm3d", "fold2d/g1", "add_one", "fused_upsweep",
@@ -193,7 +203,10 @@ def phase_toolchain(torch, K) -> None:
                    "flat_group", "ladder_kernel", "prod", "poseidon_kernel")
     # kernels that fail the run if they spill
     no_spill = cooperative + ("mont_mul_kernel", "ntt_level_kernel",
-                              "inv_kernel", "mm2d_kernel")
+                              "inv_kernel", "mm2d_kernel",
+                              "mont_chain_kernel", "fold_mul_levels_kernel",
+                              "batch_inv_top_kernel",
+                              "batch_inv_down_kernel")
     mix = {name: m for lib in ("lm_kernels", "lm_ntt", "lm_chains",
                                "lm_layout")
            for name, m in sass_mix(libs[lib]).items()
@@ -273,7 +286,7 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
 def phase_kernels(np, torch, K, dev) -> dict:
     from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
     from zkfranchise_tpu_torch.tools import MAD_MONT, MAD_MONT_KARATSUBA, \
-        add_mads, bound_ms, device_reading, event_ms
+        add_mads, bound_ms, device_reading, event_ms, mont_chain_work
     from zkfranchise_tpu_torch.tools import fold_shapes
     from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
 
@@ -418,26 +431,20 @@ def phase_kernels(np, torch, K, dev) -> dict:
                              f"{failed}")
     torch.cuda.empty_cache()
 
-    # the batch inversion at the width of the affine tree's level 0
+    # the batch inversion at the width of the affine tree's level 0: the
+    # one-level fold_mul, batch_inv launch by launch and as a whole, and at
+    # every width the tree calls it with
     x = torch.as_tensor(_random_limbs(np, rng, (B, 21, 32768)), device=dev)
     check(f"fold_mul/fq/{B}x21x32768", lambda: K.fold_mul(x, lm.FQ),
           lambda: K.fold_mul_ref(x, lm.FQ), 4 * 21 * (32768 + 16384) * B,
           MAD_MONT * B * 16384, "fold_mul")
-    d = x[..., :16384].contiguous()
-    # the tree up (fold_mul), the chain over the roots (inv), two products
-    # a lane down (mont_mul)
-    check(f"batch_inv/fq/{B}x21x16384 (composite)",
-          lambda: K.batch_inv(d, lm.FQ), lambda: K.batch_inv_ref(d, lm.FQ),
-          4 * 21 * 2 * 16384 * B,
-          B * (MAD_MONT * (16384 - 1 + chain) +
-               MAD_MONT_KARATSUBA * 2 * (16384 - 1)),
-          "batch_inv", plain_runs=3)
-    del x, d
+    del x
     # the Fermat chain: 253 squares (the last is not needed) and a product
     # per set bit of p - 2, a warp a lane, at 1 lane, the batch's 128 and
     # 129 (a block more than the SMs a lane takes), a zero lane in each;
-    # beside it a mont_chain of 364 dependent products at 128 lanes, one
-    # thread a lane (how inv ran before)
+    # beside it the yardstick, a mont_chain of 364 dependent products at
+    # 128 lanes, one thread a lane, as inv's chain ran before it took a warp
+    # a lane (the Karatsuba register product since mont_chain runs mm2d's)
     for T in (1, B, B + 1):
         a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
         a[:, T // 2] = 0                                 # inv(0) = 0
@@ -449,7 +456,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
     yard = device_reading(f"mont_chain/fq/21x{B}x364 (inv's yardstick)",
                           lambda: K.mont_chain(a[:, :B], a[:, :B], 364,
                                                lm.FQ),
-                          4 * 3 * 21 * B, MAD_MONT * 364 * B)
+                          *mont_chain_work(B, 364))
     for key in ("inv", "inv/T1", f"inv/T{B + 1}"):
         row = table[key]
         row.update(products=chain, product_us=row["device_ms"] / chain * 1e3,
@@ -457,14 +464,15 @@ def phase_kernels(np, torch, K, dev) -> dict:
                    critical_path_invalid=yard["invalid"],
                    chain_product_us=yard["device_ms"] / 364 * 1e3)
         results[row["shape"]].update(row)
+    _batch_inv(np, torch, K, dev, rng, check, results, table)
     # the chains of the tools
     T, iters = 128 * 1024, 20
     a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
     b = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
     check(f"mont_chain/fq/21x{T}x{iters}",
           lambda: K.mont_chain(a, b, iters, lm.FQ),
-          lambda: K.mont_chain_ref(a, b, iters, lm.FQ), 4 * 3 * 21 * T,
-          MAD_MONT * iters * T, "mont_chain")
+          lambda: K.mont_chain_ref(a, b, iters, lm.FQ),
+          *mont_chain_work(T, iters), "mont_chain")
     del a, b
     _ladders(np, torch, K, dev, rng, check, results, table)
     _poseidon(np, torch, K, dev, rng, check, results, table)
@@ -550,6 +558,97 @@ def _ntt_levels(np, torch, K, dev, rng, check, results, table) -> None:
         results[table[key]["shape"]].update(summary)
 
 
+BATCH_INV_X = 16384                     # the affine tree's widest call
+
+
+def _batch_inv(np, torch, K, dev, rng, check, results, table) -> None:
+    """batch_inv at (128, 21, 16384), the G1 tree's level 0: the whole call
+    against batch_inv_ref (the table's row, with its launches a call, the
+    latency floor: the chain's reading plus the products at the integer
+    ceiling); each launch of batch_inv_plan against its plain version from
+    the same buffer, and its device ms; then every width 2^0 .. 2^14 at
+    B = 128 (the widths the affine tree calls it with), each held against
+    batch_inv_ref with torch.equal and read, one "batch_inv_widths"
+    line."""
+    from zkfranchise_tpu_torch.ops import lm
+    from zkfranchise_tpu_torch.tools import MAD_MONT_KARATSUBA, \
+        batch_inv_step_work, batch_inv_work, bound_ms, device_reading, \
+        int_ceiling_ms, max_sm_mhz
+
+    B = BATCH
+    steps = {"fold_mul_levels": (K.fold_mul_levels, K.fold_mul_levels_ref),
+             "top": (K.batch_inv_top, K.batch_inv_top_ref),
+             "down": (K.batch_inv_down, K.batch_inv_down_ref)}
+
+    def inputs(X):
+        d = torch.as_tensor(_random_limbs(np, rng, (B, 21, X)), device=dev)
+        d[:, 0, :] |= 1               # no zero lane: the caller maps them
+        return d
+
+    X = BATCH_INV_X
+    d = inputs(X)
+    check(f"batch_inv/fq/{B}x21x{X}", lambda: K.batch_inv(d, lm.FQ),
+          lambda: K.batch_inv_ref(d, lm.FQ), *batch_inv_work(B, X),
+          "batch_inv", plain_runs=3)
+    K.reset_launches()
+    K.batch_inv(d, lm.FQ)
+    per_call = {k: v for k, v in K.LAUNCHES.items() if v}
+    heap, each = torch.empty_like(d), []
+    for kernel, lo, levels, grid, threads, smem in K.batch_inv_plan(B, X):
+        run, plain = steps[kernel]
+        args = (lo,) if kernel == "top" else (lo, levels)
+        mine, want = heap.clone(), heap.clone()
+        run(d, mine, *args, lm.FQ)
+        plain(d, want, *args, lm.FQ)
+        if not torch.equal(mine, want):
+            raise AssertionError(f"batch_inv {kernel} from level {lo}: "
+                                 f"kernel differs from plain version")
+        scratch = mine.clone()
+        work = batch_inv_step_work(kernel, lo, levels, B, X)
+        r = device_reading(f"batch_inv/{kernel}/lo{lo}/n{levels}",
+                           lambda: run(d, scratch, *args, lm.FQ), *work)
+        each.append({"kernel": kernel, "lo": lo, "levels": levels,
+                     "grid": list(grid), "threads": threads,
+                     "shared_bytes": smem, "device_ms": r["device_ms"],
+                     "invalid": r["invalid"], "bound_ms": bound_ms(*work),
+                     "int_ceiling_ms": r["int_ceiling_ms"]})
+        heap = mine
+        del want, scratch
+    mhz = max_sm_mhz()
+    _, mads = batch_inv_work(B, X)
+    products_ms = int_ceiling_ms(MAD_MONT_KARATSUBA * 3 * (X - 1) * B, mhz)
+    row = {"launches_per_call": per_call, "each_launch": each,
+           "int_ceiling_ms": int_ceiling_ms(mads, mhz),
+           "latency_floor_ms": table["inv"]["device_ms"] + products_ms,
+           "products_int_ceiling_ms": products_ms}
+    table["batch_inv"].update(row)
+    results[table["batch_inv"]["shape"]].update(row)
+    del d, heap, mine
+    widths = []
+    for n in range(BATCH_INV_X.bit_length()):
+        X = 1 << n
+        d = inputs(X)
+        K.reset_launches()
+        got = K.batch_inv(d, lm.FQ)
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        equal = bool(torch.equal(got, K.batch_inv_ref(d, lm.FQ)))
+        r = device_reading(f"batch_inv/fq/{B}x21x{X}",
+                           lambda: K.batch_inv(d, lm.FQ),
+                           *batch_inv_work(B, X))
+        widths.append({"X": X, "equal": equal,
+                       "launches": sum(launches.values()),
+                       "by_kernel": launches, "device_ms": r["device_ms"],
+                       "invalid": r["invalid"]})
+        del d, got
+    emit({"phase": "kernels", "batch_inv_widths": widths})
+    table["batch_inv"]["widths_device_ms"] = {w["X"]: w["device_ms"]
+                                              for w in widths}
+    bad = [w["X"] for w in widths if not w["equal"]]
+    if bad:
+        raise AssertionError(f"batch_inv differs from batch_inv_ref at "
+                             f"widths {bad}")
+
+
 def _ladders(np, torch, K, dev, rng, check, results, table) -> None:
     """scalar_mul at the assembly's shape, 128 lanes and 254 bits, with a
     scalar per lane (the table's row) and one for all lanes (the tools'),
@@ -597,11 +696,13 @@ def _poseidon(np, torch, K, dev, rng, check, results, table) -> None:
     lanes (the batch) and 4 (the stream's last slice), with its trace,
     against the plain version.  The yardstick is the critical path: a
     mont_chain of as many dependent products (a round's S-box and its row
-    of the mix, 3 + t) at the same width, timed here."""
+    of the mix, 3 + t) at the same width, timed here (the Karatsuba
+    register product, one thread a lane)."""
     from zkfranchise_tpu_torch.ops import lm
     from zkfranchise_tpu_torch.ops.poseidon_constants import N_ROUNDS_F, \
         N_ROUNDS_P
-    from zkfranchise_tpu_torch.tools import MAD_MONT, device_reading
+    from zkfranchise_tpu_torch.tools import MAD_MONT, device_reading, \
+        mont_chain_work
 
     for T in (BATCH, 4):
         for t in K.POSEIDON_WIDTHS:
@@ -629,8 +730,8 @@ def _poseidon(np, torch, K, dev, rng, check, results, table) -> None:
             a = torch.as_tensor(_random_limbs(np, rng, (21, T)), device=dev)
             chain = device_reading(
                 f"mont_chain/fr/21x{T}x{depth} (the permutation's chain)",
-                lambda: K.mont_chain(a, a, depth, lm.FR), 4 * 3 * 21 * T,
-                MAD_MONT * depth * T)
+                lambda: K.mont_chain(a, a, depth, lm.FR),
+                *mont_chain_work(T, depth))
             yard = {"chain_products": depth,
                     "critical_path_ms": chain["device_ms"],
                     "critical_path_invalid": chain["invalid"],
@@ -649,7 +750,7 @@ def _layout_kernels(np, torch, K, dev, rng, check, results, table) -> None:
     plane (vs_segmented: fold2d's device ms over fold_padd's)."""
     from zkfranchise_tpu_torch.ops import ec_lm, lm
     from zkfranchise_tpu_torch.tools import MAD_MONT, MAD_MONT_KARATSUBA, \
-        device_reading, fold2d_work, mm2d_work
+        device_reading, fold2d_work, mont_chain_work
     from zkfranchise_tpu_torch.tools.layout_expt2 import level_adds
 
     T = 1 << 20
@@ -661,7 +762,7 @@ def _layout_kernels(np, torch, K, dev, rng, check, results, table) -> None:
             check(f"mm2d/fq/21x{T}/chain{chain}/tile{tile}",
                   lambda: K.mm2d(a, b, tile, chain),
                   lambda: K.mm2d_ref(a, b, tile, chain),
-                  *mm2d_work(T, chain), key, plain_runs=3)
+                  *mont_chain_work(T, chain), key, plain_runs=3)
     a3, b3 = a.reshape(128, 21, T // 128), b.reshape(128, 21, T // 128)
     for i, (tile, blk) in enumerate(((512, 1), (512, 8), (8192, 1))):
         check(f"mm3d/fq/128x21x{T // 128}/tile{tile}/blk{blk}",
@@ -1223,11 +1324,8 @@ def main() -> int:
             if key.startswith(name + "/"):
                 entry[key.split("/", 1)[1]] = table[key]
         kernels.append(entry)
-    composite = dict(name="batch_inv", composite_of=["fold_mul", "inv",
-                                                     "mont_mul"],
-                     replaces=_PALLAS + ":334", **table["batch_inv"])
     print(smi_line())
-    emit({"kernels": kernels, "composites": [composite]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

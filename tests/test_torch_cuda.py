@@ -247,28 +247,86 @@ def test_fold_mul_and_inv(dev, field):
     assert torch.equal(prod, want)
 
 
-@pytest.mark.parametrize("width", [1, 2, 256])
-def test_batch_inv(dev, width):
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("width", [1, 2, 32, 64, 1024, 16384])
+def test_batch_inv(dev, width, B):
+    """The launches batch_inv_plan makes (fold_mul_levels counted as
+    fold_mul, the top, the walks down; no inv, no mont_mul), and the
+    limbs of the plain version's."""
     rng = np.random.default_rng(4)
-    d = _limbs(rng, (5, 21, width), dev)
+    d = _limbs(rng, (B, 21, width), dev)
     d[..., 0, :] |= 1                                       # no zero lane
     K.reset_launches()
     got = K.batch_inv(d, lm.FQ)
-    levels = width.bit_length() - 1
-    assert (K.LAUNCHES["fold_mul"], K.LAUNCHES["inv"],
-            K.LAUNCHES["mont_mul"]) == (levels, 1, 2 * levels)
+    kinds = [p[0] for p in K.batch_inv_plan(B, width)]
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          "fold_mul": kinds.count("fold_mul_levels"),
+                          "batch_inv/top": 1,
+                          "batch_inv/down": kinds.count("down")}
+    assert len(kinds) <= 6 and (len(kinds) == 1) == (width <= 32)
     assert torch.equal(got, K.batch_inv_ref(d, lm.FQ))
-    assert torch.equal(got.cpu(), K.batch_inv(d.cpu(), lm.FQ))
+    if width <= 1024:
+        assert torch.equal(got.cpu(), K.batch_inv(d.cpu(), lm.FQ))
 
 
-def test_mont_chain(dev):
+def test_batch_inv_launches_take_the_plans_geometry(dev):
+    """The entry points launch the columns and shared bytes they are
+    given and refuse any that the kernels cannot take: too little shared
+    memory for the strips (or the stage slots going down), columns other
+    than 32 or 64 or wider than the launch's top level, a top kernel's
+    shared bytes other than its static ones."""
+    rng = np.random.default_rng(4)
+    B, X = 2, 1024
+    d = _limbs(rng, (B, 21, X), dev)
+    d[..., 0, :] |= 1
+    heap = torch.zeros_like(d)
+    chains = K._chains()
+    pn = K._FIELD_PN[lm.FQ.p].ctypes.data
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = K.batch_inv_plan(B, X)
+    assert [p[0] for p in plan] == ["fold_mul_levels", "top", "down"]
+    _, lo, k, _, _, smem = plan[0]
+    cols = K.inv_cols(X, lo, k)
+
+    def up(cols, smem):
+        return chains.zk_fold_mul_levels(d.data_ptr(), heap.data_ptr(), pn,
+                                         B, X, lo, k, cols, smem, stream)
+
+    def down(cols, smem):
+        return chains.zk_batch_inv_down(d.data_ptr(), heap.data_ptr(), pn,
+                                        B, X, lo, k, cols, smem, stream)
+
+    down_smem = plan[2][5]
+    for bad in ((cols, smem - 4), (48, smem), (X >> (lo + k) << 1, smem)):
+        assert up(*bad) != 0
+    assert down(cols, down_smem - 4) != 0 and down(cols, smem) != 0
+    assert up(cols, smem) == 0
+    torch.cuda.synchronize()
+    want = torch.zeros_like(d)
+    K.fold_mul_levels_ref(d, want, lo, k, lm.FQ)
+    assert torch.equal(heap, want)
+    consts = K._field_consts("t", lm.FQ, dev)
+    bits = lm.const(lm.FQ.p_minus_2_bits, dev)
+    for smem_top, ok in ((K.INV_TOP_SMEM, True), (K.INV_TOP_SMEM + 4, False)):
+        rc = chains.zk_batch_inv_top(d.data_ptr(), heap.data_ptr(),
+                                     consts.data_ptr(), bits.data_ptr(),
+                                     bits.shape[0], B, X, plan[1][1],
+                                     smem_top, stream)
+        assert (rc == 0) == ok
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("T,iters", [(130, 0), (130, 1), (130, 5),
+                                     (130, 20), (128, 364), (131072, 20)])
+def test_mont_chain(dev, T, iters):
+    """mm2d's body one lane a thread: a ragged last block, no product,
+    inv's 364 and the tool's (21, 131072) x 20."""
     rng = np.random.default_rng(5)
-    a, b = _limbs(rng, (21, 130), dev), _limbs(rng, (21, 130), dev)
+    a, b = _limbs(rng, (21, T), dev), _limbs(rng, (21, T), dev)
     K.reset_launches()
-    for iters in (0, 1, 5):
-        assert torch.equal(K.mont_chain(a, b, iters, lm.FQ),
-                           K.mont_chain_ref(a, b, iters, lm.FQ))
-    assert K.LAUNCHES["mont_chain"] == 3
+    assert torch.equal(K.mont_chain(a, b, iters, lm.FQ),
+                       K.mont_chain_ref(a, b, iters, lm.FQ))
+    assert K.LAUNCHES["mont_chain"] == 1
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])

@@ -149,12 +149,13 @@ def test_device_reading_marks_readings_no_card_can_give(
 @pytest.mark.parametrize("work,want_ms,by", [
     (("fold2d", "g1", 128, 8192), 0.1736, "operations"),
     (("fold2d", "g2", 128, 8192), 0.4970, "operations"),
-    (("mm2d", 1 << 20, 8), 0.2291, "operations"),
-    (("mm2d", 1 << 20, 1), 0.0789, "bytes")])
+    (("mont_chain", 1 << 20, 8), 0.2291, "operations"),
+    (("mont_chain", 1 << 20, 1), 0.0789, "bytes")])
 def test_layout_bounds_count_the_karatsuba_work(work, want_ms, by):
     """The bounds of fold2d and mm2d at the layout tool's full sizes, as
     chip_smoke.py computes them: the cooperative add's and the register
-    product's Karatsuba multiply-adds (add_mads, MAD_MONT_KARATSUBA)."""
+    product's Karatsuba multiply-adds (add_mads, MAD_MONT_KARATSUBA; mm2d
+    runs mont_chain's function, so mont_chain_work counts it)."""
     from zkfranchise_tpu_torch import tools
 
     name, *args = work
@@ -220,3 +221,35 @@ def test_tree_compare_keeps_what_a_tree_prints_beside_the_stages():
     assert got["peak_memory_bytes"] == 5
     assert got["mont_launches_by_shape"] == {"full*col/R16384/T128": 6}
     assert got["launches_per_prove_arrays"] == {"ntt_level": 84}
+
+
+def test_mont_chain_bound_counts_the_karatsuba_product():
+    """mont_chain runs mm2d's Karatsuba register product: at the tool's
+    (21, 131072) x 20, 915 multiply-adds a product, 0.0716 ms of
+    operations and a 0.1434 ms integer ceiling at 1,980 MHz."""
+    from zkfranchise_tpu_torch import tools
+
+    nbytes, mads = tools.mont_chain_work(131072, 20)
+    assert mads == 915 * 20 * 131072 == tools.MAD_MONT_KARATSUBA * 20 * 131072
+    ms, by = tools.bound_ms(nbytes, mads)
+    assert ms == pytest.approx(0.0716, abs=5e-5) and by == "operations"
+    assert tools.int_ceiling_ms(mads, 1980) == pytest.approx(0.1434,
+                                                             abs=5e-5)
+
+
+def test_tree_compare_keeps_the_affine_trees_seconds():
+    """Phase affine_tree's seconds per tree (affine and projective, G1
+    and G2) and its peak memory; its failure line (no peak) is left out."""
+    line = {"phase": "affine_tree", "nvidia_smi": "H100, 700.00 W",
+            "g1": {"affine_tree_s": [0.2, 0.15],
+                   "projective_tree_s": [0.01, 0.006]},
+            "g2": {"affine_tree_s": [0.3, 0.11],
+                   "projective_tree_s": [0.008, 0.004]},
+            "peak_memory_bytes": 7, "launches": {"fold_mul": 56}}
+    got = tree_compare.summary([line])
+    assert got["affine_tree"] == {
+        "g1": {"affine_s": [0.2, 0.15], "projective_s": [0.01, 0.006]},
+        "g2": {"affine_s": [0.3, 0.11], "projective_s": [0.008, 0.004]},
+        "peak_memory_bytes": 7}
+    failed = {"phase": "affine_tree", "g1": line["g1"]}
+    assert "affine_tree" not in tree_compare.summary([failed])

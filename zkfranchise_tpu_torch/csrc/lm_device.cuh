@@ -201,6 +201,40 @@ __device__ __forceinline__ int ctaid_y() {
   return c;
 }
 
+// out (21, T) = a * b^chain over the lanes [ctaid_x()*tile, (ctaid_x()+1)*
+// tile) that a block of THREADS threads owns, a and b (21, T) contiguous,
+// T < 2^31: the body of mm2d_kernel and mont_chain_kernel.  x lives in
+// registers for the whole chain; b is read again (from L1) for every
+// product, its lane recomputed from the block index, so that only x, the
+// lane's offset in the block and the chain's count live between products
+// (the Karatsuba product takes the 128 registers that four blocks an SM
+// allow; y held beside it spilled).
+__device__ __forceinline__ void chain_tile(const int* __restrict__ a,
+                                           const int* __restrict__ b,
+                                           int* __restrict__ out,
+                                           const FieldPN& pn, unsigned T,
+                                           unsigned tile, int chain) {
+#pragma unroll 1
+  for (unsigned l = tid(); l < tile; l += THREADS) {
+    const unsigned t = ctaid_x() * tile + l;
+    if (t >= T) break;
+    int x[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) x[k] = a[(i64)k * T + t];
+#pragma unroll 1
+    for (int i = 0; i < chain; ++i) {
+      const int* pb = b + ctaid_x() * tile + l;
+      int y[NL];
+#pragma unroll
+      for (int k = 0; k < NL; ++k) y[k] = pb[(i64)k * T];
+      mont_mul_karatsuba(x, y, pn.c, x);
+    }
+    int* o = out + ctaid_x() * tile + l;
+#pragma unroll
+    for (int k = 0; k < NL; ++k) o[(i64)k * T] = x[k];
+  }
+}
+
 // s[0, n) = g[0, n) by every thread of the block (1-D or 2-D), then a
 // barrier
 __device__ __forceinline__ void stage_consts(const int* g, int* s, int n) {

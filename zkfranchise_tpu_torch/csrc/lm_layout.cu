@@ -72,34 +72,13 @@ static unsigned tiles_for(i64 n, i64 tile) {
 }
 
 // out (21, T) = a * b^chain, a and b (21, T) contiguous, T < 2^31; block i
-// owns lanes [i*tile, (i+1)*tile), tile <= T.  x lives in registers for
-// the whole chain; b is read again (from L1) for every product, its lane
-// recomputed from the block index, so that only x, the lane's offset in
-// the block and the chain's count live between products (the product
-// takes the 128 registers; y held beside it spilled).
+// owns lanes [i*tile, (i+1)*tile), tile <= T (lm_device.cuh chain_tile,
+// the body zk_mont_chain runs with one lane a thread)
 __global__ void __launch_bounds__(THREADS, 4)
 mm2d_kernel(const int* __restrict__ a, const int* __restrict__ b,
             int* __restrict__ out, const FieldPN pn, unsigned T,
             unsigned tile, int chain) {
-#pragma unroll 1
-  for (unsigned l = tid(); l < tile; l += THREADS) {
-    const unsigned t = ctaid_x() * tile + l;
-    if (t >= T) break;
-    int x[NL];
-#pragma unroll
-    for (int k = 0; k < NL; ++k) x[k] = a[(i64)k * T + t];
-#pragma unroll 1
-    for (int i = 0; i < chain; ++i) {
-      const int* pb = b + ctaid_x() * tile + l;
-      int y[NL];
-#pragma unroll
-      for (int k = 0; k < NL; ++k) y[k] = pb[(i64)k * T];
-      mont_mul_karatsuba(x, y, pn.c, x);
-    }
-    int* o = out + ctaid_x() * tile + l;
-#pragma unroll
-    for (int k = 0; k < NL; ++k) o[(i64)k * T] = x[k];
-  }
+  chain_tile(a, b, out, pn, T, tile, chain);
 }
 
 // out (B, 21, T) = a * b, all three contiguous; block (i, j) owns batch

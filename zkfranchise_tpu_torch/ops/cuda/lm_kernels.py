@@ -1,11 +1,12 @@
 """CUDA kernels over the limb-major core: build, bind, launch, count.
 
-Fifteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
+Eighteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
 (mont_mul, the cooperative adds, scalar_mul and the layout experiments'
 fold2d), ``csrc/lm_ntt.cu`` (one NTT butterfly level),
-``csrc/lm_chains.cu`` (fold_mul, inv, mont_chain), ``csrc/lm_poseidon.cu``
-(the Poseidon permutation) and ``csrc/lm_layout.cu`` (the other four of
-the layout experiments), and one composite of them:
+``csrc/lm_chains.cu`` (fold_mul at one and at several levels, inv,
+batch_inv's top and walk down, mont_chain), ``csrc/lm_poseidon.cu`` (the
+Poseidon permutation) and ``csrc/lm_layout.cu`` (the other four of the
+layout experiments):
 
   ============  ============================================  =============
   wrapper       what it computes                              plain version
@@ -20,7 +21,13 @@ the layout experiments), and one composite of them:
     levels      (fold_padd is its one-level case)               levels_ref
   fold_padd_aa  the same from AFFINE planes -> projective     fold_padd_aa_ref
   fold_mul      x[..., :m/2] * x[..., m/2:], Fr or Fq         fold_mul_ref
+  fold_mul_     levels of batch_inv's product tree into its   fold_mul_
+    levels      buffer, up to 5 in ONE launch                   levels_ref
   inv           a^(p-2) = 1/a (inv(0) = 0), Fr or Fq          inv_ref
+  batch_inv_    batch_inv's narrow levels (<= 32 lanes), the  batch_inv_
+    top         root's Fermat chain and the walk back down      top_ref
+  batch_inv_    batch_inv's walk down, up to 5 levels a        batch_inv_
+    down        launch                                          down_ref
   mont_chain    a * b^iters, one product after another        mont_chain_ref
   scalar_mul    k*P, a base per lane, its scalar's bits one   scalar_mul_ref
                 per lane or shared by all
@@ -35,8 +42,9 @@ the layout experiments), and one composite of them:
   add_one       a + 1, int32 (launch-and-copy floor)          add_one_ref
   fused_upsweep every level of a halving int32 sum tree in    fused_upsweep_ref
                 one launch
-  batch_inv     1/d for every lane: fold_mul tree, one inv,   batch_inv_ref
-                mont_mul walk down (composite, no own kernel)
+  batch_inv     1/d for every lane: the launches of           batch_inv_ref
+                batch_inv_plan (fold_mul_levels, the top,
+                batch_inv_down) in one buffer
   ============  ============================================  =============
 
 Dispatch is by the tensors' device only: a CPU tensor goes to the plain
@@ -49,10 +57,12 @@ at the same time), into ``zkfranchise_tpu_torch/build/`` under a name
 keyed by a hash of the source and the shared header (an edit rebuilds),
 and loaded with ctypes.  Each wrapper adds one to its ``LAUNCHES`` entry
 per kernel launch and nowhere else; the EC kernels count G1 and G2 apart
-(``"padd/g1"``, ``"padd/g2"``); ``MONT_SHAPES`` counts mont_mul's
+(``"padd/g1"``, ``"padd/g2"``); fold_mul_levels counts as
+``"fold_mul"``; ``MONT_SHAPES`` counts mont_mul's
 launches by operand pattern and shape, ``PADD_SHAPES`` padd's by plane
 shape and ``FOLD_SHAPES`` the folds' by batch, width and levels.
-``fold_plan`` decides how many levels a fold launch takes; ``lane_block``
+``fold_plan`` decides how many levels a fold launch takes,
+``batch_inv_plan`` the launches of a batch inversion; ``lane_block``
 how the kernels that take a lane axis of any width shape their blocks.
 """
 from __future__ import annotations
@@ -84,7 +94,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"mont_mul": 0, "ntt_level": 0, "padd/g1": 0, "padd/g2": 0, "fold_padd/g1": 0,
             "fold_padd/g2": 0, "fold_padd_aa/g1": 0, "fold_padd_aa/g2": 0,
-            "fold_mul": 0, "inv": 0, "mont_chain": 0, "scalar_mul/g1": 0,
+            "fold_mul": 0, "inv": 0, "batch_inv/top": 0, "batch_inv/down": 0,
+            "mont_chain": 0, "scalar_mul/g1": 0,
             "scalar_mul/g2": 0, "mm2d": 0, "mm3d": 0, "fold2d/g1": 0,
             "fold2d/g2": 0, "add_one": 0, "fused_upsweep": 0,
             "poseidon/t3": 0, "poseidon/t4": 0, "poseidon/t5": 0}
@@ -178,6 +189,9 @@ def _libs() -> tuple:
     chains.zk_fold_mul.argtypes = [P, P, P, L, L, P]
     chains.zk_inv.argtypes = [P, P, P, P, I] + [L] * 5 + [P]
     chains.zk_mont_chain.argtypes = [P, P, P, P, L, I, P]
+    chains.zk_fold_mul_levels.argtypes = [P, P, P, L, L, I, I, I, I, P]
+    chains.zk_batch_inv_down.argtypes = [P, P, P, L, L, I, I, I, I, P]
+    chains.zk_batch_inv_top.argtypes = [P, P, P, P, I, L, L, I, I, P]
     layout = ctypes.CDLL(str(paths["lm_layout"]))
     layout.zk_mm2d.argtypes = [P, P, P, P, L, L, I, P]
     layout.zk_mm3d.argtypes = [P, P, P, P, L, L, L, L, P]
@@ -190,6 +204,8 @@ def _libs() -> tuple:
     for fn in (lib.zk_mont_mul, nttl.zk_ntt_level, lib.zk_padd, lib.zk_fold_padd_levels,
                lib.zk_fold_padd_aa, lib.zk_occupancy, lib.zk_scalar_mul,
                chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
+               chains.zk_fold_mul_levels, chains.zk_batch_inv_down,
+               chains.zk_batch_inv_top,
                lib.zk_fold2d, layout.zk_mm2d, layout.zk_mm3d,
                layout.zk_add_one, layout.zk_fused_upsweep, pos.zk_poseidon):
         fn.restype = ctypes.c_int
@@ -595,7 +611,7 @@ def occupancy(levels: int = 1) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# batch inversion: fold_mul, inv and the composite batch_inv
+# batch inversion: fold_mul, inv, and batch_inv's own kernels
 # ---------------------------------------------------------------------------
 
 def _field_consts(name: str, fs: lm.FieldSpec, device) -> torch.Tensor:
@@ -656,25 +672,285 @@ def batch_inv_ref(d: torch.Tensor, fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
     return lm.batch_inv_lanes(d, fs)
 
 
+# batch_inv's launches (csrc/lm_chains.cu), decided here and only here: a
+# tile launch takes at most INV_LEVELS levels, a block inv_cols columns of
+# the launch's top level (at least INV_COLS, a warp's coalesced row) with
+# THREADS threads, and shared memory for 2^(levels-1) strips and, going
+# down, two stage slots a thread (inv_tile_smem); both are passed to the
+# launch, which checks them.  The top kernel takes the levels of width <=
+# INV_TOP, a block (one warp) a row, with INV_TOP_SMEM bytes of static
+# shared memory (its launch refuses any other count).  A launch takes at
+# most INV_ROWS rows and fewer than 2^31 elements (32-bit indices).
+INV_LEVELS, INV_COLS, INV_TOP, INV_ROWS = 5, 32, 32, 65535
+INV_TOP_SMEM = 4 * (4 * lm.N_LIMBS + 256 + 2 * (32 + 96) +
+                    lm.N_LIMBS * 2 * INV_TOP)
+
+
+def inv_cols(X: int, lo: int, levels: int) -> int:
+    """Columns of its top level that a block of a tile launch owns: 64
+    where the launch takes at most four levels and its top level is that
+    wide (43 KB of strips, four blocks an SM; the narrowest level has an
+    item for half the threads), else INV_COLS."""
+    wide = levels <= 4 and X >> (lo + levels) >= 2 * INV_COLS
+    return 2 * INV_COLS if wide else INV_COLS
+
+
+def inv_tile_smem(levels: int, cols: int, down: bool) -> int:
+    """Shared memory of a block of a tile launch: 2^(levels-1) strips of
+    `cols` columns, and going down the threads' two stage slots."""
+    return 4 * lm.N_LIMBS * ((1 << (levels - 1)) * cols +
+                             (2 * THREADS if down else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def batch_inv_levels(X: int) -> tuple:
+    """The levels of batch_inv's launches over rows of X = 2^n lanes ->
+    (up, t0, down): up, the levels of each fold_mul_levels launch, from
+    level 0; t0, the level the top kernel starts from (it takes levels
+    t0+1 .. n, the chain and the walk back to u_t0); down, the levels of
+    each batch_inv_down launch, the mirror of up.  The top takes min(n,
+    INV_LEVELS) levels, so every tile launch's top level is at least
+    INV_COLS wide; the rest is split into as few launches as
+    INV_LEVELS allows, the first the smallest: X = 16384 is up [4, 5], the
+    top 5, down [5, 4], five launches (one at X <= 32)."""
+    if X < 1 or X & (X - 1):
+        raise ValueError(f"batch_inv: X must be a power of two, got {X}")
+    n = X.bit_length() - 1
+    rest = n - min(n, INV_LEVELS)
+    parts = -(-rest // INV_LEVELS)
+    up = tuple(rest // parts + (i >= parts - rest % parts)
+               for i in range(parts)) if parts else ()
+    return up, rest, up[::-1]
+
+
+def batch_inv_plan(B: int, X: int) -> list:
+    """batch_inv's launches over (B, 21, X), in order -> [(kernel, lo,
+    levels, grid, threads, shared bytes a block)]: "fold_mul_levels"
+    writes v_{lo+1} .. v_{lo+levels}; "top" starts from v_lo and writes
+    u_lo; "down" writes u_lo from u_{lo+levels}.  grid is (blocks along
+    the lanes, rows)."""
+    up, t0, down = batch_inv_levels(X)
+    plan, lo = [], 0
+    for k in up:
+        plan.append(_tile("fold_mul_levels", B, X, lo, k))
+        lo += k
+    n = X.bit_length() - 1
+    plan.append(("top", t0, n - t0, (B, 1), 32, INV_TOP_SMEM))
+    for k in down:
+        lo -= k
+        plan.append(_tile("down", B, X, lo, k))
+    return plan
+
+
+def _tile(kernel: str, B: int, X: int, lo: int, levels: int) -> tuple:
+    """One tile launch of batch_inv_plan, `levels` levels from level lo ->
+    (kernel, lo, levels, grid, threads, shared bytes a block)."""
+    cols = inv_cols(X, lo, levels)
+    return (kernel, lo, levels, ((X >> (lo + levels)) // cols, B), THREADS,
+            inv_tile_smem(levels, cols, kernel == "down"))
+
+
+def batch_inv_heap(X: int) -> dict:
+    """Where batch_inv's buffer holds each level of the tree on the way
+    up: {l: (first lane, width)}, v_l at lanes [X >> l, 2 (X >> l)) for
+    1 <= l <= t0 (the top keeps the levels above in shared memory).  On
+    the way down u_l takes lanes [0, X >> l), u_0 the whole row."""
+    _, t0, _ = batch_inv_levels(X)
+    return {l: (X >> l, X >> l) for l in range(1, t0 + 1)}
+
+
+def _tile_lanes(X: int, lo: int, levels: int, strips: int,
+                device) -> torch.Tensor:
+    """(tiles, strips, cols) lanes of the strips that the blocks of a tile
+    launch of `levels` levels from level lo own (cols = inv_cols): block
+    i, strip m, column t at i * cols + m * (X >> (lo + levels)) + t."""
+    hk, cols = X >> (lo + levels), inv_cols(X, lo, levels)
+    ar = functools.partial(torch.arange, device=device)
+    return (ar(hk // cols)[:, None, None] * cols +
+            ar(strips)[None, :, None] * hk + ar(cols)[None, None, :])
+
+
+def _strips(buf: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """(B, 21, X) at lanes (tiles, strips, cols) -> (B, tiles, strips, 21,
+    cols): each block's strips as the kernels hold them."""
+    return buf[:, :, lanes].permute(0, 2, 3, 1, 4)
+
+
+def _store(buf: torch.Tensor, lanes: torch.Tensor, x: torch.Tensor) -> None:
+    buf[:, :, lanes] = x.permute(0, 3, 1, 2, 4)
+
+
+def fold_mul_levels_ref(d: torch.Tensor, heap: torch.Tensor, lo: int,
+                        levels: int, fs: lm.FieldSpec = lm.FQ) -> None:
+    """Plain version of fold_mul_levels, block by block as the kernel
+    walks it: strip m of level lo + i is strip m times strip m + S of the
+    level below (S its strips), each level stored at its heap lanes."""
+    X = d.shape[-1]
+    S = 1 << (levels - 1)
+    lanes = _tile_lanes(X, lo, levels, S, d.device)
+    src, base = (d, 0) if lo == 0 else (heap, X >> lo)
+    x = mont_mul_ref(_strips(src, base + lanes),
+                     _strips(src, base + lanes + (X >> (lo + 1))), fs)
+    _store(heap, (X >> (lo + 1)) + lanes, x)
+    for i in range(2, levels + 1):
+        S //= 2
+        x = mont_mul_ref(x[:, :, :S], x[:, :, S:2 * S], fs)
+        _store(heap, (X >> (lo + i)) + lanes[:, :S], x)
+
+
+def batch_inv_top_ref(d: torch.Tensor, heap: torch.Tensor, t0: int,
+                      fs: lm.FieldSpec = lm.FQ) -> None:
+    """Plain version of the top kernel: u_t0 = the batch inversion of
+    v_t0 (d's first w = X >> t0 lanes at t0 = 0, else heap lanes [w, 2w)),
+    into heap lanes [0, w)."""
+    w = d.shape[-1] >> t0
+    v = d[..., :w] if t0 == 0 else heap[..., w:2 * w]
+    heap[..., :w] = lm.batch_inv_lanes(v, fs)
+
+
+def batch_inv_down_ref(d: torch.Tensor, heap: torch.Tensor, lo: int,
+                       levels: int, fs: lm.FieldSpec = lm.FQ) -> None:
+    """Plain version of batch_inv_down, block by block as the kernel walks
+    it: from u_{lo+levels} at heap lanes [0, X >> (lo+levels)), each level
+    u_l's strip m begets strip m (times v_l strip m + S) and strip m + S
+    (times v_l strip m); u_lo goes to heap lanes [0, X >> lo)."""
+    X = d.shape[-1]
+    top = lo + levels
+    lanes = _tile_lanes(X, lo, levels, 1 << levels, d.device)
+    u = _strips(heap, lanes[:, :1])
+    for lv in range(top - 1, lo - 1, -1):
+        S = u.shape[2]
+        src, base = (d, 0) if lv == 0 else (heap, X >> lv)
+        ln = base + lanes[:, :S]
+        right = mont_mul_ref(u, _strips(src, ln), fs)
+        left = mont_mul_ref(u, _strips(src, ln + (X >> (lv + 1))), fs)
+        u = torch.cat([left, right], 2)
+    _store(heap, lanes, u)
+
+
+def _inv_rows(name: str, shape) -> None:
+    """Refuses what no batch_inv launch takes: rows of a power of two
+    lanes, at most INV_ROWS of them (the grid's y axis), fewer than 2^31
+    elements (32-bit indices)."""
+    if len(shape) != 3 or shape[-1] & (shape[-1] - 1) or not shape[-1]:
+        raise ValueError(f"{name}: expected (B, 21, power of two), got "
+                         f"{tuple(shape)}")
+    if shape[0] > INV_ROWS or shape[0] * shape[1] * shape[2] >= 1 << 31:
+        raise ValueError(f"{name}: at most {INV_ROWS} rows and fewer than "
+                         f"2^31 elements (32-bit indices), got "
+                         f"{tuple(shape)}")
+
+
+def _inv_args(name: str, d: torch.Tensor, heap: torch.Tensor, lo: int,
+              levels: int = 0) -> bool:
+    """Checks of a batch_inv launch (a tile launch of `levels` levels from
+    level lo, or the top from level lo when levels is 0) -> whether it
+    runs on the card."""
+    _inv_rows(name, d.shape)
+    if d.shape[1] != lm.N_LIMBS or heap.shape != d.shape or \
+            not heap.is_contiguous():
+        raise ValueError(f"{name}: expected d (B, 21, power of two) and a "
+                         f"contiguous heap of its shape, got "
+                         f"{tuple(d.shape)} {tuple(heap.shape)}")
+    X = d.shape[-1]
+    if levels == 0 and not 1 <= X >> lo <= INV_TOP or levels and (
+            not 1 <= levels <= INV_LEVELS or X >> (lo + levels) < INV_COLS):
+        raise ValueError(f"{name}: {levels} levels from level {lo} is no "
+                         f"launch of the plan over {X} lanes")
+    return _on_card(name, d, heap)
+
+
+def _tile_launch(name: str, step: str, key: str, fn, d, heap, lo, levels,
+                 fs) -> None:
+    """One tile launch (the plan's `step`, "fold_mul_levels" or "down")
+    with the plan's columns and shared bytes, counted under `key`."""
+    if fs.p not in _FIELD_PN:
+        raise ValueError(f"{name}: kernel takes Fr or Fq only")
+    B, _, X = d.shape
+    smem = _tile(step, B, X, lo, levels)[5]
+    rc = fn(d.data_ptr(), heap.data_ptr(), _FIELD_PN[fs.p].ctypes.data, B,
+            X, lo, levels, inv_cols(X, lo, levels), smem, _stream(d.device))
+    _check(rc, name)
+    LAUNCHES[key] += 1
+
+
+def fold_mul_levels(d: torch.Tensor, heap: torch.Tensor, lo: int,
+                    levels: int, fs: lm.FieldSpec = lm.FQ) -> None:
+    """Levels lo+1 .. lo+levels of batch_inv's product tree over d (B, 21,
+    X), v_l[j] = v_{l-1}[j] * v_{l-1}[j + (X >> l)], written IN PLACE into
+    heap (B, 21, X) at lanes [X >> l, 2 (X >> l)); v_lo is d (lo = 0) or
+    the heap's.  fold_mul's counterpart at several levels: on the card ONE
+    launch (counted as fold_mul), a block folding inv_cols columns of the
+    top level through shared memory with the Karatsuba register
+    product."""
+    d = d.contiguous()
+    if not _inv_args("fold_mul_levels", d, heap, lo, levels):
+        return fold_mul_levels_ref(d, heap, lo, levels, fs)
+    _tile_launch("fold_mul_levels", "fold_mul_levels", "fold_mul",
+                 _chains().zk_fold_mul_levels, d, heap, lo, levels, fs)
+
+
+def batch_inv_top(d: torch.Tensor, heap: torch.Tensor, t0: int,
+                  fs: lm.FieldSpec = lm.FQ) -> None:
+    """The top of batch_inv's tree from level t0 (w = X >> t0 <= INV_TOP
+    lanes): up to the root, its inverse by Fermat, and down to u_t0, IN
+    PLACE into heap lanes [0, w).  On the card one launch, a warp a row."""
+    d = d.contiguous()
+    if not _inv_args("batch_inv_top", d, heap, t0):
+        return batch_inv_top_ref(d, heap, t0, fs)
+    B, _, X = d.shape
+    consts = _field_consts("batch_inv_top", fs, d.device)
+    bits = lm.const(fs.p_minus_2_bits, d.device)
+    rc = _chains().zk_batch_inv_top(d.data_ptr(), heap.data_ptr(),
+                                    consts.data_ptr(), bits.data_ptr(),
+                                    bits.shape[0], B, X, t0, INV_TOP_SMEM,
+                                    _stream(d.device))
+    _check(rc, "batch_inv_top")
+    LAUNCHES["batch_inv/top"] += 1
+
+
+def batch_inv_down(d: torch.Tensor, heap: torch.Tensor, lo: int,
+                   levels: int, fs: lm.FieldSpec = lm.FQ) -> None:
+    """The walk down of batch_inv from u_{lo+levels} (heap lanes [0, X >>
+    (lo+levels))) to u_lo, written IN PLACE into heap lanes [0, X >> lo),
+    reading v_l from the heap (v_0 from d).  On the card ONE launch, the
+    tiles of fold_mul_levels in reverse."""
+    d = d.contiguous()
+    if not _inv_args("batch_inv_down", d, heap, lo, levels):
+        return batch_inv_down_ref(d, heap, lo, levels, fs)
+    _tile_launch("batch_inv_down", "down", "batch_inv/down",
+                 _chains().zk_batch_inv_down, d, heap, lo, levels, fs)
+
+
 def batch_inv(d: torch.Tensor, fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
     """Montgomery batch inversion over the last axis of (B, 21, X), X a
-    power of two; zero lanes must already be mapped to one.  A composite:
-    a fold_mul tree up, one inv over the B roots, two mont_muls per level
-    down: about 3 products per lane and one Fermat chain over B lanes."""
-    if d.dim() != 3 or d.shape[-1] & (d.shape[-1] - 1) or not d.shape[-1]:
-        raise ValueError(f"batch_inv: expected (B, 21, power of two), got "
-                         f"{tuple(d.shape)}")
-    levels = [d]
-    while levels[-1].shape[-1] > 1:
-        levels.append(fold_mul(levels[-1], fs))
-    root = levels[-1][:, :, 0].T                          # (21, B) view
-    invs = inv(root, fs).T[:, :, None]                    # (B, 21, 1)
-    for cur in levels[-2::-1]:
-        h = cur.shape[-1] // 2
-        left = mont_mul(invs, cur[..., h:], fs)
-        right = mont_mul(invs, cur[..., :h], fs)
-        invs = torch.cat([left, right], -1)
-    return invs
+    power of two; zero lanes must already be mapped to one.  Replaces the
+    JAX package's batch_inv (ops/pallas/lm_kernels.py, a composite of its
+    fold_mul, inv and mont_mul kernels).  On the H100 the integer
+    multiply-adds of about 3X products a row bound it where the tree is
+    wide, and the Fermat chain's latency (363 dependent products) at the
+    root: so the tree's levels run several a launch through shared memory
+    (no launch and no pass over device memory a level) and the chain runs
+    once, on a warp a row.  The tree of batch_inv_ref pair for pair, as
+    batch_inv_plan's launches (at most 5 up to X = 2^15, one at X <= 32):
+    fold_mul_levels up, the top (the narrow levels and the chain),
+    batch_inv_down, all in ONE buffer, the result (no copy, no
+    concatenation).  On the CPU the same steps run their plain versions.
+    The launches index with 32 bits: B at most INV_ROWS (65535) and B *
+    21 * X under 2^31, else ValueError, on either device."""
+    _inv_rows("batch_inv", d.shape)
+    d = d.contiguous()
+    heap = torch.empty_like(d)
+    if not heap.numel():
+        return heap
+    for kernel, lo, levels, *_ in batch_inv_plan(d.shape[0], d.shape[-1]):
+        if kernel == "fold_mul_levels":
+            fold_mul_levels(d, heap, lo, levels, fs)
+        elif kernel == "top":
+            batch_inv_top(d, heap, lo, fs)
+        else:
+            batch_inv_down(d, heap, lo, levels, fs)
+    return heap
 
 
 # ---------------------------------------------------------------------------
@@ -692,18 +968,27 @@ def mont_chain_ref(a: torch.Tensor, b: torch.Tensor, iters: int,
 def mont_chain(a: torch.Tensor, b: torch.Tensor, iters: int,
                fs: lm.FieldSpec = lm.FQ) -> torch.Tensor:
     """a, b: (21, T) -> a * b^iters, `iters` Montgomery products one after
-    another inside one kernel (x stays in registers)."""
+    another inside one kernel.  Replaces pallas_chain of
+    scripts/micro_montmul.py.  A chain issues little but its products, so
+    the integer multiply-add pipe bounds it on the H100: mm2d's body (the
+    Karatsuba register product, 915 multiply-adds against the
+    schoolbook's 1,113; x in registers; p and n' passed by value) with one
+    lane a thread, 1,024 blocks at T = 131,072."""
+    if iters < 0:
+        raise ValueError(f"mont_chain: iters must be >= 0, got {iters}")
     if not _on_card("mont_chain", a, b):
         return mont_chain_ref(a, b, iters, fs)
     if a.dim() != 2 or a.shape[0] != lm.N_LIMBS or a.shape != b.shape:
         raise ValueError(f"mont_chain: expected two (21, T), got "
                          f"{tuple(a.shape)} {tuple(b.shape)}")
-    consts = _field_consts("mont_chain", fs, a.device)
+    if fs.p not in _FIELD_PN:
+        raise ValueError("mont_chain: kernel takes Fr or Fq only")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     if out.numel():
         rc = _chains().zk_mont_chain(a.data_ptr(), b.data_ptr(),
-                                     out.data_ptr(), consts.data_ptr(),
+                                     out.data_ptr(),
+                                     _FIELD_PN[fs.p].ctypes.data,
                                      a.shape[1], iters, _stream(a.device))
         _check(rc, "mont_chain")
         LAUNCHES["mont_chain"] += 1

@@ -16,8 +16,9 @@ which arises only on masked lanes).  Every case of a complete addition
 
 ``fold_affine`` is one level of a sum tree in affine coordinates: the
 division of the chord or tangent slope is shared by all lanes of a row
-through a Montgomery batch inversion (``batch_inv``: the ``fold_mul``,
-``inv`` and ``mont_mul`` kernels), one Fermat chain per level; over Fq2
+through a Montgomery batch inversion (``batch_inv``: its own kernels,
+``fold_mul_levels`` up, the top with the Fermat chain, the walk down),
+one Fermat chain per level; over Fq2
 the inverse reduces to one Fq batch inversion of the norm.  The prover's
 MSM takes the projective tree (``fold_padd_aa``, ``fold_padd``); times of
 both trees on the card at the same width are in PERF.md.

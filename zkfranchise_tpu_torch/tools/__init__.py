@@ -41,12 +41,13 @@ OPS_PER_S = 67e12
 INT_MADS_PER_CLK_SM, SMS = 64, 132
 
 # Multiply-adds, counted from csrc/.  The column sums of a product of two
-# 21-limb elements take 441 in the schoolbook (the one-thread chains,
-# fold_mul, Poseidon, mm3d, and the warp inv, whose lanes form the
-# schoolbook's columns) and 342 with the one level of Karatsuba of
-# lm_device.cuh cols_add (the cooperative adds and fold2d, mont_mul,
-# ntt_level and mm2d, which also form the reduction's m*p with it); a
-# reduction adds the triangular m = t*n'.
+# 21-limb elements take 441 in the schoolbook (fold_mul at one level,
+# Poseidon, mm3d, and the warp inv, whose lanes form the schoolbook's
+# columns) and 342 with the one level of Karatsuba of lm_device.cuh
+# cols_add (the cooperative adds and fold2d, mont_mul, ntt_level, mm2d,
+# mont_chain and batch_inv's tree, which also form the reduction's m*p
+# with it); a reduction adds the triangular m = t*n'.  batch_inv's bound
+# counts its chain at the Karatsuba product too, the least work known.
 COLS_SCHOOLBOOK, COLS_KARATSUBA, MAD_LOW = 441, 342, 231
 MAD_MONT = 2 * COLS_SCHOOLBOOK + MAD_LOW                # 1113
 MAD_MONT_KARATSUBA = 2 * COLS_KARATSUBA + MAD_LOW       # 915
@@ -77,10 +78,43 @@ def bound_ms(nbytes: float, mads: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mm2d_work(T: int, chain: int) -> tuple:
-    """(bytes, multiply-adds) of mm2d on (21, T): a and b read and the
-    result written once, `chain` Karatsuba products a lane."""
-    return 4 * 3 * 21 * T, MAD_MONT_KARATSUBA * chain * T
+def mont_chain_work(T: int, iters: int) -> tuple:
+    """(bytes, multiply-adds) of a chain of `iters` products on (21, T)
+    (mont_chain, mm2d): a and b read and the result written once, `iters`
+    Karatsuba products a lane."""
+    return 4 * 3 * 21 * T, MAD_MONT_KARATSUBA * iters * T
+
+
+# the Fermat chain of an Fq inverse: 253 squares and a product per set bit
+# of p - 2 (110)
+INV_CHAIN_FQ = 363
+
+
+def batch_inv_work(B: int, X: int, chain: int = INV_CHAIN_FQ) -> tuple:
+    """(bytes, multiply-adds) of batch_inv over (B, 21, X): d read and the
+    result written once; X - 1 products a row up, 2 (X - 1) down, and one
+    Fermat chain of `chain` products a row, each product counted at the
+    Karatsuba's 915."""
+    return 4 * 21 * 2 * X * B, \
+        B * MAD_MONT_KARATSUBA * (3 * (X - 1) + chain)
+
+
+def batch_inv_step_work(kernel: str, lo: int, levels: int, B: int,
+                        X: int) -> tuple:
+    """(bytes, multiply-adds) of one launch of batch_inv_plan over (B, 21,
+    X) (a "fold_mul_levels", "top" or "down" launch of `levels` levels
+    from level lo): the lanes it reads and writes once each, at the
+    Karatsuba's 915 a product, the top's Fermat chain included."""
+    top = lo + levels
+    widths = sum(X >> l for l in range(lo + 1, top + 1))    # levels above lo
+    if kernel == "fold_mul_levels":
+        lanes, products = (X >> lo) + widths, widths
+    elif kernel == "down":
+        lanes = (X >> top) + sum(X >> l for l in range(lo, top)) + (X >> lo)
+        products = widths + (X >> lo) - (X >> top)
+    else:
+        lanes, products = 2 * (X >> lo), 3 * ((X >> lo) - 1) + INV_CHAIN_FQ
+    return 4 * 21 * B * lanes, B * MAD_MONT_KARATSUBA * products
 
 
 def fold2d_work(kind: str, B: int, m: int) -> tuple:

@@ -1,7 +1,9 @@
 """Microbenchmark: Montgomery products per second of the 21 x 13 bit limb
 core inside one kernel (mont_chain: 20 chained Fq products over 131,072
-lanes, x kept in registers), beside the same chain through the mont_mul
-kernel (one launch and one pass over device memory per product).
+lanes, x kept in registers, the Karatsuba register product), beside the
+same chain through the mont_mul kernel (one launch and one pass over
+device memory per product), and the chain's device ms through
+tools.device_reading.
 
 Correctness first: one product per lane against the integer formula
 a*b*R^-1 mod p.  Rates are timed with CUDA events and so exist only on the
@@ -20,7 +22,7 @@ import torch
 from ..ops import ff, lm
 from ..ops.cuda import lm_kernels as K
 from ..utils import devices
-from . import check, cli, event_ms, verdict
+from . import check, cli, device_reading, event_ms, mont_chain_work, verdict
 
 P = ff.P_FQ
 N_VALUES = 256
@@ -67,6 +69,11 @@ def main(device=None, small: bool = False) -> int:
         ms = event_ms(fn)
         print(f"{tag:28s} {work / ms / 1e3:9.1f} Mmul/s  ({ms:8.3f} ms, "
               f"{lanes} lanes x {iters})", flush=True)
+    # the kernel's own time, held against the Karatsuba product's
+    # multiply-adds (what mont_chain runs)
+    device_reading(f"mont_chain/fq/21x{lanes}x{iters}",
+                   lambda: K.mont_chain(a, b, iters, lm.FQ),
+                   *mont_chain_work(lanes, iters))
     return verdict(failed)
 
 

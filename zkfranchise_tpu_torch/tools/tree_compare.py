@@ -11,10 +11,13 @@ phases ``toolchain`` (the tree's own build), ``main_path`` (with
 ``timed_prove``, ``verify`` and ``profile``) and ``stream``, after timing
 the tree's ``scalar_mul`` at (rows, 128) with a 254-bit scalar shared by
 the lanes and, where the tree takes one, a scalar per lane (whole calls,
-CUDA events), and reading the device time of its ``mont_mul``, one NTT
-butterfly level, ``inv`` and ``batch_inv`` at the main path's shapes and
-of the layout experiments' ``fold2d`` (G1, G2) and ``mm2d`` (chains 1 and
-8) at the layout tool's (``tools.device_reading``).  Phase ``profile`` is
+CUDA events), reading the device time of its ``mont_mul``, one NTT
+butterfly level, ``inv`` and ``batch_inv`` at the main path's shapes, of
+the layout experiments' ``fold2d`` (G1, G2) and ``mm2d`` (chains 1 and 8)
+at the layout tool's, and of its ``mont_chain`` at the tool's (21,
+131072) x 20 and as the yardsticks of ``inv`` (364 products, 128 lanes)
+and of the Poseidon permutation (t = 3, 4, 5) (``tools.device_reading``),
+and running its phase ``affine_tree``.  Phase ``profile`` is
 this tree's in both runs, so that both count the host's ops the same
 way.  Every line a run prints comes out as
 one JSON object tagged with the run ("parent", "change", "change2",
@@ -22,7 +25,8 @@ one JSON object tagged with the run ("parent", "change", "change2",
 device busy time and idle share, host ops, launches per ``prove_arrays``,
 the kernel readings,
 mont_mul's launches by shape where the tree counts them, peak device
-memory, the stream's slices and the scalar_mul times.  The card's name and
+memory, the stream's slices, the scalar_mul times and the affine tree's
+seconds and peak memory.  The card's name and
 power limit come first.  Exits non-zero if a run fails.
 """
 from __future__ import annotations
@@ -76,6 +80,7 @@ def worker(tree: str) -> None:
                      "ms": event_ms(lambda: K.scalar_mul(pts, bits, kind),
                                     runs=5)})
     _slice_readings(np, torch, K, dev)
+    cs.phase_affine_tree(np, torch, K, dev)
     _, keys = cs.phase_main_path(np, torch, K, dev)
     cs.phase_stream(torch, K, dev, *keys)
 
@@ -85,11 +90,16 @@ def _slice_readings(np, torch, K, dev) -> None:
     level at (16384, 21, T) Fr for T = 128 and 4 (the tree's ntt_level,
     or the loop body of its _transform where it has none), inv at (21,
     128) Fq, batch_inv at (128, 21, 16384) Fq, fold2d at (rows, 2^20), m
-    8192, G1 and G2, and mm2d at (21, 2^20) Fq, chains 1 and 8, both at
-    tile 512, as the tree runs them: device ms through
-    tools.device_reading (one JSON line each).  fold2d's adds are formulas
+    8192, G1 and G2, mm2d at (21, 2^20) Fq, chains 1 and 8, both at tile
+    512, and mont_chain at (21, 131072) x 20 Fq, (21, 128) x 364 Fq and
+    (21, 128) x Poseidon's depth Fr (t = 3, 4, 5), as the tree runs them:
+    device ms through tools.device_reading (one JSON line each), against
+    the multiply-adds of the least work known (Karatsuba products, those
+    of batch_inv's Fermat chain too).  fold2d's adds are formulas
     without branches, so random limbs time them as points would."""
     from zkfranchise_tpu_torch.ops import lm, ntt
+    from zkfranchise_tpu_torch.ops.poseidon_constants import N_ROUNDS_F, \
+        N_ROUNDS_P
     from zkfranchise_tpu_torch.tools import MAD_MONT_KARATSUBA, add_mads, \
         device_reading
 
@@ -122,8 +132,12 @@ def _slice_readings(np, torch, K, dev) -> None:
     device_reading("inv/fq/21x128", lambda: K.inv(c, lm.FQ), 8 * c.numel(),
                    0)
     d = limbs((128, 21, 16384))
+    d[:, 0] |= 1                                            # no zero lane
+    # tools.batch_inv_work's count, written out: a parent tree's tools
+    # may not have it
     device_reading("batch_inv/fq/128x21x16384",
-                   lambda: K.batch_inv(d, lm.FQ), 8 * d.numel(), 0)
+                   lambda: K.batch_inv(d, lm.FQ), 8 * d.numel(),
+                   128 * MAD_MONT_KARATSUBA * (3 * 16383 + 363))
     del d
     T = 1 << 20
     for kind, rows in (("g1", 63), ("g2", 126)):
@@ -137,6 +151,15 @@ def _slice_readings(np, torch, K, dev) -> None:
         device_reading(f"mm2d/fq/21x{T}/chain{chain}/tile512",
                        lambda: K.mm2d(a, b, 512, chain), 12 * a.numel(),
                        MAD_MONT_KARATSUBA * chain * T)
+    chains = [("fq", 131072, 20, ""), ("fq", 128, 364, " (inv's yardstick)")]
+    chains += [("fr", 128, (N_ROUNDS_F + N_ROUNDS_P[t - 2]) * (3 + t),
+                f" (poseidon t{t}'s yardstick)") for t in (3, 4, 5)]
+    for field, T, iters, what in chains:
+        fs = lm.FQ if field == "fq" else lm.FR
+        a, b = limbs((21, T)), limbs((21, T))
+        device_reading(f"mont_chain/{field}/21x{T}x{iters}{what}",
+                       lambda: K.mont_chain(a, b, iters, fs), 12 * a.numel(),
+                       MAD_MONT_KARATSUBA * iters * T)
 
 
 def summary(lines: list) -> dict:
@@ -170,6 +193,12 @@ def summary(lines: list) -> dict:
         elif "scalar_mul" in d:
             out["scalar_mul"][f"{d['scalar_mul']}/{d['bits']}"] = {
                 "ms": d["ms"], "equal": d["equal"]}
+        elif phase == "affine_tree" and "peak_memory_bytes" in d:
+            out["affine_tree"] = {
+                kind: {"affine_s": d[kind]["affine_tree_s"],
+                       "projective_s": d[kind]["projective_tree_s"]}
+                for kind in ("g1", "g2")}
+            out["affine_tree"]["peak_memory_bytes"] = d["peak_memory_bytes"]
     return out
 
 

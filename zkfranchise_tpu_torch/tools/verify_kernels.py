@@ -1,8 +1,9 @@
 """The port's kernels and the whole MSM against the host bigint oracle.
 
 Runs the wrappers the prover uses (padd G1/G2 with doubling and identity
-lanes, fold_padd, mont_mul), the batch inversion (batch_inv: fold_mul, inv,
-mont_mul), a fold_affine chain folded to the total, and the full
+lanes, fold_padd, mont_mul), fold_mul, inv (with a zero lane), the batch
+inversion (batch_inv: fold_mul_levels, its top and walk down), a
+fold_affine chain folded to the total, and the full
 msm_lm.msm, G1 and G2, and checks every result against ops/ec.py and
 ops/ff.py.
 
@@ -101,11 +102,22 @@ def main(device=None, small: bool = False) -> int:
         g % ff.P_FQ == x * y * rinv % ff.P_FQ
         for g, x, y in zip(lm.lm_to_ints(out), xs, ys)))
 
-    # --- batch_inv (fold_mul tree, inv, mont_mul walk down) -----------------
+    # --- fold_mul, inv (a zero lane), batch_inv -----------------------------
     n_inv = size["inv_lanes"]
     vals = [v or 1 for v in _rand_fq(rng, n_inv)]
     rm = 1 << lm.R_BITS
     d = on(lm.ints_to_lm([v * rm % ff.P_FQ for v in vals])[None])
+    h = n_inv // 2
+    out = K.fold_mul(d, lm.FQ)
+    check(failed, f"fold_mul ({n_inv} lanes)",
+          lm.lm_to_ints(lm.from_mont(out[0], lm.FQ)) ==
+          [vals[j] * vals[j + h] % ff.P_FQ for j in range(h)])
+    a = d[0].clone()
+    a[:, 1] = 0                                            # inv(0) = 0
+    out = _timed(dev, "inv", lambda: K.inv(a, lm.FQ))
+    check(failed, f"inv ({n_inv} lanes, one zero)",
+          lm.lm_to_ints(lm.from_mont(out, lm.FQ)) ==
+          [0 if j == 1 else pow(v, -1, ff.P_FQ) for j, v in enumerate(vals)])
     iv = _timed(dev, "batch_inv", lambda: K.batch_inv(d, lm.FQ))
     check(failed, f"batch_inv ({n_inv} lanes)",
           lm.lm_to_ints(lm.from_mont(iv, lm.FQ)) ==
