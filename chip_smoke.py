@@ -51,7 +51,18 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      profiles one more prove_arrays: device busy time by kernel and the
      host's PyTorch ops and launch calls, of the step and of its
      witness;
-  7. drives the serving path at the same width: the dev key is exported
+  7. captures the main path's prover as one CUDA graph at batch 128
+     (groth16.device.FusedStep, the counterpart of the JAX package's
+     fused_step): prints the warm-up, capture and instantiation seconds,
+     the graph's nodes by type and its launches by kernel, which must equal
+     one prove_arrays'; the replay's planes must equal prove_arrays' for
+     two (r, s) pairs, the first replay's clones must survive the second,
+     sampled proofs through the graph must verify and a cross-voter and a
+     tampered one be rejected; times eager prove_arrays and the replay in
+     turns (eager, replay, replay, eager, three rounds; wall and CUDA-event
+     seconds), profiles one replay, prints the memory with the graph alive
+     and tools.bench's JSON line taken on the same prover;
+  8. drives the serving path at the same width: the dev key is exported
      as a producer-ordered snarkjs zkey, written to bytes, read back and
      ingested (A and B matrices only), and a DeviceProver keyed from it
      alone serves mock_batch(16, 300, seed=7) through ProofStream at
@@ -59,7 +70,7 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      and a resume over the tail slices 32, 8, 4; sampled proof files
      verify against the committed dev/16 key.
 
-Launch counts are set to 0 just before each of the paths 3 to 7 and
+Launch counts are set to 0 just before each of the paths 3 to 8 and
 read just after it; the run fails if a kernel of a path was not launched
 on it.
 
@@ -73,6 +84,7 @@ import json
 import math
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -140,6 +152,7 @@ PATH_KERNELS = {
                      "mont_mul", "fold_padd/g1"],
 }
 PATH_KERNELS["stream"] = PATH_KERNELS["main_path"]
+PATH_KERNELS["fused_step"] = PATH_KERNELS["main_path"]
 
 
 def require_launches(path: str, launches: dict) -> None:
@@ -979,9 +992,10 @@ def phase_tools(torch, K, dev, path: str, names: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
+def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple, tuple]:
     """-> (launches of the main path, (circuit, dev-setup pk, committed
-    vk) for the serving path)."""
+    vk) for the serving path, (prover, vk, inputs, r, s) of the timed run
+    for phase fused_step)."""
     from zkfranchise_tpu_torch import inputs as inp
     from zkfranchise_tpu_torch.groth16 import setup as gsetup
     from zkfranchise_tpu_torch.groth16 import verify as gverify
@@ -1077,7 +1091,7 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple]:
     if not all(ok.values()) or cross or tampered:
         raise AssertionError("proof verification failed")
     phase_profile(torch, prover, arrs, r, s, stages)
-    return launches, (circuit, pk, vk)
+    return launches, (circuit, pk, vk), (prover, vk, arrs, r, s)
 
 
 def phase_profile(torch, prover, arrs, r, s, stages) -> None:
@@ -1137,7 +1151,150 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the serving path: a zkey-keyed prover behind ProofStream
+# phase 7: the main path's step as one CUDA graph, and the bench entry
+# ---------------------------------------------------------------------------
+
+ROUNDS = 3                              # eager, replay, replay, eager
+
+
+def phase_fused_step(torch, K, dev, prover, vk, arrs, r, s) -> dict:
+    """The prover of the main path captured as one CUDA graph at batch 128
+    (groth16.device.FusedStep): capture, instantiation, the graph's nodes
+    and launches (equal to one prove_arrays' by kernel), its planes equal
+    to prove_arrays' for two (r, s) pairs, clones that survive the next
+    replay, sampled proofs through the graph, eager and replay timed in
+    turns, a replay's device time, memory with the graph alive, and
+    tools.bench's line on the same prover.  -> the launches of the path
+    (the warm-up run and the capture: a replay ticks no counter)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+    from zkfranchise_tpu_torch.groth16.device import draw_rs
+    from zkfranchise_tpu_torch.ops import lm
+    from zkfranchise_tpu_torch.tools import bench
+
+    r2, s2 = (torch.as_tensor(x, device=dev) for x in draw_rs(4, BATCH))
+    K.reset_launches()
+    want = prover.prove_arrays(arrs, r, s)
+    eager_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    want2 = prover.prove_arrays(arrs, r2, s2)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = {"allocated": torch.cuda.memory_allocated(dev),
+              "reserved": torch.cuda.memory_reserved(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the path: counts start at 0 here and are read right after the capture
+    K.reset_launches()
+    t0 = time.perf_counter()
+    step = prover.capture(BATCH)
+    build_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    nodes = step.node_counts()
+    captured = {"allocated": torch.cuda.memory_allocated(dev),
+                "reserved": torch.cuda.memory_reserved(dev)}
+    emit({"phase": "fused_step", "batch": BATCH, "build_s": build_s,
+          "warmup_s": step.warmup_s, "capture_s": step.capture_s,
+          "instantiate_s": step.instantiate_s, "graph_nodes": nodes,
+          "graph_nodes_total": sum(nodes.values()),
+          "graph_launches": step.launches,
+          "prove_arrays_launches": eager_launches,
+          "memory_before_capture": before,
+          "memory_after_capture": captured})
+    if step.launches != eager_launches:
+        raise AssertionError("the graph's launches differ from one "
+                             "prove_arrays'")
+    require_launches("fused_step", launches)
+
+    # the replay against prove_arrays, two (r, s) pairs in turn; the
+    # clones of the first replay must survive the second
+    got = step(arrs, r, s)
+    kept = [g.clone() for g in got]
+    got2 = step(arrs, r2, s2)
+    equal = {"first": all(torch.equal(a, b) for a, b in zip(got, want)),
+             "second": all(torch.equal(a, b) for a, b in zip(got2, want2)),
+             "first_kept": all(torch.equal(a, b) for a, b in zip(got, kept)),
+             "pairs_differ": not torch.equal(got[0], got2[0])}
+    emit({"phase": "fused_step", "planes_equal": equal})
+    if not all(equal.values()):
+        raise AssertionError(f"replay against prove_arrays: {equal}")
+    del got, got2, kept, want, want2
+
+    # proofs through the graph, against the committed key
+    t0 = time.perf_counter()
+    proofs, pubs = step.prove_batch(arrs, seed=1)
+    prove_batch_s = time.perf_counter() - t0
+    ok = {f"voter_{i}": gverify.verify(vk, proofs[i], pubs[i])
+          for i in (0, 42, 85, BATCH - 1)}
+    cross = gverify.verify(vk, proofs[0], pubs[1])
+    tampered_pub = list(pubs[0])
+    tampered_pub[2] = (tampered_pub[2] + 1) % lm.FR.p
+    tampered = gverify.verify(vk, proofs[0], tampered_pub)
+    emit({"phase": "fused_step", "prove_batch_s": prove_batch_s,
+          "accepted": ok, "cross_voter_accepted": cross,
+          "tampered_accepted": tampered})
+    if not all(ok.values()) or cross or tampered:
+        raise AssertionError("fused_step: proof verification failed")
+
+    # eager and replay in turns, wall seconds and CUDA-event seconds
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn(arrs, r, s)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return {"wall_s": time.perf_counter() - t0,
+                "event_s": start.elapsed_time(end) / 1e3}
+
+    runs = {"eager": [], "replay": []}
+    for _ in range(ROUNDS):
+        for name in ("eager", "replay", "replay", "eager"):
+            runs[name].append(timed(prover.prove_arrays if name == "eager"
+                                    else step))
+    summary = {name: {"wall_s_median": statistics.median(
+        x["wall_s"] for x in v), "event_s_median": statistics.median(
+        x["event_s"] for x in v)} for name, v in runs.items()}
+    for name in runs:
+        summary[name]["proofs_per_s"] = BATCH / summary[name]["wall_s_median"]
+    summary["replay_over_eager_wall"] = (summary["replay"]["wall_s_median"]
+                                         / summary["eager"]["wall_s_median"])
+
+    # one replay under the profiler: its device busy time
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(arrs, r, s)
+        torch.cuda.synchronize(dev)
+    dev_events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(ev.device_time_total for ev in dev_events) / 1e6
+    emit({"phase": "fused_step", "nvidia_smi": smi_line(), "runs": runs,
+          "summary": summary,
+          "replay_device_busy_s": busy_s if dev_events else None,
+          "replay_device_events": len(dev_events),
+          "replay_idle_share": 1 - busy_s / summary["replay"]["wall_s_median"]
+          if dev_events else None,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+          "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+          "allocated_bytes": torch.cuda.memory_allocated(dev),
+          "reserved_bytes": torch.cuda.memory_reserved(dev)})
+
+    # the bench entry's line, on the same prover and graph
+    result = bench.measure(prover, vk, arrs, bench.settings()[2], step=step)
+    print(json.dumps(result), flush=True)
+    if not result["verified"]:
+        raise AssertionError("bench: the sampled proof did not verify")
+    del step
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving path: a zkey-keyed prover behind ProofStream
 # ---------------------------------------------------------------------------
 
 N_VOTERS = 300                          # 2 x 128, then the ladder 32, 8, 4
@@ -1308,7 +1465,9 @@ def main() -> int:
                 "layout_tools": phase_tools(
                     torch, K, dev, "layout_tools",
                     ["layout_expt", "layout_expt2"])}
-    launches["main_path"], keys = phase_main_path(np, torch, K, dev)
+    launches["main_path"], keys, held = phase_main_path(np, torch, K, dev)
+    launches["fused_step"] = phase_fused_step(torch, K, dev, *held)
+    del held
     launches["stream"] = phase_stream(torch, K, dev, *keys)
     kernels = []
     for name, (source, replaces, path, keys) in KERNELS.items():

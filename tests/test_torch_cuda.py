@@ -543,3 +543,103 @@ def test_layout_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         K.mm2d(a, a, 0, 1)                                  # tile < 1
     with pytest.raises(TypeError):
         K.fused_upsweep(a[:, :16].float())
+
+
+# ---------------------------------------------------------------------------
+# the proving step captured as one CUDA graph (groth16.device.FusedStep)
+# ---------------------------------------------------------------------------
+
+FUSED_NL = 4
+
+
+@pytest.fixture(scope="module")
+def fused_steps():
+    """batch -> (prover, FusedStep, two input sets, two (r, s) pairs) at
+    nlevels=4, keyed from the committed dev/4 key; built once a batch."""
+    import pathlib
+
+    from zkfranchise_tpu_torch import inputs as inp
+    from zkfranchise_tpu_torch.groth16 import setup as gsetup
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver, draw_rs
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    pk = gsetup.ProvingKey.load(
+        pathlib.Path(__file__).resolve().parent.parent / "artifacts" /
+        "zkCensus" / "dev" / str(FUSED_NL) / "proving_key.pkl")
+    prover = DeviceProver(CensusCircuit(FUSED_NL), pk, device=dev)
+    cache = {}
+
+    def voters(seeds):
+        """Two-voter batches side by side on the lane axis (a tree of
+        depth 4 holds few random keys): every input is per lane."""
+        parts = [inp.batch_to_arrays(inp.mock_batch(
+            FUSED_NL, 2, seed=seed, device=dev), FUSED_NL) for seed in seeds]
+        return {k: np.concatenate([p[k] for p in parts], -1)
+                for k in parts[0]}
+
+    def get(B):
+        if B not in cache:
+            n = B // 2
+            sets = [voters(range(1, n + 1)), voters(range(n + 1, B + 1))]
+            rs = [tuple(torch.as_tensor(x, device=dev)
+                        for x in draw_rs(seed, B)) for seed in (5, 6)]
+            cache[B] = (prover, prover.capture(B), sets, rs)
+        return cache[B]
+    return get
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_fused_step_replay_equals_prove_arrays(fused_steps, B):
+    prover, step, sets, rs = fused_steps(B)
+    for arrs, (r, s) in zip(sets, rs):
+        got = step(arrs, r, s)
+        want = prover.prove_arrays(arrs, r, s)
+        assert [tuple(g.shape) for g in got] == [(63, B), (126, B), (63, B),
+                                                 (8, 21, B)]
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_fused_step_clones_survive_the_next_replay(fused_steps, B):
+    _, step, sets, rs = fused_steps(B)
+    first = step(sets[0], *rs[0])
+    kept = [g.clone() for g in first]
+    second = step(sets[1], *rs[1])
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    assert not torch.equal(first[0], second[0])
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_fused_step_refuses_other_shapes(fused_steps, B):
+    _, step, sets, rs = fused_steps(B)
+    narrow = {k: v[..., :B - 1] for k, v in sets[0].items()}
+    with pytest.raises(ValueError, match="step inputs"):
+        step(narrow, *rs[0])
+    with pytest.raises(ValueError, match="step inputs"):
+        step(sets[0], rs[0][0][:, :1], rs[0][1])
+    with pytest.raises(ValueError, match="step inputs"):
+        step({**sets[0], "address": sets[0]["address"].astype(np.int64)},
+             *rs[0])
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_fused_step_captures_prove_arrays_launches(fused_steps, B):
+    prover, step, sets, rs = fused_steps(B)
+    K.reset_launches()
+    prover.prove_arrays(sets[0], *rs[0])
+    assert step.launches == {k: v for k, v in K.LAUNCHES.items() if v}
+    K.reset_launches()
+    step(sets[0], *rs[0])
+    assert not any(K.LAUNCHES.values())            # a replay ticks none
+
+
+def test_fused_step_prove_batch_equals_prove_batch(fused_steps):
+    prover, step, sets, _ = fused_steps(2)
+    got = step.prove_batch(sets[1], seed=9)
+    want = prover.prove_batch(sets[1], seed=9)
+    assert [p.to_dict() for p in got[0]] == [p.to_dict() for p in want[0]]
+    assert got[1] == want[1]

@@ -15,12 +15,17 @@ poseidon (witness), mont_mul (witness, quotient), fold_padd_aa /
 fold_padd / padd (MSMs, assembly), scalar_mul (assembly).  Only the
 final projective->affine conversion runs on the host.
 
+``DeviceProver.fused_step`` runs the four stages as one function with no
+host copy or synchronisation inside; ``FusedStep`` (``prover.capture(B)``)
+replays it as one CUDA graph at a fixed batch.
+
 The B1/B2 tables are compacted: wires whose B polynomial is zero carry
 identity points (None in the key), and dropping them roughly halves the
 padded MSM size.
 """
 from __future__ import annotations
 
+import ctypes
 import time
 
 import numpy as np
@@ -95,6 +100,57 @@ def neg_rs_scalar(r_plain: torch.Tensor,
     """-r*s mod p, plain canonical (21, B)."""
     rs = lm.mont_mul(lm.to_mont(r_plain, FR), s_plain, FR)
     return lm.canon(lm.neg_n(rs, FR), FR)
+
+
+def draw_rs(seed: int, count: int) -> tuple[np.ndarray, np.ndarray]:
+    """r and s for `count` voters as the JAX package's prove_batch draws
+    them: numpy.random.default_rng(seed), 31 bytes mod p each, every r
+    before every s -> two (21, count) int32 plain limb arrays."""
+    rng = np.random.default_rng(seed)
+    r_int = [int.from_bytes(rng.bytes(31), "big") % P for _ in range(count)]
+    s_int = [int.from_bytes(rng.bytes(31), "big") % P for _ in range(count)]
+    return lm.ints_to_lm(r_int), lm.ints_to_lm(s_int)
+
+
+def input_spec(n_levels: int, batch: int) -> dict:
+    """{key: shape} of the int32 arrays that inputs.batch_to_arrays gives
+    for `batch` voters at n_levels: scalars (21, B), vectors (k, 21, B),
+    siblings (n_levels + 1, 21, B)."""
+    one = (lm.N_LIMBS, batch)
+    sib = (n_levels + 1, *one)
+    return {"electionId": (2, *one), "nullifier": one,
+            "availableWeight": one, "voteHash": (2, *one), "sikRoot": one,
+            "censusRoot": one, "address": one, "password": one,
+            "signature": one, "voteWeight": one, "censusSiblings": sib,
+            "sikSiblings": sib}
+
+
+def _tensor(x) -> torch.Tensor:
+    """A tensor as it is, or a CPU tensor over the numpy array's memory."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+
+
+def check_step_inputs(spec: dict, inputs: dict, r_plain, s_plain) -> None:
+    """Raises ValueError unless `inputs` has exactly the keys of `spec`
+    (input_spec), each an int32 array or tensor of its shape, and r and s
+    are int32 (21, B) with the spec's B."""
+    if set(inputs) != set(spec):
+        raise ValueError(f"step inputs: keys {sorted(inputs)}, expected "
+                         f"{sorted(spec)}")
+    batch = spec["address"][-1]
+    want = {**spec, "r": (lm.N_LIMBS, batch), "s": (lm.N_LIMBS, batch)}
+    got = {**inputs, "r": r_plain, "s": s_plain}
+    for key, shape in want.items():
+        t = _tensor(got[key])
+        if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"step inputs: {key} is {t.dtype} "
+                             f"{tuple(t.shape)}, expected torch.int32 "
+                             f"{tuple(shape)}")
+
+
+def _no_mark(stage: str) -> None:
+    pass
 
 
 # the assembly's ladder as plain PyTorch, (rows, B) points and (nbits, B)
@@ -176,56 +232,71 @@ class DeviceProver:
             for k, v in inputs.items()}
 
     # -- full pipeline -------------------------------------------------------
+    def fused_step(self, inputs: dict, r_plain: torch.Tensor,
+                   s_plain: torch.Tensor):
+        """The whole pipeline as one function: witness, quotient, the four
+        MSMs, -r*s and the assembly.  inputs: the dict of
+        inputs.batch_to_arrays as int32 tensors, and r/s (21, B) plain
+        canonical, all already on the prover's device.  No host copy, no
+        synchronisation and no value read back, so it can be captured as
+        one CUDA graph (FusedStep).  Returns (pi_a (63, B), pi_b (126, B),
+        pi_c (63, B), publics (npub, 21, B))."""
+        return self._step(inputs, r_plain, s_plain, _no_mark)
+
     def prove_arrays(self, inputs: dict, r_plain: torch.Tensor,
                      s_plain: torch.Tensor,
                      stage_seconds: dict | None = None):
         """Batched prove; r/s: (21, B) plain canonical.  Returns limb-major
         planes (pi_a (63, B), pi_b (126, B), pi_c (63, B), publics).
+        Inputs may lie anywhere (numpy arrays or tensors): they are copied
+        to the prover's device first; then the body of fused_step runs.
 
         stage_seconds: if a dict is given, the device is synchronized after
         every stage and each stage's seconds are stored in it under
         witness, quotient, msm_a, msm_b1, msm_b2, msm_c, assemble."""
         clock = _StageClock(stage_seconds, self.device)
-        inputs = self._inputs(inputs)
-        r_plain = r_plain.to(self.device)
-        s_plain = s_plain.to(self.device)
+        return self._step(self._inputs(inputs), r_plain.to(self.device),
+                          s_plain.to(self.device), clock.mark)
+
+    def _step(self, inputs: dict, r_plain, s_plain, mark):
+        """The body of fused_step and prove_arrays; mark(stage) is called
+        after each stage."""
         w, w_plain = witness_stage(self.circuit, inputs)
-        clock.mark("witness")
+        mark("witness")
         q_plain = quotient_stage(self._arrays_dev, self.pk_meta[2], w)
-        clock.mark("quotient")
+        mark("quotient")
 
         npub = self.pk_meta[1]
         wa = torch.cat([w_plain, r_plain[None]], 0)
         ws = torch.cat([w_plain, s_plain[None]], 0)
         ws_b = ws[self._b_nz_dev]
         pa = self._msm(wa, "a")
-        clock.mark("msm_a")
+        mark("msm_a")
         pb1 = self._msm(ws_b, "b1")
-        clock.mark("msm_b1")
+        mark("msm_b1")
         pb2 = self._msm(ws_b, "b2")
-        clock.mark("msm_b2")
+        mark("msm_b2")
         neg_rs = neg_rs_scalar(r_plain, s_plain)
         c_scalars = torch.cat([w_plain[npub + 1:], q_plain, neg_rs[None]], 0)
         pc = self._msm(c_scalars, "c")
-        clock.mark("msm_c")
+        mark("msm_c")
         pi_a, pi_b, pi_c = assemble_stage(pa, pb1, pb2, pc, r_plain, s_plain,
                                           self.alpha, self.beta1, self.beta2)
-        clock.mark("assemble")
+        mark("assemble")
         return pi_a, pi_b, pi_c, w_plain[1:1 + npub]
+
+    def capture(self, batch: int) -> "FusedStep":
+        """fused_step captured as one CUDA graph at this batch size."""
+        return FusedStep(self, batch)
 
     # -- host wrapper --------------------------------------------------------
     def prove_batch(self, inputs: dict, seed: int = 0):
         """Returns (proofs: list[Proof], public_signals: list[list[int]]).
         r and s come from numpy.random.default_rng(seed), as in the JAX
         package, so one seed gives the same proofs."""
-        rng = np.random.default_rng(seed)
         count = int(np.asarray(inputs["address"]).shape[-1])
-        r_int = [int.from_bytes(rng.bytes(31), "big") % P
-                 for _ in range(count)]
-        s_int = [int.from_bytes(rng.bytes(31), "big") % P
-                 for _ in range(count)]
-        r_arr = torch.as_tensor(lm.ints_to_lm(r_int), device=self.device)
-        s_arr = torch.as_tensor(lm.ints_to_lm(s_int), device=self.device)
+        r_arr, s_arr = (torch.as_tensor(x, device=self.device)
+                        for x in draw_rs(seed, count))
         pa, pb, pc, publics = self.prove_arrays(inputs, r_arr, s_arr)
         return self.finalize(pa, pb, pc, publics)
 
@@ -248,6 +319,105 @@ class DeviceProver:
                 "pi_c": [str(c[0]), str(c[1]), "1"],
             }))
         return proofs, pubs
+
+
+class FusedStep:
+    """DeviceProver.fused_step captured as one CUDA graph at one batch size.
+
+    Static buffers hold the inputs (one per key of input_spec, int32), r
+    and s.  At construction fused_step runs once eagerly on them on a side
+    stream (building the kernels and filling the lazy device constants),
+    then once under torch.cuda.graph.  A call checks its inputs, copies
+    them into the buffers, replays the graph and returns clones of the
+    outputs, which the next replay cannot overwrite.  A replay ticks no
+    launch counter: `launches` holds what the capture launched, by kernel.
+    There is no eager fallback: a prover off the card, a failed capture or
+    a mismatched input raises."""
+
+    def __init__(self, prover: DeviceProver, batch: int):
+        dev = prover.device
+        if dev.type != "cuda":
+            raise RuntimeError(f"FusedStep: a CUDA graph needs a prover on "
+                               f"the card, not on {dev}")
+        self.prover = prover
+        self.batch = batch
+        self.spec = input_spec(prover.circuit.n_levels, batch)
+        self.inputs = {k: torch.zeros(shape, dtype=torch.int32, device=dev)
+                       for k, shape in self.spec.items()}
+        self.r = torch.zeros((lm.N_LIMBS, batch), dtype=torch.int32,
+                             device=dev)
+        self.s = torch.zeros_like(self.r)
+
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            prover.fused_step(self.inputs, self.r, self.s)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
+
+        before = dict(K.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph):
+            self.outputs = prover.fused_step(self.inputs, self.r, self.s)
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k: v - before[k] for k, v in K.LAUNCHES.items()
+                         if v != before[k]}
+        t0 = time.perf_counter()
+        self.graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.instantiate_s = time.perf_counter() - t0
+
+    def __call__(self, inputs: dict, r_plain, s_plain):
+        """-> clones of (pi_a, pi_b, pi_c, publics) for these inputs."""
+        check_step_inputs(self.spec, inputs, r_plain, s_plain)
+        for key, buf in self.inputs.items():
+            buf.copy_(_tensor(inputs[key]))
+        self.r.copy_(_tensor(r_plain))
+        self.s.copy_(_tensor(s_plain))
+        self.graph.replay()
+        return tuple(o.clone() for o in self.outputs)
+
+    def prove_batch(self, inputs: dict, seed: int = 0):
+        """DeviceProver.prove_batch through the graph: the same r and s
+        from the same seed, so the same proofs."""
+        r_arr, s_arr = draw_rs(seed, self.batch)
+        return self.prover.finalize(*self(inputs, r_arr, s_arr))
+
+    def node_counts(self) -> dict:
+        """{node type: count} of the captured graph, read through libcuda
+        (cuGraphGetNodes, cuGraphNodeGetType)."""
+        cuda = ctypes.CDLL("libcuda.so.1")
+        graph = ctypes.c_void_p(self.graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        _cu_check(cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)),
+                  "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        _cu_check(cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
+                  "cuGraphGetNodes")
+        out: dict = {}
+        kind = ctypes.c_int(0)
+        for node in nodes:
+            _cu_check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                              ctypes.byref(kind)),
+                      "cuGraphNodeGetType")
+            name = _NODE_TYPES.get(kind.value, str(kind.value))
+            out[name] = out.get(name, 0) + 1
+        return out
+
+
+# CUgraphNodeType (cuda.h)
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+               4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
+               8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+               11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def _cu_check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUresult {rc}")
 
 
 class _StageClock:

@@ -242,9 +242,17 @@ def eval_leq_const_trace(bits: torch.Tensor, c_val: int,
                          n: int) -> torch.Tensor:
     """(n, T) 0/1 bits -> (n_ones, 21, T) eq-chain signals in MSB->LSB
     order over positions where c_val has a 1-bit."""
-    ones_pos = [i for i in range(n - 1, -1, -1) if (c_val >> i) & 1]
-    sel = bits[torch.as_tensor(ones_pos, device=bits.device)]
+    sel = bits[lm.const(_ones_pos(c_val, n), bits.device)]
     return _bits_to_mont(torch.cumprod(sel, 0, dtype=lm.DTYPE))
+
+
+@functools.lru_cache(maxsize=None)
+def _ones_pos(c_val: int, n: int) -> np.ndarray:
+    """Positions of c_val's 1-bits below n, most significant first (held
+    for the life of the process, so lm.const copies them to a device
+    once)."""
+    return np.asarray([i for i in range(n - 1, -1, -1) if (c_val >> i) & 1],
+                      dtype=np.int64)
 
 
 def eval_smt_trace(key_bits: torch.Tensor, key_mont: torch.Tensor,

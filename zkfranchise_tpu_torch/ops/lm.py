@@ -291,10 +291,11 @@ def cond_sub_p(r: torch.Tensor, fs: FieldSpec) -> torch.Tensor:
     return torch.where(carry >= 1, wrapped, r)
 
 
+_ONE_COL = int_to_limbs(1)[:, None]
+
+
 def _one_col(device) -> torch.Tensor:
-    one = torch.zeros((N_LIMBS, 1), dtype=DTYPE, device=device)
-    one[0, 0] = 1
-    return one
+    return const(_ONE_COL, device)
 
 
 def from_mont(a: torch.Tensor, fs: FieldSpec = FR) -> torch.Tensor:

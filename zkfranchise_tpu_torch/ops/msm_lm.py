@@ -268,7 +268,7 @@ def _window_sums(signs, mags, table, kind, G, m):
     table_ext = torch.cat(
         [table, ec_affine.neg_affine(table.transpose(0, 1),
                                      kind).transpose(0, 1)], 0)  # (2m, arows)
-    br = torch.as_tensor(_bitrev(m), device=dev)
+    br = lm.const(_bitrev(m), dev)
     small = m < WFLOOR                 # tiny chunks (tests): full tree
     k = 0 if small else log_m - 7      # coarse block size 2^k
     buckets = torch.arange(N_MAGS, dtype=torch.int32,
@@ -319,7 +319,7 @@ def _window_sums(signs, mags, table, kind, G, m):
             coarse = ec_affine.to_projective(coarse, kind)
         # storage position j holds sorted block bitrev7(j): unscramble,
         # then inclusive prefix over the sorted coarse blocks
-        br7 = torch.as_tensor(_bitrev(WFLOOR), device=dev)
+        br7 = lm.const(_bitrev(WFLOOR), dev)
         cp = _lane_scan_padd(coarse[..., br7], kind)    # (G*B, rows, 128)
         total = cp[..., -1:]
         q = counts >> k                                 # (G*B, 128)
