@@ -68,9 +68,23 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      alone serves mock_batch(16, 300, seed=7) through ProofStream at
      batch 128 with a crash injected after the second batch (cursor 256)
      and a resume over the tail slices 32, 8, 4; sampled proof files
-     verify against the committed dev/16 key.
+     verify against the committed dev/16 key;
+  9. drives the trusted-setup path at the same width (phase ceremony):
+     a dev powers-of-tau transcript of power 15 on the host (with a timed
+     native EC-iNTT stage, the yardstick of the host route),
+     ceremony.pk_from_ptau on the card (EC-iNTTs and wire sums on
+     scalar_mul and padd) equal to the main path's dev_setup key point for
+     point and its vk to the committed one, a phase-1 chain (two
+     contributions and a beacon) verified with and without the
+     intermediate transcripts and a reordered one rejected, a key from the
+     contributed transcript and a phase-2 chain on it, verified; a prover
+     keyed from the final key proves mock_batch(16, 128, seed=7), sampled
+     proofs verify under the contributed vk and fail under the earlier
+     ones; tools.compile_circuit and tools.client_prove run at nlevels=4
+     into a temporary directory with artifacts/ unchanged; then scalar_mul
+     at the path's widths (8,192 to 165,476 lanes), device ms and bound.
 
-Launch counts are set to 0 just before each of the paths 3 to 8 and
+Launch counts are set to 0 just before each of the paths 3 to 9 and
 read just after it; the run fails if a kernel of a path was not launched
 on it.
 
@@ -153,6 +167,10 @@ PATH_KERNELS = {
 }
 PATH_KERNELS["stream"] = PATH_KERNELS["main_path"]
 PATH_KERNELS["fused_step"] = PATH_KERNELS["main_path"]
+# the trusted setup: scalings and butterflies, and from_mont on the way out
+PATH_KERNELS["ceremony"] = ["scalar_mul/g1", "scalar_mul/g2", "padd/g1",
+                            "padd/g2", "mont_mul"]
+PATH_KERNELS["ceremony_prove"] = PATH_KERNELS["main_path"]
 
 
 def require_launches(path: str, launches: dict) -> None:
@@ -1441,6 +1459,314 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the trusted-setup path: ptau -> proving key on the card, the
+# contribution chains, a prove under the contributed key, the entry tools
+# ---------------------------------------------------------------------------
+
+# H needs tau^(n+i) for i < n, 2n G1 powers: a transcript of power p
+# serves domains up to 2^(p-1), so the flagship's 2^14 takes power 15
+PTAU_POWER = 15
+# scalar_mul at the path's widths: (group, lanes, scalar per lane)
+CEREMONY_LADDERS = [("g1", 8192, True), ("g1", 16384, False),
+                    ("g1", 88218, True), ("g1", 165476, True),
+                    ("g2", 8192, True), ("g2", 165476, True)]
+
+
+def _tree_digest(root: pathlib.Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in sorted(root.rglob("*")):
+        if path.is_file():
+            st = path.stat()
+            h.update(f"{path.relative_to(root)} {st.st_size} "
+                     f"{st.st_mtime_ns}\n".encode())
+    return h.hexdigest()
+
+
+def _host_estimate(ptau, cs, n: int) -> dict:
+    """The native route's seconds for one pk_from_ptau at this size,
+    worked out from timed native batches on this machine's host: one
+    EC-iNTT stage at n/2 G1 lanes (a scaling batch by the stage's
+    twiddles and two add batches), and a G2 scaling and add batch at 1024
+    lanes; times the scalings and adds the route makes (five EC-iNTTs of
+    log2 n stages and a final scale, the six wire sums, the k, pre and H
+    scalings, K's adds and the tau^(n+i) - tau^i subtraction)."""
+    import random
+
+    from zkfranchise_tpu_torch.groth16 import ceremony, qap
+    from zkfranchise_tpu_torch.utils import native
+
+    rng = random.Random(5)
+    half, g2_lanes = n // 2, 1024
+    tws = [rng.randrange(ceremony.P) for _ in range(half)]
+    t0 = time.perf_counter()
+    t = native.g1_scale_batch(tws, ptau.tau_g1[half:n])
+    t1 = time.perf_counter()
+    native.g1_add_batch(ptau.tau_g1[:half], t)
+    native.g1_add_batch(ptau.tau_g1[:half],
+                        [ceremony._g1_neg(p) for p in t])
+    t2 = time.perf_counter()
+    t = native.g2_scale_batch(tws[:g2_lanes], ptau.tau_g2[:g2_lanes])
+    t3 = time.perf_counter()
+    native.g2_add_batch(ptau.tau_g2[:g2_lanes], t)
+    t4 = time.perf_counter()
+    per = {"g1_scale": (t1 - t0) / half, "g1_add": (t2 - t1) / (2 * half),
+           "g2_scale": (t3 - t2) / g2_lanes, "g2_add": (t4 - t3) / g2_lanes}
+    ent = [len(e[1]) for e in ceremony._entries(cs)]
+    m, npub = cs.num_vars, cs.num_public
+    log_n = n.bit_length() - 1
+    intt_scale, intt_add = log_n * half + n, log_n * n
+    counts = {
+        "g1_scale": 4 * intt_scale + 2 * ent[0] + 2 * ent[1] + ent[2] +
+        (m - npub - 1) + 2 * n,
+        "g2_scale": intt_scale + ent[1],
+        "g1_add": 4 * intt_add + 2 * ent[0] + 2 * ent[1] + ent[2] + 2 * m + n,
+        "g2_add": intt_add + ent[1]}
+    assert qap.domain_size(cs.num_constraints, npub) == n
+    return {"ceremony_host_estimate_s": sum(per[k] * counts[k]
+                                            for k in counts),
+            "per_point_s": per, "counts": counts,
+            "timed": {"g1_stage_lanes": half, "g1_stage_s": t2 - t0,
+                      "g2_lanes": g2_lanes, "g2_s": t4 - t2}}
+
+
+def _ceremony_ladders(np, torch, K, dev, ptau) -> list:
+    """scalar_mul at the ceremony's widths, 254 bits: device ms from
+    torch.profiler (two calls), whole-call ms by CUDA events, the bound
+    from the adds the scalars need (a doubling a bit and an add a set bit
+    a lane); at 8192 lanes also held against the plain version."""
+    from zkfranchise_tpu_torch.ops import ec_batch
+    from zkfranchise_tpu_torch.tools import add_mads, bound_ms, \
+        event_ms, kernel_events
+
+    rng = np.random.default_rng(11)
+    rows_out = []
+    for kind, T, per_lane in CEREMONY_LADDERS:
+        rows = 63 if kind == "g1" else 126
+        src = ptau.tau_g1 if kind == "g1" else ptau.tau_g2
+        base = ec_batch.to_plane(src[:min(T, 8192)], kind, dev)
+        pts = base.repeat(1, -(-T // base.shape[1]))[:, :T].contiguous()
+        scalars = [int.from_bytes(rng.bytes(32), "big") % (1 << 254)
+                   for _ in range(T if per_lane else 1)]
+        bits = ec_batch.scalar_bits(scalars, 254)
+        bits_t = torch.as_tensor(bits if per_lane else bits[:, 0].copy(),
+                                 device=dev)
+        set_bits = int(bits.sum()) * (1 if per_lane else T)
+        adds = 254 * T + set_bits
+
+        def fn():
+            return K.scalar_mul(pts, bits_t, kind)
+
+        row = {"kernel": "scalar_mul", "kind": kind, "lanes": T,
+               "bits": 254, "per_lane": per_lane}
+        if T == 8192:
+            want = K.scalar_mul_ref(pts, bits_t, kind)
+            row["equal_to_plain"] = bool(torch.equal(fn(), want))
+            if not row["equal_to_plain"]:
+                raise AssertionError(f"scalar_mul {kind} at {T} lanes "
+                                     f"differs from scalar_mul_ref")
+            del want
+        events, _ = kernel_events(fn, runs=2)
+        ours = [us for name, us in events if "ladder" in name]
+        row["device_ms"] = sum(ours) / 2 / 1e3 if len(ours) == 2 else None
+        row["ms"] = event_ms(fn, runs=2, warmup=0)
+        nbytes = 4 * (2 * rows * T + bits_t.numel())
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, add_mads("padd", kind) * adds)
+        row["adds"] = adds
+        row["bound_share"] = _ratio(row["bound_ms"], row["device_ms"])
+        row["blocks"] = -(-T // 32)
+        rows_out.append(row)
+        emit({"phase": "ceremony_ladder", **row})
+        del pts, base, bits_t
+    return rows_out
+
+
+def phase_ceremony(np, torch, K, dev, circuit, pk_dev, vk) -> dict:
+    """The trusted-setup path at the flagship's width (CensusCircuit(16),
+    domain 2^14), with no cut: a dev transcript of power 15 on the host;
+    pk_from_ptau on the card equal to the main path's dev_setup key point
+    for point and its vk to the committed one; a phase-1 chain on the card
+    (two contributions and a beacon) verified with and without the
+    intermediate transcripts, a reordered chain rejected; a key from the
+    contributed transcript and a phase-2 chain on it (two contributions and
+    a beacon), verified; a prover keyed from the final key proving
+    mock_batch(16, 128, seed=7), sampled proofs accepted under the
+    contributed vk and rejected under the earlier ones; the two entry tools
+    at nlevels=4 into a temporary directory, artifacts/ unchanged.
+    Launches are counted over the key derivations and the chains (path
+    "ceremony") and over the prove and the tools (path "ceremony_prove")."""
+    import tempfile
+
+    from zkfranchise_tpu_torch import inputs as inp
+    from zkfranchise_tpu_torch.groth16 import ceremony, contribute
+    from zkfranchise_tpu_torch.groth16 import setup as gsetup
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
+    from zkfranchise_tpu_torch.tools import client_prove, compile_circuit
+
+    torch.cuda.empty_cache()
+    cs = circuit.cs
+    n = pk_dev.domain
+    seconds = {}
+    t0 = time.perf_counter()
+    ptau = ceremony.dev_ptau(PTAU_POWER)
+    seconds["dev_ptau_host"] = time.perf_counter() - t0
+    estimate = _host_estimate(ptau, cs, n)
+    emit({"phase": "ceremony_host_estimate", "nvidia_smi": smi_line(),
+          **estimate})
+
+    # the path: counts start at 0 here
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = {}
+    t0 = time.perf_counter()
+    pk0, vk0 = ceremony.pk_from_ptau(ptau, cs, device=dev,
+                                     seconds=steps)
+    seconds["pk_from_ptau"] = time.perf_counter() - t0
+    same = {f: getattr(pk0, f) == getattr(pk_dev, f)
+            for f in ceremony.PK_FIELDS}
+    vk_same = vk0.to_dict() == vk.to_dict()
+    emit({"phase": "ceremony_pk", "nlevels": N_LEVELS, "domain": n,
+          "wires": cs.num_vars, "ptau_power": PTAU_POWER,
+          "entries": [len(e[1]) for e in ceremony._entries(cs)],
+          "seconds": seconds["pk_from_ptau"], "steps": steps,
+          "equal_to_dev_setup": same, "vk_equals_committed": vk_same,
+          "host_estimate_over_card": _ratio(
+              estimate["ceremony_host_estimate_s"],
+              seconds["pk_from_ptau"])})
+    if not all(same.values()) or not vk_same:
+        raise AssertionError("ceremony: the card's key differs from "
+                             "dev_setup's")
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    h0 = contribute.GENESIS
+    p1, c1 = timed("phase1_contribute_1", contribute.phase1_contribute,
+                   ptau, b"entropy-A", h0, device=dev)
+    p2, c2 = timed("phase1_contribute_2", contribute.phase1_contribute,
+                   p1, b"entropy-B", c1.new_hash, device=dev)
+    p3, c3 = timed("phase1_beacon", contribute.phase1_beacon, p2,
+                   "00deadbeef", c2.new_hash, n_iters=64, device=dev)
+    cons = [c1, c2, c3]
+    ok1 = timed("verify_phase1_intermediate",
+                contribute.verify_phase1_chain, ptau, p3, cons,
+                intermediate=[p1, p2])
+    ok1b = timed("verify_phase1", contribute.verify_phase1_chain, ptau, p3,
+                 cons)
+    swapped = timed("verify_phase1_reordered",
+                    contribute.verify_phase1_chain, ptau, p3,
+                    [c2, c1, c3], intermediate=[p1, p2])
+    del p1, p2
+    # the key from the contributed transcript, under torch.profiler: the
+    # derivation's device busy time by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pk_c, vk_c = timed("pk_from_contributed_ptau_profiled",
+                           ceremony.pk_from_ptau, p3, cs, device=dev)
+    busy = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.split("(")[0]
+            busy[name] = busy.get(name, 0.0) + ev.device_time_total / 1e6
+    busy_s = sum(busy.values())
+    emit({"phase": "ceremony_profile", "device_busy_s": busy_s,
+          "profiled_wall_s": seconds["pk_from_contributed_ptau_profiled"],
+          "device_idle_share_of_unprofiled": 1 - busy_s /
+          seconds["pk_from_ptau"],
+          "top_kernels_s": dict(sorted(busy.items(),
+                                       key=lambda kv: -kv[1])[:10])})
+    del prof
+    pk1, d1 = timed("phase2_contribute_1", contribute.phase2_contribute,
+                    pk_c, b"delta-A", c3.new_hash, device=dev)
+    pk2, d2 = timed("phase2_contribute_2", contribute.phase2_contribute,
+                    pk1, b"delta-B", d1.new_hash, device=dev)
+    pk3, d3 = timed("phase2_beacon", contribute.phase2_beacon, pk2,
+                    "00cafe", d2.new_hash, n_iters=64, device=dev)
+    ok2 = timed("verify_phase2", contribute.verify_phase2_chain, pk_c, pk3,
+                [d1, d2, d3], c3.new_hash)
+    launches = dict(K.LAUNCHES)
+    by_shape = {"scalar_mul": dict(sorted(K.SCALAR_SHAPES.items())),
+                "padd": dict(sorted(K.PADD_SHAPES.items())),
+                "mont_mul": dict(sorted(K.MONT_SHAPES.items()))}
+    peak = torch.cuda.max_memory_allocated(dev)
+    emit({"phase": "ceremony_chains", "phase1_verified": ok1,
+          "phase1_verified_without_intermediates": ok1b,
+          "reordered_accepted": swapped, "phase2_verified": ok2,
+          "pk_contributed_equals_dev": pk_c.a_g1 == pk_dev.a_g1,
+          "launches": {k: v for k, v in launches.items() if v},
+          "launches_by_shape": by_shape, "peak_memory_bytes": peak})
+    if not (ok1 and ok1b and ok2) or swapped:
+        raise AssertionError("ceremony: chain verification failed")
+    if pk_c.a_g1 == pk_dev.a_g1:
+        raise AssertionError("ceremony: contributions left the key as it was")
+    require_launches("ceremony", launches)
+    del pk1, pk2, p3
+
+    # a prover keyed from the final key; counts start at 0 again
+    K.reset_launches()
+    vk_final = gverify.VerifyingKey(
+        {**vk_c.to_dict(), "vk_delta_2": gsetup._g2j(pk3.delta_g2)})
+    prover = timed("prover_init", DeviceProver, circuit, pk3, device=dev)
+    batch = inp.mock_batch(N_LEVELS, BATCH, seed=7, device=dev)
+    arrs = inp.batch_to_arrays(batch, N_LEVELS)
+    proofs, pubs = timed("prove", prover.prove_batch, arrs, seed=1)
+    t0 = time.perf_counter()
+    accepted = {f"voter_{i}": gverify.verify(vk_final, proofs[i], pubs[i])
+                for i in (0, BATCH // 2, BATCH - 1)}
+    rejected_pre_phase2 = not gverify.verify(vk_c, proofs[0], pubs[0])
+    rejected_dev_vk = not gverify.verify(vk0, proofs[0], pubs[0])
+    seconds["verify_proofs"] = time.perf_counter() - t0
+    del prover, arrs
+    torch.cuda.empty_cache()
+    # the two entry tools, into a temporary directory only
+    art = ROOT / "artifacts"
+    before = _tree_digest(art)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        rc_compile = timed("compile_circuit_nl4", compile_circuit.main,
+                           ["--out", str(tmp / "c"), "--nlevels", "4"])
+        rc_client = timed("client_prove_nl4", client_prove.main,
+                          ["--out", str(tmp / "p"), "--key-dir",
+                           str(tmp / "c" / "zkCensus" / "dev" / "4"),
+                           "--nlevels", "4"])
+        written = sorted(str(p.relative_to(tmp)) for p in tmp.rglob("*")
+                         if p.is_file())
+    unchanged = _tree_digest(art) == before
+    prove_launches = dict(K.LAUNCHES)
+    emit({"phase": "ceremony_prove", "accepted": accepted,
+          "rejected_under_pre_phase2_vk": rejected_pre_phase2,
+          "rejected_under_dev_vk": rejected_dev_vk,
+          "tools_rc": [rc_compile, rc_client], "tools_wrote": written,
+          "artifacts_unchanged": unchanged,
+          "launches": {k: v for k, v in prove_launches.items() if v}})
+    if not all(accepted.values()) or not rejected_pre_phase2 or \
+            not rejected_dev_vk:
+        raise AssertionError("ceremony: proofs under the contributed key")
+    if rc_compile or rc_client or not unchanged:
+        raise AssertionError("ceremony: entry tools failed or wrote into "
+                             "artifacts/")
+    require_launches("ceremony_prove", prove_launches)
+
+    ladders = _ceremony_ladders(np, torch, K, dev, ptau)
+    emit({"phase": "ceremony", "nvidia_smi": smi_line(),
+          "seconds": seconds, "pk_from_ptau_steps": steps,
+          "ceremony_host_estimate_s": estimate["ceremony_host_estimate_s"],
+          "peak_memory_bytes": peak,
+          "ladder_resident_blocks_per_sm": K.ladder_occupancy(),
+          "ladders": ladders})
+    return {"ceremony": launches, "ceremony_prove": prove_launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1469,6 +1795,7 @@ def main() -> int:
     launches["fused_step"] = phase_fused_step(torch, K, dev, *held)
     del held
     launches["stream"] = phase_stream(torch, K, dev, *keys)
+    launches.update(phase_ceremony(np, torch, K, dev, *keys))
     kernels = []
     for name, (source, replaces, path, keys) in KERNELS.items():
         # `launches` is the count on the path that owns the kernel (G1 and

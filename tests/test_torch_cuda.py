@@ -643,3 +643,140 @@ def test_fused_step_prove_batch_equals_prove_batch(fused_steps):
     want = prover.prove_batch(sets[1], seed=9)
     assert [p.to_dict() for p in got[0]] == [p.to_dict() for p in want[0]]
     assert got[1] == want[1]
+
+
+# ---------------------------------------------------------------------------
+# the trusted-setup path: ops/ec_batch.py, groth16/ceremony.py,
+# groth16/contribute.py and the two entry tools on the card
+# ---------------------------------------------------------------------------
+
+def _host_points(kind, n, seed, none_at=()):
+    import random
+
+    from zkfranchise_tpu_torch.utils import native
+
+    rng = random.Random(seed)
+    fixed = native.g1_fixed_base_mul if kind == "g1" else \
+        native.g2_fixed_base_mul
+    pts = fixed([rng.randrange(1, ec.R_ORDER) for _ in range(n)])
+    return [None if i in none_at else p for i, p in enumerate(pts)]
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_ec_ntt_plane_matches_native(dev, kind):
+    from zkfranchise_tpu_torch.groth16 import ceremony, poly
+    from zkfranchise_tpu_torch.ops import ec_batch, ff
+
+    n = 1 << 10
+    root = ff.inv_mod(poly.root_of_unity(10), ff.P_FR)
+    pts = _host_points(kind, n, seed=1, none_at=(3, 700))
+    K.reset_launches()
+    got = ec_batch.to_affine(ec_batch.ec_ntt_plane(
+        ec_batch.to_plane(pts, kind, dev), root, kind), kind)
+    assert K.LAUNCHES[f"scalar_mul/{kind}"] == 10
+    assert K.LAUNCHES[f"padd/{kind}"] == 20
+    scale, add, neg, _ = ceremony._HOST[kind]
+    assert got == ceremony._ec_ntt(pts, root, scale, add, neg)
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_segsum_plane_long_segment_and_empty_ids(dev, kind):
+    from zkfranchise_tpu_torch.ops import ec_batch
+    from zkfranchise_tpu_torch.utils import native
+
+    rng = np.random.default_rng(2)
+    ids = np.concatenate([np.full(1100, 4), rng.integers(6, 40, 300),
+                          [0, 2, 2]])
+    rng.shuffle(ids)
+    pts = _host_points(kind, ids.size, seed=2, none_at=(5,))
+    plane = ec_batch.to_plane(pts, kind, dev)
+    got = ec_batch.to_affine(ec_batch.segsum_plane(plane, ids, 45, kind),
+                             kind)
+    segsum = native.g1_segsum if kind == "g1" else native.g2_segsum
+    assert got == segsum(pts, ids.tolist(), 45)
+    assert got[1] is None and got[44] is None
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_scale_plane_per_lane_shared_and_identity(dev, kind):
+    from zkfranchise_tpu_torch.ops import ec_batch, ff
+    from zkfranchise_tpu_torch.utils import native
+
+    pts = _host_points(kind, 300, seed=3, none_at=(0, 131))
+    rng = np.random.default_rng(3)
+    scalars = [int.from_bytes(rng.bytes(32), "big") % ff.P_FR
+               for _ in range(300)]
+    scalars[7] = 0
+    scale = native.g1_scale_batch if kind == "g1" else native.g2_scale_batch
+    plane = ec_batch.to_plane(pts, kind, dev)
+    K.reset_launches()
+    got = ec_batch.to_affine(ec_batch.scale_plane(plane, scalars, kind),
+                             kind)
+    shared = ec_batch.to_affine(ec_batch.scale_plane(plane, scalars[1],
+                                                     kind), kind)
+    assert K.LAUNCHES[f"scalar_mul/{kind}"] == 2
+    assert got == scale(scalars, pts)
+    assert shared == scale([scalars[1]] * 300, pts)
+    assert got[0] is None and got[7] is None and got[131] is None
+    # the plane route's own plain version on the same plane
+    want = K.scalar_mul_ref(plane[:, :4].cpu(), torch.as_tensor(
+        ec_batch.scalar_bits(scalars[:4])), kind)
+    assert torch.equal(K.scalar_mul(plane[:, :4].contiguous(),
+                                    torch.as_tensor(ec_batch.scalar_bits(
+                                        scalars[:4]), device=dev),
+                                    kind).cpu(), want)
+
+
+def test_pk_from_ptau_census4_equals_dev_setup(dev):
+    from zkfranchise_tpu_torch.groth16 import ceremony, qap
+    from zkfranchise_tpu_torch.groth16 import setup as gsetup
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+
+    cs = CensusCircuit(4).cs
+    n = qap.domain_size(cs.num_constraints, cs.num_public)
+    ptau = ceremony.dev_ptau(n.bit_length())
+    K.reset_launches()
+    seconds = {}
+    pk, vk = ceremony.pk_from_ptau(ptau, cs, device=dev, seconds=seconds)
+    assert K.LAUNCHES["scalar_mul/g1"] and K.LAUNCHES["scalar_mul/g2"]
+    assert K.LAUNCHES["padd/g1"] and K.LAUNCHES["mont_mul"]
+    pk2, vk2 = gsetup.dev_setup(cs)
+    for f in ceremony.PK_FIELDS:
+        assert getattr(pk, f) == getattr(pk2, f), f
+    assert vk.to_dict() == vk2.to_dict()
+    assert "intt_h" in seconds and "convert_out" in seconds
+
+
+def test_phase1_contribute_power10_equals_cpu_route(dev):
+    from zkfranchise_tpu_torch.groth16 import ceremony, contribute
+
+    p0 = ceremony.dev_ptau(10)
+    got, con = contribute.phase1_contribute(p0, b"e", contribute.GENESIS,
+                                            device=dev)
+    want, con2 = contribute.phase1_contribute(p0, b"e", contribute.GENESIS,
+                                              device="cpu")
+    for f in ("tau_g1", "tau_g2", "alpha_tau_g1", "beta_tau_g1", "beta_g2"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert con.new_hash == con2.new_hash and con.after == con2.after
+
+
+def test_entry_tools_write_only_into_out(dev, tmp_path):
+    import pathlib
+
+    from zkfranchise_tpu_torch.tools import client_prove, compile_circuit
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "artifacts"
+
+    def state():
+        return {str(p): (p.stat().st_size, p.stat().st_mtime_ns)
+                for p in sorted(root.rglob("*")) if p.is_file()}
+
+    before = state()
+    assert compile_circuit.main(["--out", str(tmp_path / "c"),
+                                 "--nlevels", "4"]) == 0
+    key = tmp_path / "c" / "zkCensus" / "dev" / "4"
+    assert client_prove.main(["--out", str(tmp_path / "p"), "--key-dir",
+                              str(key), "--nlevels", "4"]) == 0
+    assert state() == before
+    assert sorted(p.name for p in (tmp_path / "p").iterdir()) == [
+        "inputs_example.json", "proof.json", "signals.json"]

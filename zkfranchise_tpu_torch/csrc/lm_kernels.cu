@@ -1059,6 +1059,21 @@ static int occupancy(const void* kernel, int smem) {
   return rc == cudaSuccess ? blocks : -(int)rc;
 }
 
+// the same for the scalar_mul ladder: two teams a block, two regions of
+// shared memory (launch_ladder's geometry)
+template <class F>
+static int ladder_occupancy() {
+  const void* kernel = (const void*)ladder_kernel<F>;
+  const int smem = (2 * ADDS * F::STRIDE + F::NCONST) * 4;
+  int blocks = 0;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, 2 * F::WARPS * 32, smem);
+  return rc == cudaSuccess ? blocks : -(int)rc;
+}
+
 extern "C" {
 
 // pn: p and n' of the field (42 ints) in HOST memory; tx: lanes a block
@@ -1157,6 +1172,13 @@ int zk_occupancy(int levels, int* blocks) {
   blocks[5] = occupancy<PaddG2>(
       (const void*)fold_levels_kernel<PaddG2, 1, G2_FOLD_BLOCKS>,
       form_smem<PaddG2>());
+  return 0;
+}
+
+// resident blocks per SM of the scalar_mul ladder, G1 and G2 -> blocks[0..1]
+int zk_ladder_occupancy(int* blocks) {
+  blocks[0] = ladder_occupancy<PaddG1>();
+  blocks[1] = ladder_occupancy<PaddG2>();
   return 0;
 }
 

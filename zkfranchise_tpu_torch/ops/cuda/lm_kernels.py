@@ -60,7 +60,8 @@ per kernel launch and nowhere else; the EC kernels count G1 and G2 apart
 (``"padd/g1"``, ``"padd/g2"``); fold_mul_levels counts as
 ``"fold_mul"``; ``MONT_SHAPES`` counts mont_mul's
 launches by operand pattern and shape, ``PADD_SHAPES`` padd's by plane
-shape and ``FOLD_SHAPES`` the folds' by batch, width and levels.
+shape, ``FOLD_SHAPES`` the folds' by batch, width and levels and
+``SCALAR_SHAPES`` scalar_mul's by lanes, bits and scalar form.
 ``fold_plan`` decides how many levels a fold launch takes,
 ``batch_inv_plan`` the launches of a batch inversion; ``lane_block``
 how the kernels that take a lane axis of any width shape their blocks.
@@ -110,6 +111,9 @@ PADD_SHAPES: dict = {}
 # fold_padd_levels on (128, 63, 16384) planes with 3 levels (first output
 # width h); fold_padd_aa's are "fold_padd_aa/g1/B128/h16384/n1"
 FOLD_SHAPES: dict = {}
+# scalar_mul launches by shape: "g1/T8192/b254/lane" counts G1 launches on
+# 8192 lanes with 254 bits, a scalar per lane ("shared": one for all)
+SCALAR_SHAPES: dict = {}
 
 
 def reset_launches() -> None:
@@ -118,6 +122,7 @@ def reset_launches() -> None:
     MONT_SHAPES.clear()
     PADD_SHAPES.clear()
     FOLD_SHAPES.clear()
+    SCALAR_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +188,7 @@ def _libs() -> tuple:
     lib.zk_fold_padd_levels.argtypes = [I, P, P, L, L, I, P]
     lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
     lib.zk_occupancy.argtypes = [I, P]
+    lib.zk_ladder_occupancy.argtypes = [P]
     lib.zk_scalar_mul.argtypes = [I, P, P, P, L, L, I, L, P]
     lib.zk_fold2d.argtypes = [I, P, P, L, L, L, P]
     chains = ctypes.CDLL(str(paths["lm_chains"]))
@@ -202,7 +208,8 @@ def _libs() -> tuple:
     nttl = ctypes.CDLL(str(paths["lm_ntt"]))
     nttl.zk_ntt_level.argtypes = [P, P, P, P, P, L, L, I, P]
     for fn in (lib.zk_mont_mul, nttl.zk_ntt_level, lib.zk_padd, lib.zk_fold_padd_levels,
-               lib.zk_fold_padd_aa, lib.zk_occupancy, lib.zk_scalar_mul,
+               lib.zk_fold_padd_aa, lib.zk_occupancy,
+               lib.zk_ladder_occupancy, lib.zk_scalar_mul,
                chains.zk_fold_mul, chains.zk_inv, chains.zk_mont_chain,
                chains.zk_fold_mul_levels, chains.zk_batch_inv_down,
                chains.zk_batch_inv_top,
@@ -608,6 +615,14 @@ def occupancy(levels: int = 1) -> dict:
     names = ["padd/g1", "padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2",
              f"fold_padd/g1/n{levels}", f"fold_padd/g2/n{levels}"]
     return dict(zip(names, blocks))
+
+
+def ladder_occupancy() -> dict:
+    """Resident blocks per SM of the scalar_mul ladder (two teams a
+    block), G1 and G2, at its shared memory."""
+    blocks = (ctypes.c_int * 2)()
+    _check(_lib().zk_ladder_occupancy(blocks), "ladder_occupancy")
+    return {"scalar_mul/g1": blocks[0], "scalar_mul/g2": blocks[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -1042,6 +1057,9 @@ def scalar_mul(pts: torch.Tensor, bits, kind: str) -> torch.Tensor:
                                   _stream(pts.device))
         _check(rc, "scalar_mul")
         LAUNCHES[f"scalar_mul/{kind}"] += 1
+        key = f"{kind}/T{pts.shape[1]}/b{bits.shape[0]}/" + \
+            ("lane" if sbt else "shared")
+        SCALAR_SHAPES[key] = SCALAR_SHAPES.get(key, 0) + 1
     return out
 
 

@@ -296,33 +296,33 @@ def _identity_col(kind: str, device: str) -> torch.Tensor:
 # host conversions
 # ---------------------------------------------------------------------------
 
+def _mont_rows(values: list) -> np.ndarray:
+    """Plain Fq ints -> (len, 21) int32 Montgomery limbs."""
+    return lm.ints_to_limb_rows([v * _R % _Q for v in values])
+
+
 def g1_table(points: list) -> np.ndarray:
     """Affine host points [(x, y) | None] -> (N, 63) int32 rows in
     Montgomery projective form."""
     out = np.zeros((len(points), G1_ROWS), np.int32)
-    for j, pt in enumerate(points):
-        if pt is None:
-            out[j, NL:2 * NL] = FQ.one_mont[:, 0]
-        else:
-            out[j, :NL] = lm.int_to_limbs(pt[0] * _R % _Q)
-            out[j, NL:2 * NL] = lm.int_to_limbs(pt[1] * _R % _Q)
-            out[j, 2 * NL:] = lm.int_to_limbs(_R % _Q)
+    out[:, NL:2 * NL] = FQ.one_mont[:, 0]          # the identity (0 : 1 : 0)
+    live = [j for j, pt in enumerate(points) if pt is not None]
+    if live:
+        coords = _mont_rows([c for j in live for c in points[j]])
+        out[live, :2 * NL] = coords.reshape(len(live), 2 * NL)
+        out[live, 2 * NL:] = FQ.one_mont[:, 0]
     return out
 
 
 def g2_table(points: list) -> np.ndarray:
     out = np.zeros((len(points), G2_ROWS), np.int32)
-    one = lm.int_to_limbs(_R % _Q)
-    for j, pt in enumerate(points):
-        if pt is None:
-            out[j, 2 * NL:3 * NL] = one
-        else:
-            (x0, x1), (y0, y1) = pt[0], pt[1]
-            out[j, 0 * NL:1 * NL] = lm.int_to_limbs(x0 * _R % _Q)
-            out[j, 1 * NL:2 * NL] = lm.int_to_limbs(x1 * _R % _Q)
-            out[j, 2 * NL:3 * NL] = lm.int_to_limbs(y0 * _R % _Q)
-            out[j, 3 * NL:4 * NL] = lm.int_to_limbs(y1 * _R % _Q)
-            out[j, 4 * NL:5 * NL] = one
+    out[:, 2 * NL:3 * NL] = FQ.one_mont[:, 0]      # the identity
+    live = [j for j, pt in enumerate(points) if pt is not None]
+    if live:
+        coords = _mont_rows([c for j in live for xy in points[j]
+                             for c in xy])
+        out[live, :4 * NL] = coords.reshape(len(live), 4 * NL)
+        out[live, 4 * NL:5 * NL] = FQ.one_mont[:, 0]
     return out
 
 

@@ -44,26 +44,45 @@ def int_to_limbs(x: int) -> np.ndarray:
                     dtype=np.int32)
 
 
+def ints_to_limb_rows(xs) -> np.ndarray:
+    """List of n ints in [0, 2^273) -> (n, 21) int32 limbs, one row an
+    int: each int's little-endian bytes read as five 64-bit words, and
+    each limb cut from the one or two words it spans (no Python loop over
+    the ints' limbs)."""
+    n = len(xs)
+    if not n:
+        return np.zeros((0, N_LIMBS), np.int32)
+    words = np.frombuffer(b"".join(int(x).to_bytes(40, "little")
+                                   for x in xs), "<u8").reshape(n, 5)
+    assert not (words[:, 4] >> np.uint64(R_BITS - 256)).any(), \
+        "value >= 2^273"
+    out = np.empty((n, N_LIMBS), np.int32)
+    for i in range(N_LIMBS):
+        w, off = divmod(LIMB_BITS * i, 64)
+        v = words[:, w] >> np.uint64(off)
+        if off + LIMB_BITS > 64:
+            v = v | (words[:, w + 1] << np.uint64(64 - off))
+        out[:, i] = v & np.uint64(MASK)
+    return out
+
+
 def ints_to_lm(xs) -> np.ndarray:
     """List of n ints -> (21, n) limb-major plane."""
-    if not len(xs):
-        return np.zeros((N_LIMBS, 0), np.int32)
-    return np.stack([int_to_limbs(int(x)) for x in xs], axis=1)
+    return np.ascontiguousarray(ints_to_limb_rows(xs).T)
 
 
 def lm_to_ints(a) -> list:
     """(..., 21, n) tensor or array -> flat list of ints (exact; limbs may
-    exceed 13 bits)."""
+    exceed 13 bits or be negative): Horner over the limb axis on Python
+    ints held in an object array."""
     if isinstance(a, torch.Tensor):
         a = a.cpu().numpy()
     a = np.asarray(a, dtype=np.int64)
-    flat = a.reshape(-1, *a.shape[-2:])
-    out = []
-    for plane in flat:
-        for j in range(plane.shape[-1]):
-            out.append(sum(int(plane[i, j]) << (LIMB_BITS * i)
-                           for i in range(plane.shape[0])))
-    return out
+    flat = a.reshape(-1, *a.shape[-2:]).astype(object)
+    acc = flat[:, -1, :]
+    for i in range(flat.shape[1] - 2, -1, -1):
+        acc = (acc << LIMB_BITS) + flat[:, i, :]
+    return acc.reshape(-1).tolist()
 
 
 # ---------------------------------------------------------------------------
