@@ -780,3 +780,50 @@ def test_entry_tools_write_only_into_out(dev, tmp_path):
     assert state() == before
     assert sorted(p.name for p in (tmp_path / "p").iterdir()) == [
         "inputs_example.json", "proof.json", "signals.json"]
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer: ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+def test_coset_evals_dist_two_ranks_on_the_card(dev):
+    """intt_dist / ntt_dist / coset_evals_dist on 2 gloo ranks sharing the
+    card at n = 2^10, T = 128, gathered, equal the local ntt on the card."""
+    from zkfranchise_tpu_torch.parallel import jobs, launch
+
+    K.build()                       # once here; the ranks only load them
+    x = jobs.random_plane(1 << 10, 128, 3)
+    res = launch.run(jobs.ntt_job, 2, backend="gloo", timeout_s=300,
+                     args=(x, 10, "cuda", False))
+    assert res[0]["inverse_equal"] and res[0]["roundtrip_equal"] \
+        and res[0]["coset_equal"]
+
+
+def test_sharded_prover_1x2_equals_device_prover(dev):
+    """ShardedProver on a (1, 2) mesh of 2 gloo ranks sharing the card, at
+    nlevels=4 from the committed dev/4 key: proof JSON byte-equal to
+    DeviceProver.prove_batch on the card for the same seed."""
+    import json
+    import pathlib
+
+    from zkfranchise_tpu_torch import inputs as tinputs
+    from zkfranchise_tpu_torch.groth16 import setup as tsetup
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+    from zkfranchise_tpu_torch.parallel import jobs, launch
+
+    art = pathlib.Path(__file__).resolve().parent.parent / "artifacts" / \
+        "zkCensus" / "dev" / "4"
+    arrs = tinputs.batch_to_arrays(
+        tinputs.mock_batch(4, 4, seed=1, device=dev), 4)
+    K.build()
+    res = launch.run(jobs.prove_job, 2, backend="gloo", timeout_s=300,
+                     args=(str(art / "proving_key.pkl"), 4, arrs, 3, 2,
+                           "cuda"))
+    assert [r["mesh"] for r in res] == [{"data": 1, "model": 2}] * 2
+    assert res[0]["launches"]["mont_mul"] and res[1]["launches"]["padd/g1"]
+    prover = DeviceProver(CensusCircuit(4), tsetup.ProvingKey.load(
+        art / "proving_key.pkl"), device=dev)
+    proofs, pubs = prover.prove_batch(arrs, seed=3)
+    assert res[0]["proofs"] == [json.dumps(p.to_dict()) for p in proofs]
+    assert res[0]["publics"] == pubs
