@@ -61,14 +61,24 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      tampered one be rejected; times eager prove_arrays and the replay in
      turns (eager, replay, replay, eager, three rounds; wall and CUDA-event
      seconds), profiles one replay, prints the memory with the graph alive
-     and tools.bench's JSON line taken on the same prover;
+     and tools.bench's JSON line taken on the same prover; the allocator
+     after two eager steps and at the capture's four points (before and
+     after the warm-up, after the capture, after the instantiation):
+     memory_stats' totals and peaks, and the segments by memory pool and
+     stream with their blocks' bytes by state;
   8. drives the serving path at the same width: the dev key is exported
      as a producer-ordered snarkjs zkey, written to bytes, read back and
      ingested (A and B matrices only), and a DeviceProver keyed from it
      alone serves mock_batch(16, 300, seed=7) through ProofStream at
      batch 128 with a crash injected after the second batch (cursor 256)
-     and a resume over the tail slices 32, 8, 4; sampled proof files
-     verify against the committed dev/16 key;
+     and a resume over the tail slices 32, 8, 4, every slice replayed on
+     a captured step (groth16.device.ReplayProver: 128, 32, 8 and 4 each
+     captured once into one shared pool, each capture's launches equal to
+     one prove_arrays' at its size); then the same stream on the eager
+     prover, whose files must equal the captured stream's byte for byte;
+     sampled proof files verify against the committed dev/16 key; prints
+     each capture's seconds, nodes and pool bytes, the peaks, and each
+     stream's seconds and proofs/s by slice and over the 300 voters;
   9. drives the trusted-setup path at the same width (phase ceremony):
      a dev powers-of-tau transcript of power 15 on the host (with a timed
      native EC-iNTT stage, the yardstick of the host route),
@@ -212,8 +222,7 @@ def smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 def phase_toolchain(torch, K) -> None:
-    nvcc = subprocess.run([K._nvcc(), "--version"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()
+    nvcc = K._nvcc_version().strip().splitlines()
     # the host library the dev setup needs; built without OpenMP, whose
     # runtime the GPU machine's default compiler lacks (its two parallel
     # loops then run on one thread)
@@ -343,7 +352,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
     # inv's products: 253 squares and one per set bit of p - 2 (110)
     chain = len(lm.FQ.p_minus_2_bits) - 1 + int(lm.FQ.p_minus_2_bits.sum())
 
-    def check(name, kernel, plain, nbytes, mads, key, plain_runs=10,
+    def check(name, kernel, plain, nbytes, mads, key, plain_runs=3,
               library=None):
         """library: one PyTorch call (or the honest chain of them) that
         computes the same function; timed beside the kernel, held against
@@ -351,7 +360,9 @@ def phase_kernels(np, torch, K, dev) -> dict:
         call (CUDA events, the wrapper's host time included), device_ms
         the kernels' own time per call (torch.profiler, through
         tools.device_reading: "device_invalid" marks a reading no card can
-        give, beside the event-burst ms)."""
+        give, beside the event-burst ms); plain_ms the median of
+        plain_runs timed calls of the plain version, or with plain_runs=1
+        the check's own call."""
         got = kernel()
         if plain_runs == 1:
             # a plain version of hundreds of chained steps is timed once:
@@ -510,8 +521,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
         name = f"inv/fq/21x{T}"
         check(name, lambda: K.inv(a, lm.FQ), lambda: K.inv_ref(a, lm.FQ),
               4 * (2 * 21 * T + 254), MAD_MONT * chain * T,
-              "inv" if T == B else f"inv/T{T}",
-              plain_runs=3 if T == B else 1)
+              "inv" if T == B else f"inv/T{T}", plain_runs=1)
     yard = device_reading(f"mont_chain/fq/21x{B}x364 (inv's yardstick)",
                           lambda: K.mont_chain(a[:, :B], a[:, :B], 364,
                                                lm.FQ),
@@ -648,7 +658,7 @@ def _batch_inv(np, torch, K, dev, rng, check, results, table) -> None:
     d = inputs(X)
     check(f"batch_inv/fq/{B}x21x{X}", lambda: K.batch_inv(d, lm.FQ),
           lambda: K.batch_inv_ref(d, lm.FQ), *batch_inv_work(B, X),
-          "batch_inv", plain_runs=3)
+          "batch_inv", plain_runs=1)
     K.reset_launches()
     K.batch_inv(d, lm.FQ)
     per_call = {k: v for k, v in K.LAUNCHES.items() if v}
@@ -1204,6 +1214,58 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
 ROUNDS = 3                              # eager, replay, replay, eager
 
 
+def _segments(torch, dev, pool=None) -> dict:
+    """The caching allocator's segments on `dev` (only those of `pool`, a
+    graph_pool_handle, when given), by memory pool and stream: segments,
+    their bytes, and their blocks' bytes by state (active_allocated,
+    active_pending_free, inactive) beside the bytes the callers asked for
+    (requested)."""
+    pools: dict = {}
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        if seg["device"] != dev.index or pool is not None and \
+                tuple(seg["segment_pool_id"]) != tuple(pool):
+            continue
+        key = (f"pool {tuple(seg['segment_pool_id'])} "
+               f"stream {seg['stream']}")
+        group = pools.setdefault(key, {"segments": 0, "bytes": 0,
+                                       "blocks": {}})
+        group["segments"] += 1
+        group["bytes"] += seg["total_size"]
+        for block in seg["blocks"]:
+            state = group["blocks"].setdefault(
+                block["state"], {"count": 0, "bytes": 0, "requested": 0})
+            state["count"] += 1
+            state["bytes"] += block["size"]
+            state["requested"] += block.get("requested_size", 0)
+    return pools
+
+
+def _pool_bytes(torch, dev, pool) -> dict:
+    """Segments and bytes of one graph pool, and the bytes of its blocks
+    that are allocated."""
+    groups = _segments(torch, dev, pool).values()
+    return {"segments": sum(g["segments"] for g in groups),
+            "bytes": sum(g["bytes"] for g in groups),
+            "allocated_bytes": sum(g["blocks"].get("active_allocated", {})
+                                   .get("bytes", 0) for g in groups)}
+
+
+def _allocator(torch, dev) -> dict:
+    """The allocator now: memory_stats' current totals and the peak
+    allocated since the last reading (the peak is reset here), and the
+    segments by pool and stream."""
+    stats = torch.cuda.memory_stats(dev)
+    out = {k: stats.get(f"{k}.all.current", 0)
+           for k in ("allocated_bytes", "reserved_bytes", "active_bytes",
+                     "inactive_split_bytes", "segment")}
+    out["peak_allocated_bytes"] = stats.get("allocated_bytes.all.peak", 0)
+    out["peak_reserved_bytes"] = stats.get("reserved_bytes.all.peak", 0)
+    out["alloc_retries"] = stats.get("num_alloc_retries", 0)
+    out["segments_by_pool"] = _segments(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return out
+
+
 def phase_fused_step(torch, K, dev, prover, vk, arrs, r, s) -> dict:
     """The prover of the main path captured as one CUDA graph at batch 128
     (groth16.device.FusedStep): capture, instantiation, the graph's nodes
@@ -1221,33 +1283,41 @@ def phase_fused_step(torch, K, dev, prover, vk, arrs, r, s) -> dict:
     from zkfranchise_tpu_torch.tools import bench
 
     r2, s2 = (torch.as_tensor(x, device=dev) for x in draw_rs(4, BATCH))
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    _allocator(torch, dev)                      # resets the peak
     K.reset_launches()
     want = prover.prove_arrays(arrs, r, s)
     eager_launches = {k: v for k, v in K.LAUNCHES.items() if v}
     want2 = prover.prove_arrays(arrs, r2, s2)
     torch.cuda.synchronize(dev)
+    # two eager steps from an emptied cache, then the capture's four
+    # points: before the warm-up, after it, after the capture and after
+    # the instantiation (each with its peak since the one before)
+    memory = {"eager_steps": _allocator(torch, dev)}
     torch.cuda.empty_cache()
-    before = {"allocated": torch.cuda.memory_allocated(dev),
-              "reserved": torch.cuda.memory_reserved(dev)}
-    torch.cuda.reset_peak_memory_stats(dev)
+
+    def probe(stage):
+        torch.cuda.synchronize(dev)
+        memory[stage] = _allocator(torch, dev)
 
     # the path: counts start at 0 here and are read right after the capture
     K.reset_launches()
     t0 = time.perf_counter()
-    step = prover.capture(BATCH)
+    step = prover.capture(BATCH, probe=probe)
     build_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     nodes = step.node_counts()
-    captured = {"allocated": torch.cuda.memory_allocated(dev),
-                "reserved": torch.cuda.memory_reserved(dev)}
     emit({"phase": "fused_step", "batch": BATCH, "build_s": build_s,
           "warmup_s": step.warmup_s, "capture_s": step.capture_s,
           "instantiate_s": step.instantiate_s, "graph_nodes": nodes,
           "graph_nodes_total": sum(nodes.values()),
           "graph_launches": step.launches,
-          "prove_arrays_launches": eager_launches,
-          "memory_before_capture": before,
-          "memory_after_capture": captured})
+          "prove_arrays_launches": eager_launches})
+    emit({"phase": "fused_step_memory", "nvidia_smi": smi_line(),
+          "graph_pool": str(tuple(step.graph.pool())),
+          "current_stream": torch.cuda.current_stream(dev).cuda_stream,
+          "readings": memory})
     if step.launches != eager_launches:
         raise AssertionError("the graph's launches differ from one "
                              "prove_arrays'")
@@ -1348,9 +1418,14 @@ N_VOTERS = 300                          # 2 x 128, then the ladder 32, 8, 4
 
 
 class _RecordingProver:
-    """Stands between ProofStream and the DeviceProver: records each
-    slice's size and kernel launches, and raises in place of slice number
-    `fail_after` (a crash between two batches)."""
+    """Stands between ProofStream and a prover (a DeviceProver, or a
+    ReplayProver over one): records each slice's size, seed and the kernel
+    launches that proved it, and raises in place of slice number
+    `fail_after` (a crash between two batches).  Behind a DeviceProver the
+    launches are the counts the slice ticked; behind a ReplayProver they
+    are those of the captured step that the slice replayed (a replay ticks
+    no counter), and `issued` holds what the slice ticked (finalize, and
+    the warm-up and capture when the slice's size was new)."""
 
     def __init__(self, prover, K, fail_after=None):
         self.prover, self.K, self.fail_after = prover, K, fail_after
@@ -1361,25 +1436,92 @@ class _RecordingProver:
         if self.fail_after is not None and \
                 len(self.slices) >= self.fail_after:
             raise RuntimeError("injected crash")
+        steps = getattr(self.prover, "steps", None)
+        batch = int(arrs["address"].shape[-1])
+        new = steps is not None and batch not in steps
         before = dict(self.K.LAUNCHES)
         out = self.prover.prove_batch(arrs, seed=seed)
-        self.slices.append({
-            "batch": len(out[0]), "seed": seed,
-            "launches": {k: v - before[k] for k, v in self.K.LAUNCHES.items()
-                         if v != before[k]}})
+        issued = {k: v - before[k] for k, v in self.K.LAUNCHES.items()
+                  if v != before[k]}
+        record = {"batch": len(out[0]), "seed": seed, "launches": issued}
+        if steps is not None:
+            record.update(launches=steps[batch].launches, issued=issued,
+                          captured=new)
+        self.slices.append(record)
         return out
 
 
+def _tree_bytes(root: pathlib.Path) -> dict:
+    """{relative path: bytes} of every file under root."""
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _serve(torch, K, prover, voters, out, sink) -> dict:
+    """ProofStream over `prover` (wrapped in _RecordingProver) on a fresh
+    directory: a crash in place of the third batch, a resume over the
+    tail and a third run that must be a no-op.  -> the two recorders and
+    the wall seconds from the first run's start to the resumed run's
+    end."""
+    from zkfranchise_tpu_torch.stream import ProofStream
+    from zkfranchise_tpu_torch.utils.metrics import Metrics
+
+    first = _RecordingProver(prover, K, fail_after=2)
+    s1 = ProofStream(first, out, batch_size=BATCH, metrics=Metrics(sink=sink))
+    crashed = False
+    t0 = time.perf_counter()
+    try:
+        s1.run(voters, seed=1)
+    except RuntimeError as e:
+        crashed = str(e) == "injected crash"
+    if not crashed or s1.cursor != 2 * BATCH:
+        raise AssertionError(f"stream: expected a crash at cursor "
+                             f"{2 * BATCH}, got cursor {s1.cursor}")
+    # a fresh stream on the same directory resumes over the tail
+    second = _RecordingProver(prover, K)
+    s2 = ProofStream(second, out, batch_size=BATCH, metrics=Metrics(sink=sink))
+    produced = s2.run(voters, seed=1)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    sizes = [x["batch"] for x in second.slices]
+    done = sorted(d.name for d in out.iterdir() if d.is_dir())
+    if (produced, sizes, s2.cursor) != (44, [32, 8, 4], N_VOTERS) or \
+            done != [f"proof_{i:08d}" for i in range(N_VOTERS)]:
+        raise AssertionError(f"stream resume: produced {produced}, "
+                             f"slices {sizes}, cursor {s2.cursor}, "
+                             f"{len(done)} proof directories")
+    launches = dict(K.LAUNCHES)
+    third = _RecordingProver(prover, K)
+    if ProofStream(third, out, batch_size=BATCH,
+                   metrics=Metrics(sink=sink)).run(voters, seed=1) or \
+            third.slices or dict(K.LAUNCHES) != launches:
+        raise AssertionError("stream: a third run was not a no-op")
+    return {"first": first, "second": second, "stream_s": stream_s}
+
+
+def _rates(sink) -> list:
+    """Metrics' throughput records: one a slice."""
+    return [{"batch": r["items"], "seconds": r["seconds"],
+             "proofs_per_s": r["per_second"]}
+            for r in map(json.loads, sink.getvalue().splitlines())
+            if r["kind"] == "throughput"]
+
+
 def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
+    """The serving path: a prover keyed from zkey bytes alone behind
+    ProofStream, proving every slice on a captured step (ReplayProver:
+    sizes 128, 32, 8 and 4 each captured once, across the crash, into one
+    pool), then the same stream on the eager prover in the same process:
+    the two trees of files must be equal byte for byte.  -> the launches
+    of the captured stream's run (its warm-ups, captures and finalize)."""
     import io
     import tempfile
 
     from zkfranchise_tpu_torch import inputs as inp
     from zkfranchise_tpu_torch.groth16 import verify as gverify
-    from zkfranchise_tpu_torch.groth16.device import DeviceProver
-    from zkfranchise_tpu_torch.stream import ProofStream
+    from zkfranchise_tpu_torch.groth16.device import (DeviceProver,
+                                                      ReplayProver, draw_rs)
     from zkfranchise_tpu_torch.utils import serialize, zkey_compat
-    from zkfranchise_tpu_torch.utils.metrics import Metrics
 
     vk_path = ROOT / "artifacts" / "zkCensus" / "dev" / str(N_LEVELS) / \
         "verification_key.json"
@@ -1420,49 +1562,65 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
           "seconds": seconds})
     del z, raw, data
 
+    # the shared pool and the process after each capture
+    pool_after = {}
+
+    def probe(batch, stage):
+        if stage == "instantiate":
+            pool_after[batch] = {
+                "pool": _pool_bytes(torch, dev, replay.pool),
+                "reserved_bytes": torch.cuda.memory_reserved(dev),
+                "allocated_bytes": torch.cuda.memory_allocated(dev)}
+
+    replay = ReplayProver(prover, probe=probe)
     with tempfile.TemporaryDirectory() as tmp:
-        out = pathlib.Path(tmp) / "proofs"
-        sink = io.StringIO()
-        # (b) the stream crashes in place of its third batch; counts
-        # start at 0 here and are read right after the resumed run
-        K.reset_launches()
+        tmp = pathlib.Path(tmp)
+        # (b) the path: counts start at 0 here and are read right after
+        # the captured stream's crash, resume and no-op run
+        graph_sink, eager_sink = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        first = _RecordingProver(prover, K, fail_after=2)
-        s1 = ProofStream(first, out, batch_size=BATCH,
-                         metrics=Metrics(sink=sink))
-        crashed = False
-        t0 = time.perf_counter()
-        try:
-            s1.run(voters, seed=1)
-        except RuntimeError as e:
-            crashed = str(e) == "injected crash"
-        if not crashed or s1.cursor != 2 * BATCH:
-            raise AssertionError(f"stream: expected a crash at cursor "
-                                 f"{2 * BATCH}, got cursor {s1.cursor}")
-        # (c) a fresh stream on the same directory resumes over the tail
-        second = _RecordingProver(prover, K)
-        s2 = ProofStream(second, out, batch_size=BATCH,
-                         metrics=Metrics(sink=sink))
-        produced = s2.run(voters, seed=1)
-        torch.cuda.synchronize()
-        stream_s = time.perf_counter() - t0
+        K.reset_launches()
+        graph = _serve(torch, K, replay, voters, tmp / "graph", graph_sink)
         launches = dict(K.LAUNCHES)
-        sizes = [x["batch"] for x in second.slices]
-        done = sorted(d.name for d in out.iterdir() if d.is_dir())
-        if (produced, sizes, s2.cursor) != (44, [32, 8, 4], N_VOTERS) or \
-                done != [f"proof_{i:08d}" for i in range(N_VOTERS)]:
-            raise AssertionError(f"stream resume: produced {produced}, "
-                                 f"slices {sizes}, cursor {s2.cursor}, "
-                                 f"{len(done)} proof directories")
-        third = _RecordingProver(prover, K)
-        if ProofStream(third, out, batch_size=BATCH,
-                       metrics=Metrics(sink=sink)).run(voters, seed=1) or \
-                third.slices or dict(K.LAUNCHES) != launches:
-            raise AssertionError("stream: a third run was not a no-op")
-        # (d) sampled proof files against the committed key: first batch,
+        graph_memory = {
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+            "pool": _pool_bytes(torch, dev, replay.pool)}
+        if list(replay.steps) != [BATCH, 32, 8, 4]:
+            raise AssertionError(f"stream: sizes captured "
+                                 f"{list(replay.steps)}, expected each of "
+                                 f"128, 32, 8, 4 once")
+        # (c) the same stream on the eager prover, same voters and seed
+        torch.cuda.reset_peak_memory_stats(dev)
+        eager = _serve(torch, K, prover, voters, tmp / "eager", eager_sink)
+        eager_memory = {
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
+        trees = [_tree_bytes(tmp / name) for name in ("graph", "eager")]
+        if trees[0] != trees[1] or len(trees[0]) != 2 * N_VOTERS + 1:
+            differ = sorted(k for k in set(trees[0]) | set(trees[1])
+                            if trees[0].get(k) != trees[1].get(k))
+            raise AssertionError(f"stream: the captured stream's files "
+                                 f"differ from the eager stream's: "
+                                 f"{differ[:8]} ({len(differ)} in all)")
+        # (d) each size's captured launches against one eager prove_arrays
+        # at that size on the same prover
+        eager_step = {}
+        for batch in replay.steps:
+            arrs = inp.batch_to_arrays(voters[:batch], N_LEVELS)
+            r, s = (torch.as_tensor(x, device=dev)
+                    for x in draw_rs(1, batch))
+            before = dict(K.LAUNCHES)
+            prover.prove_arrays(arrs, r, s)
+            eager_step[batch] = {k: v - before[k]
+                                 for k, v in K.LAUNCHES.items()
+                                 if v != before[k]}
+        torch.cuda.synchronize(dev)
+        # (e) sampled proof files against the committed key: first batch,
         # the batch before the crash, and each slice of the resumed tail
         def files(i):
-            d = out / f"proof_{i:08d}"
+            d = tmp / "graph" / f"proof_{i:08d}"
             return str(d / "proof.json"), str(d / "signals.json")
 
         t0 = time.perf_counter()
@@ -1471,20 +1629,54 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
                     for i in (0, 200, 256, 287, 288, 295, 296, 299)}
         cross = gverify.verify_files(str(vk_path), files(0)[0], files(1)[1])
         verify_s = time.perf_counter() - t0
-    records = [json.loads(line) for line in sink.getvalue().splitlines()]
-    rates = [{"batch": r["items"], "seconds": r["seconds"],
-              "proofs_per_s": r["per_second"]}
-             for r in records if r["kind"] == "throughput"]
+    capture_s = {b: st.warmup_s + st.capture_s + st.instantiate_s
+                 for b, st in replay.steps.items()}
+    captures = {b: {"warmup_s": st.warmup_s, "capture_s": st.capture_s,
+                    "instantiate_s": st.instantiate_s,
+                    "total_s": capture_s[b],
+                    "graph_nodes": st.node_counts(),
+                    "launches": st.launches,
+                    "launches_equal_prove_arrays":
+                        st.launches == eager_step[b],
+                    **pool_after[b]}
+                for b, st in replay.steps.items()}
+    captures_s = sum(capture_s.values())
+    streams = {}
+    for name, run, sink in (("graph", graph, graph_sink),
+                            ("eager", eager, eager_sink)):
+        streams[name] = {
+            "slices": run["first"].slices + run["second"].slices,
+            "rates": _rates(sink), "stream_s": run["stream_s"],
+            "proofs_per_s": N_VOTERS / run["stream_s"]}
+    # a slice that met a new size paid its capture: the seconds without it
+    for rate, sl in zip(streams["graph"]["rates"],
+                        streams["graph"]["slices"]):
+        if sl["captured"]:
+            rate["capture_s"] = capture_s[sl["batch"]]
+            rate["without_capture_s"] = rate["seconds"] - rate["capture_s"]
+    proving_s = graph["stream_s"] - captures_s
+    streams["graph"].update(captures_s=captures_s, proving_s=proving_s,
+                            proofs_per_s_without_captures=N_VOTERS /
+                            proving_s)
     emit({"phase": "stream", "nvidia_smi": smi_line(), "voters": N_VOTERS,
-          "slices": first.slices + second.slices, "rates": rates,
-          "stream_s": stream_s, "proofs_per_s": N_VOTERS / stream_s,
-          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "captured_sizes": list(replay.steps), "captures": captures,
+          "graph_memory": graph_memory, "eager_memory": eager_memory,
+          "files_equal": True, "files": len(trees[0]),
+          "streams": streams,
           "launches": {k: v for k, v in launches.items() if v},
           "accepted": accepted, "cross_voter_accepted": cross,
           "verify_s": verify_s})
     if not all(accepted.values()) or cross:
         raise AssertionError("stream: proof verification failed")
+    unequal = [b for b, c in captures.items()
+               if not c["launches_equal_prove_arrays"]]
+    if unequal:
+        raise AssertionError(f"stream: the captured launches at sizes "
+                             f"{unequal} differ from one prove_arrays'")
     require_launches("stream", launches)
+    del replay, graph
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
     return launches
 
 

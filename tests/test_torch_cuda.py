@@ -553,14 +553,16 @@ FUSED_NL = 4
 
 
 @pytest.fixture(scope="module")
-def fused_steps():
-    """batch -> (prover, FusedStep, two input sets, two (r, s) pairs) at
-    nlevels=4, keyed from the committed dev/4 key; built once a batch."""
+def fused_prover():
+    """(prover, voters) at nlevels=4: a DeviceProver keyed from the
+    committed dev/4 key, and voters(seeds) -> the inputs of two voters a
+    seed side by side on the lane axis (a tree of depth 4 holds few
+    random keys): every input is per lane."""
     import pathlib
 
     from zkfranchise_tpu_torch import inputs as inp
     from zkfranchise_tpu_torch.groth16 import setup as gsetup
-    from zkfranchise_tpu_torch.groth16.device import DeviceProver, draw_rs
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
     from zkfranchise_tpu_torch.models.census import CensusCircuit
 
     if not torch.cuda.is_available():
@@ -570,15 +572,24 @@ def fused_steps():
         pathlib.Path(__file__).resolve().parent.parent / "artifacts" /
         "zkCensus" / "dev" / str(FUSED_NL) / "proving_key.pkl")
     prover = DeviceProver(CensusCircuit(FUSED_NL), pk, device=dev)
-    cache = {}
 
     def voters(seeds):
-        """Two-voter batches side by side on the lane axis (a tree of
-        depth 4 holds few random keys): every input is per lane."""
         parts = [inp.batch_to_arrays(inp.mock_batch(
             FUSED_NL, 2, seed=seed, device=dev), FUSED_NL) for seed in seeds]
         return {k: np.concatenate([p[k] for p in parts], -1)
                 for k in parts[0]}
+    return prover, voters
+
+
+@pytest.fixture(scope="module")
+def fused_steps(fused_prover):
+    """batch -> (prover, FusedStep, two input sets, two (r, s) pairs) at
+    nlevels=4, keyed from the committed dev/4 key; built once a batch."""
+    from zkfranchise_tpu_torch.groth16.device import draw_rs
+
+    prover, voters = fused_prover
+    dev = prover.device
+    cache = {}
 
     def get(B):
         if B not in cache:
@@ -643,6 +654,108 @@ def test_fused_step_prove_batch_equals_prove_batch(fused_steps):
     want = prover.prove_batch(sets[1], seed=9)
     assert [p.to_dict() for p in got[0]] == [p.to_dict() for p in want[0]]
     assert got[1] == want[1]
+
+
+# ---------------------------------------------------------------------------
+# the stream's prover on captured steps (groth16.device.ReplayProver)
+# ---------------------------------------------------------------------------
+
+def _replay_case(prover, voters, B, seed):
+    """(inputs, r, s, prove_arrays' planes) for B (even) voters, from the
+    mock batches of seeds seed .. seed + B/2 - 1."""
+    from zkfranchise_tpu_torch.groth16.device import draw_rs
+
+    arrs = voters(range(seed, seed + B // 2))
+    r, s = (torch.as_tensor(x, device=prover.device)
+            for x in draw_rs(seed, B))
+    return arrs, r, s, prover.prove_arrays(arrs, r, s)
+
+
+def test_replay_prover_sizes_in_one_pool_replay_in_any_order(fused_prover):
+    from zkfranchise_tpu_torch.groth16.device import ReplayProver
+
+    prover, voters = fused_prover
+    replay = ReplayProver(prover)
+    cases = {B: _replay_case(prover, voters, B, seed)
+             for B, seed in ((2, 1), (4, 3), (8, 5))}
+    for B in (2, 4, 8):                  # captured in this order
+        replay.step(B)
+    assert list(replay.steps) == [2, 4, 8]
+    assert all(st.pool is replay.pool for st in replay.steps.values())
+    assert all(st.launches for st in replay.steps.values())
+    got = []
+    for B in (8, 2, 4, 8, 2):            # and replayed in another
+        arrs, r, s, want = cases[B]
+        planes = replay.step(B)(arrs, r, s)
+        assert all(torch.equal(g, w) for g, w in zip(planes, want)), B
+        got.append((B, planes))
+    # every clone survives the replays of the other sizes after it
+    for B, planes in got:
+        assert all(torch.equal(g, w) for g, w in zip(planes, cases[B][3]))
+    assert list(replay.steps) == [2, 4, 8]
+
+
+def test_replay_prover_stream_equals_eager_stream(fused_prover, tmp_path):
+    import io
+
+    from zkfranchise_tpu_torch import inputs as inp
+    from zkfranchise_tpu_torch.groth16.device import ReplayProver
+    from zkfranchise_tpu_torch.stream import ProofStream
+    from zkfranchise_tpu_torch.utils.metrics import Metrics
+
+    prover, _ = fused_prover
+    voters = [v for seed in (1, 2, 3) for v in inp.mock_batch(
+        FUSED_NL, 2, seed=seed, device=prover.device)][:5]
+    replay = ReplayProver(prover)
+    trees = []
+    for p, name in ((replay, "graph"), (prover, "eager")):
+        stream = ProofStream(p, tmp_path / name, batch_size=4,
+                             metrics=Metrics(io.StringIO()))
+        assert stream.run(voters, seed=3) == 5 and stream.cursor == 5
+        root = tmp_path / name
+        trees.append({str(f.relative_to(root)): f.read_bytes()
+                      for f in sorted(root.rglob("*")) if f.is_file()})
+    assert list(replay.steps) == [4, 1]
+    assert trees[0] == trees[1] and len(trees[0]) == 2 * 5 + 1
+
+
+def test_replay_prover_on_an_ingested_zkey(fused_prover):
+    import json
+    import pathlib
+
+    from zkfranchise_tpu_torch.groth16 import setup as gsetup
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+    from zkfranchise_tpu_torch.groth16.device import (DeviceProver,
+                                                      ReplayProver)
+    from zkfranchise_tpu_torch.utils import serialize, zkey_compat
+
+    prover, voters = fused_prover
+    art = pathlib.Path(__file__).resolve().parent.parent / "artifacts" / \
+        "zkCensus" / "dev" / str(FUSED_NL)
+    cs = prover.circuit.cs
+    z = zkey_compat.zkey_from_pk(
+        cs, gsetup.ProvingKey.load(art / "proving_key.pkl"),
+        gverify.VerifyingKey(json.loads(
+            (art / "verification_key.json").read_text())))
+    data = serialize.write_zkey(zkey_compat.export_in_ordering(
+        z, zkey_compat.census_circom_perm(cs)))
+    zpk, _, arrays = zkey_compat.ingest_zkey(data, cs=cs,
+                                             ordering="census-circom")
+    assert "c" not in arrays                    # the A/B-only quotient
+    zprover = DeviceProver(prover.circuit, zpk, arrays=arrays,
+                           device=prover.device)
+    replay = ReplayProver(zprover)
+    arrs, r, s, want = _replay_case(zprover, voters, 4, 2)
+    K.reset_launches()
+    zprover.prove_arrays(arrs, r, s)
+    eager = {k: v for k, v in K.LAUNCHES.items() if v}
+    got = replay.step(4)(arrs, r, s)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert replay.steps[4].launches == eager
+    proofs, pubs = replay.prove_batch(arrs, seed=9)
+    wproofs, wpubs = zprover.prove_batch(arrs, seed=9)
+    assert [p.to_dict() for p in proofs] == [p.to_dict() for p in wproofs]
+    assert pubs == wpubs
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ final projective->affine conversion runs on the host.
 
 ``DeviceProver.fused_step`` runs the four stages as one function with no
 host copy or synchronisation inside; ``FusedStep`` (``prover.capture(B)``)
-replays it as one CUDA graph at a fixed batch.
+replays it as one CUDA graph at a fixed batch.  ``ReplayProver`` keeps one
+such graph per batch size, captured at first use into one shared memory
+pool, behind ``prove_batch``: the stream's prover on captured steps.
 
 The B1/B2 tables are compacted: wires whose B polynomial is zero carry
 identity points (None in the key), and dropping them roughly halves the
@@ -283,11 +285,14 @@ class DeviceProver:
         pi_a, pi_b, pi_c = assemble_stage(pa, pb1, pb2, pc, r_plain, s_plain,
                                           self.alpha, self.beta1, self.beta2)
         mark("assemble")
-        return pi_a, pi_b, pi_c, w_plain[1:1 + npub]
+        # a copy, not a view: a view would keep the whole witness plane
+        # alive (a captured step's outputs stay allocated in its pool)
+        return pi_a, pi_b, pi_c, w_plain[1:1 + npub].clone()
 
-    def capture(self, batch: int) -> "FusedStep":
-        """fused_step captured as one CUDA graph at this batch size."""
-        return FusedStep(self, batch)
+    def capture(self, batch: int, probe=None) -> "FusedStep":
+        """fused_step captured as one CUDA graph at this batch size (see
+        FusedStep for `probe`)."""
+        return FusedStep(self, batch, probe=probe)
 
     # -- host wrapper --------------------------------------------------------
     def prove_batch(self, inputs: dict, seed: int = 0):
@@ -332,15 +337,27 @@ class FusedStep:
     outputs, which the next replay cannot overwrite.  A replay ticks no
     launch counter: `launches` holds what the capture launched, by kernel.
     There is no eager fallback: a prover off the card, a failed capture or
-    a mismatched input raises."""
+    a mismatched input raises.
 
-    def __init__(self, prover: DeviceProver, batch: int):
+    pool: a torch.cuda.graph_pool_handle() that the capture allocates
+    from, shared with other graphs (default: a pool of its own).  The
+    buffers and the lazy device constants lie outside it; the graph keeps
+    only its outputs alive in it, and another graph of a shared pool may
+    use their space when it replays (ReplayProver).  probe(stage), if
+    given, is called before the warm-up ("start") and after the warm-up,
+    the capture and the instantiation ("warmup", "capture",
+    "instantiate"), so a caller can read the allocator at each point."""
+
+    def __init__(self, prover: DeviceProver, batch: int, *, pool=None,
+                 probe=None):
         dev = prover.device
         if dev.type != "cuda":
             raise RuntimeError(f"FusedStep: a CUDA graph needs a prover on "
                                f"the card, not on {dev}")
+        probe = probe or _no_mark
         self.prover = prover
         self.batch = batch
+        self.pool = pool
         self.spec = input_spec(prover.circuit.n_levels, batch)
         self.inputs = {k: torch.zeros(shape, dtype=torch.int32, device=dev)
                        for k, shape in self.spec.items()}
@@ -348,6 +365,7 @@ class FusedStep:
                              device=dev)
         self.s = torch.zeros_like(self.r)
 
+        probe("start")
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -356,19 +374,22 @@ class FusedStep:
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
+        probe("warmup")
 
         before = dict(K.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, pool=pool):
             self.outputs = prover.fused_step(self.inputs, self.r, self.s)
         self.capture_s = time.perf_counter() - t0
         self.launches = {k: v - before[k] for k, v in K.LAUNCHES.items()
                          if v != before[k]}
+        probe("capture")
         t0 = time.perf_counter()
         self.graph.instantiate()
         torch.cuda.synchronize(dev)
         self.instantiate_s = time.perf_counter() - t0
+        probe("instantiate")
 
     def __call__(self, inputs: dict, r_plain, s_plain):
         """-> clones of (pi_a, pi_b, pi_c, publics) for these inputs."""
@@ -406,6 +427,50 @@ class FusedStep:
             name = _NODE_TYPES.get(kind.value, str(kind.value))
             out[name] = out.get(name, 0) + 1
         return out
+
+
+class ReplayProver:
+    """A DeviceProver behind one captured step per batch size: the port's
+    counterpart of the JAX prover's programs compiled once per shape.
+
+    ProofStream's duck type (.circuit, .device, prove_batch).  step(B)
+    captures a FusedStep the first time size B is asked for and keeps it;
+    prove_batch replays it with the r and s that DeviceProver.prove_batch
+    draws from the same seed, so the proofs are the same.  Every size is
+    captured into one memory pool (one torch.cuda.graph_pool_handle()), so
+    the sizes share the space of their intermediates.  A later capture
+    may place its outputs where an earlier graph keeps intermediates, so
+    a graph's outputs hold only until the next replay of any size; each
+    call clones them right after its own replay, on the same stream,
+    which makes any order of replays safe (never two at once).  There is
+    no eager or CPU fallback: a prover off the card or a failed capture
+    raises, and a size with no graph is captured, never run eagerly.
+    `steps` holds the steps by size in the order they were captured."""
+
+    def __init__(self, prover: DeviceProver, probe=None):
+        """probe(batch, stage), if given, is called at every FusedStep
+        probe point of each capture."""
+        if prover.device.type != "cuda":
+            raise RuntimeError(f"ReplayProver: CUDA graphs need a prover on "
+                               f"the card, not on {prover.device}")
+        self.prover = prover
+        self.circuit, self.device = prover.circuit, prover.device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.probe = probe
+        self.steps: dict = {}
+
+    def step(self, batch: int) -> FusedStep:
+        """The captured step of this batch size, captured at first use."""
+        if batch not in self.steps:
+            probe = self.probe and (lambda stage: self.probe(batch, stage))
+            self.steps[batch] = FusedStep(self.prover, batch, pool=self.pool,
+                                          probe=probe)
+        return self.steps[batch]
+
+    def prove_batch(self, inputs: dict, seed: int = 0):
+        """DeviceProver.prove_batch through the step of this batch size."""
+        batch = int(np.asarray(inputs["address"]).shape[-1])
+        return self.step(batch).prove_batch(inputs, seed=seed)
 
 
 # CUgraphNodeType (cuda.h)

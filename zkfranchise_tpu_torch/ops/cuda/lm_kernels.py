@@ -54,8 +54,9 @@ fails, the call raises.
 
 Each source is compiled on its own with ``nvcc`` at first use (all sources
 at the same time), into ``zkfranchise_tpu_torch/build/`` under a name
-keyed by a hash of the source and the shared header (an edit rebuilds),
-and loaded with ctypes.  Each wrapper adds one to its ``LAUNCHES`` entry
+keyed by a hash of the source, the shared header, the flags and ``nvcc
+--version`` (an edit or another toolkit rebuilds), and loaded with
+ctypes.  Each wrapper adds one to its ``LAUNCHES`` entry
 per kernel launch and nowhere else; the EC kernels count G1 and G2 apart
 (``"padd/g1"``, ``"padd/g2"``); fold_mul_levels counts as
 ``"fold_mul"``; ``MONT_SHAPES`` counts mont_mul's
@@ -136,11 +137,23 @@ def _nvcc() -> str:
     return path
 
 
+@functools.lru_cache(maxsize=None)
+def _nvcc_version() -> str:
+    """What ``nvcc --version`` prints, read once a process."""
+    return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def library_path(src: pathlib.Path) -> pathlib.Path:
+    """Where the library of `src` is built: keyed by the source, the shared
+    header, the flags and the compiler's version, so that an edit or
+    another toolkit builds anew and never loads a library built
+    before."""
     h = hashlib.sha256()
     for f in (src, *HEADERS):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(_nvcc_version().encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 

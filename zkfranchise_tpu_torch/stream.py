@@ -21,7 +21,8 @@ from .utils.metrics import Metrics
 
 
 class ProofStream:
-    """Drives a DeviceProver over a list of CircuitInputs."""
+    """Drives a prover over a list of CircuitInputs: a DeviceProver, or a
+    ReplayProver over one (a captured step per batch size)."""
 
     def __init__(self, prover: DeviceProver, out_dir: str | Path,
                  batch_size: int = 16, metrics: Metrics | None = None):
@@ -49,13 +50,17 @@ class ProofStream:
         final partial batch is proven as a LADDER of power-of-two
         sub-batches (37 -> 32 + 4 + 1) instead of being padded to
         batch_size by repetition, so a 1-voter tail costs one 1-lane step
-        and not a full-batch MSM.  On the card a step's cost falls far
-        less than its batch (the MSM's launches do not depend on the
-        batch), so the ladder bounds the tail at log2(batch_size) short
-        steps.  Slice `base` is proven with seed + base, whatever the
-        slicing, so a resumed run gives the proofs the uninterrupted run
-        would have given.  Returns the number of proofs produced this
-        call."""
+        and not a full-batch MSM.  On the card an eager step's cost falls
+        far less than its batch (the host issues about 68,000 kernel
+        launches a step at batch 128 and still about 13,000 at batch 4),
+        so the ladder bounds the tail at log2(batch_size) short steps.
+        Behind a ReplayProver each ladder size is captured as a CUDA graph
+        on its first use and replayed with no host issue after that, so a
+        process pays at most log2(batch_size) + 1 captures; a graph does
+        not outlive its process.  Slice `base` is proven with seed + base,
+        whatever the slicing, so a resumed run gives the proofs the
+        uninterrupted run would have given.  Returns the number of proofs
+        produced this call."""
         start = self.cursor
         produced = 0
         base = start
