@@ -14,7 +14,7 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
   2. holds every kernel against its plain PyTorch version on the card at
      the shapes its path gives it (mont_mul at its operand patterns,
      ntt_level at every level of the forward and inverse 2^14 schedules
-     with 128 and 4 lanes beside the level it replaced, inv at 1, 128 and
+     with 128 and 4 lanes (each level's device time at 128), inv at 1, 128 and
      129 lanes beside a mont_chain of as many products, batch_inv at
      (128, 21, 16384) launch by launch and as a whole, and at every width
      2^0 .. 2^14 the affine tree calls it with, padd at the five
@@ -59,7 +59,7 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      two (r, s) pairs, the first replay's clones must survive the second,
      sampled proofs through the graph must verify and a cross-voter and a
      tampered one be rejected; times eager prove_arrays and the replay in
-     turns (eager, replay, replay, eager, three rounds; wall and CUDA-event
+     turns (eager, replay, replay, eager, two rounds; wall and CUDA-event
      seconds), profiles one replay, prints the memory with the graph alive
      and tools.bench's JSON line taken on the same prover; the allocator
      after two eager steps and at the capture's four points (before and
@@ -101,15 +101,32 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      NTT at nm = 4, the tables cut four ways); the proofs must equal the
      main path's byte for byte, sampled ones verify and a cross-voter one
      is rejected; each rank's stage seconds with its collectives' seconds
-     and bytes (median of 3 steps after the first), peak memory and
+     and bytes (one timed step after the first), peak memory and
      launches (summed over the ranks); one coset_evals_dist of a (16384,
      21, 128) plane on the four ranks, gathered, equal to the local NTT;
      whether the collectives were staged through the host; then
      tools.dryrun_multichip on 4 ranks and tools.scaling_sweep's full
      step at nlevels=4, batch 8, over (1,1), (1,2), (2,2), (1,4), each
-     equal to the single device.
+     equal to the single device;
+ 11. drives nlevels=160 at batch 16, the package's default configuration
+     (phase nlevels160, after phase stream, the flagship's graphs and
+     provers released): CensusCircuit(160) and dev_setup with the seconds
+     of each part, the vk equal to the committed dev/160 one (no zkey is
+     read); mock_batch(160, 16, seed=7) -> DeviceProver.prove_batch, a
+     prove_arrays timed by stage (launches by kernel and shape, the folds
+     held against the MSM plan at the 160 tables, peak memory); the step
+     captured through ReplayProver (warm-up, capture and instantiation
+     seconds, nodes, the pool's bytes, launches equal to one
+     prove_arrays'), its proofs byte-equal to the eager prove_batch's for
+     seeds 1 and 2, sampled proofs verified and a cross-voter and a
+     tampered one rejected; eager and replay in turns (two rounds), one
+     profiled replay, tools.bench's line; then the kernels at this path's
+     shapes: ntt_level at every level of the 2^17 schedules at 16 lanes,
+     the chunked sparse.spmv of A at 16 lanes against its plain version
+     (mont_mul_ref), and the folds at every width the 160 tables give at
+     batch 16.
 
-Launch counts are set to 0 just before each of the paths 3 to 10 and
+Launch counts are set to 0 just before each of the paths 3 to 11 and
 read just after it; the run fails if a kernel of a path was not launched
 on it.
 
@@ -198,6 +215,7 @@ PATH_KERNELS["ceremony"] = ["scalar_mul/g1", "scalar_mul/g2", "padd/g1",
 PATH_KERNELS["ceremony_prove"] = PATH_KERNELS["main_path"]
 # the sharded prover runs the main path's stages on every rank
 PATH_KERNELS["sharded"] = PATH_KERNELS["main_path"]
+PATH_KERNELS["nlevels160"] = PATH_KERNELS["main_path"]
 
 
 def require_launches(path: str, launches: dict) -> None:
@@ -340,17 +358,13 @@ def _point_inputs(np, torch, rng, kind, B, m, dev):
     return p, q, a
 
 
-def phase_kernels(np, torch, K, dev) -> dict:
-    from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
-    from zkfranchise_tpu_torch.tools import MAD_MONT, MAD_MONT_KARATSUBA, \
-        add_mads, bound_ms, device_reading, event_ms, mont_chain_work
-    from zkfranchise_tpu_torch.tools import fold_shapes
-    from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
-
-    rng = np.random.default_rng(2024)
-    results, table = {}, {}
-    # inv's products: 253 squares and one per set bit of p - 2 (110)
-    chain = len(lm.FQ.p_minus_2_bits) - 1 + int(lm.FQ.p_minus_2_bits.sum())
+def _checker(torch, results: dict, table: dict):
+    """-> check(name, kernel, plain, nbytes, mads, key, plain_runs=3,
+    library=None): a kernel held against its plain version and timed, its
+    reading put into `results` under `name` and, given a key, into `table`
+    (the kernels line's row) under `key`; a kernel that differs raises."""
+    from zkfranchise_tpu_torch.tools import bound_ms, device_reading, \
+        event_ms
 
     def check(name, kernel, plain, nbytes, mads, key, plain_runs=3,
               library=None):
@@ -414,6 +428,23 @@ def phase_kernels(np, torch, K, dev) -> dict:
             raise AssertionError(f"{name}: kernel differs from plain version "
                                  f"(max abs err {err})")
 
+    return check
+
+
+def phase_kernels(np, torch, K, dev) -> dict:
+    from zkfranchise_tpu_torch.ops import ec_affine, ec_lm, lm
+    from zkfranchise_tpu_torch.tools import MAD_MONT, MAD_MONT_KARATSUBA, \
+        add_mads, device_reading, mont_chain_work
+    from zkfranchise_tpu_torch.tools import fold_shapes
+    from zkfranchise_tpu_torch.tools.padd_shapes import SHAPES, padd_inputs
+
+    rng = np.random.default_rng(2024)
+    results, table = {}, {}
+    # inv's products: 253 squares and one per set bit of p - 2 (110)
+    chain = len(lm.FQ.p_minus_2_bits) - 1 + int(lm.FQ.p_minus_2_bits.sum())
+
+    check = _checker(torch, results, table)
+
     # mont_mul at row 1's shape in both fields, and at the operand
     # patterns the port launches it with (MONT_SHAPES): a constant column
     # (n_inv), a column per row at 4 lanes (shift_pows in the stream's
@@ -451,7 +482,10 @@ def phase_kernels(np, torch, K, dev) -> dict:
         raise AssertionError("mont_mul differs on six dims")
     del col, cur, y
     torch.cuda.empty_cache()
-    _ntt_levels(np, torch, K, dev, rng, check, results, table)
+    _ntt_levels(np, torch, K, dev, rng, check, results, table, 14, BATCH,
+                "ntt_level", read_each=True)
+    _ntt_levels(np, torch, K, dev, rng, check, results, table, 14, 4,
+                "ntt_level/T4", read_each=False)
     torch.cuda.empty_cache()
 
     # padd at the shapes the main path launches it with (walk: the
@@ -494,8 +528,9 @@ def phase_kernels(np, torch, K, dev) -> dict:
     edges = [("fold", "g1", 1, 33), ("aa", "g1", 1, 33),
              ("fold", "g2", 1, 33), ("aa", "g2", 1, 33)]
     edge_levels = [("g1", 3, 12, 3), ("g1", 1, 33, 1), ("g2", 32, 256, 2)]
-    fold_results = fold_shapes.run(dev, fold_shapes.SHAPES + edges,
-                                   fold_shapes.LEVELS + edge_levels, failed)
+    fold_results = fold_shapes.run(dev, fold_shapes.SHAPES,
+                                   fold_shapes.LEVELS, failed)
+    fold_shapes.run(dev, edges, edge_levels, failed, timed=False)
     if failed:
         raise AssertionError(f"folds differ from their plain versions: "
                              f"{failed}")
@@ -552,79 +587,62 @@ def phase_kernels(np, torch, K, dev) -> dict:
     return table
 
 
-def _ntt_levels(np, torch, K, dev, rng, check, results, table) -> None:
-    """zk_ntt_level at every level of the forward and the inverse 2^14
-    schedules, at 128 lanes (the batch) and 4 (the stream's last slice),
-    each level fed the previous one's output: held against the plain
-    version (ntt_level_ref with mont_mul_ref) with torch.equal and read
-    through tools.device_reading beside the level as it ran before this
-    kernel (ntt_level_ref with the general mont_mul kernel and PyTorch's
-    gather, adds and cat), read the same way at 128 lanes.  The first
-    forward level is the table's row (with whole-call and plain times);
-    the row also carries the slowest level and the least speed-up."""
+def _ntt_levels(np, torch, K, dev, rng, check, results, table, log_n: int,
+                T: int, key: str, read_each: bool) -> None:
+    """zk_ntt_level at every level of the forward and the inverse 2^log_n
+    schedules at T lanes, each level fed the previous one's output, held
+    against the plain version (ntt_level_ref with mont_mul_ref) with
+    torch.equal.  The first forward level goes through `check`: the
+    table's row under `key` (whole-call, device and plain ms, bound).
+    With read_each, every level's device ms through tools.device_reading,
+    and the row carries the slowest level.  One "ntt_levels" line."""
     from zkfranchise_tpu_torch.ops import lm, ntt
     from zkfranchise_tpu_torch.tools import MAD_MONT_KARATSUBA, \
         device_reading
 
-    pl = ntt.plan(14)
+    pl = ntt.plan(log_n)
     n = pl.n
     tabs = pl.on(str(dev))
-    for T in (BATCH, 4):
-        key = "ntt_level" if T == BATCH else f"ntt_level/T{T}"
-        levels = []
-        for sched in ("fwd", "inv"):
-            gs, tws, _ = tabs[sched]
-            x = lm.to_mont(torch.as_tensor(
-                _random_limbs(np, rng, (n, 21, T)), device=dev))
-            for lvl, (g, tw) in enumerate(zip(gs, tws)):
-                nbytes = 4 * (2 * x.numel() + tw.numel()) + 8 * g.numel()
-                mads = MAD_MONT_KARATSUBA * (n // 2) * T
-                name = f"ntt_level/fr/{n}x21x{T}/{sched}{lvl}"
+    levels = []
+    for sched in ("fwd", "inv"):
+        gs, tws, _ = tabs[sched]
+        x = lm.to_mont(torch.as_tensor(_random_limbs(np, rng, (n, 21, T)),
+                                       device=dev))
+        for lvl, (g, tw) in enumerate(zip(gs, tws)):
+            nbytes = 4 * (2 * x.numel() + tw.numel()) + 8 * g.numel()
+            mads = MAD_MONT_KARATSUBA * (n // 2) * T
+            name = f"ntt_level/fr/{n}x21x{T}/{sched}{lvl}"
 
-                def kernel():
-                    return K.ntt_level(x, g, tw)
+            def kernel():
+                return K.ntt_level(x, g, tw)
 
-                def plain():
-                    return ntt.ntt_level_ref(x, g, tw, mul=lm.mont_mul_ref)
+            def plain():
+                return ntt.ntt_level_ref(x, g, tw, mul=lm.mont_mul_ref)
 
-                if (sched, lvl) == ("fwd", 0):
-                    check(name, kernel, plain, nbytes, mads, key,
-                          plain_runs=3)
-                    dev_ms = results[name]["device_ms"]
-                    invalid = results[name]["device_invalid"]
-                else:
-                    if not torch.equal(kernel(), plain()):
-                        raise AssertionError(f"{name}: kernel differs from "
-                                             f"plain version")
+            level = {"level": f"{sched}{lvl}"}
+            if (sched, lvl) == ("fwd", 0):
+                check(name, kernel, plain, nbytes, mads, key, plain_runs=3)
+                level.update(device_ms=results[name]["device_ms"],
+                             invalid=results[name]["device_invalid"])
+            else:
+                if not torch.equal(kernel(), plain()):
+                    raise AssertionError(f"{name}: kernel differs from "
+                                         f"plain version")
+                if read_each:
                     r = device_reading(name, kernel, nbytes, mads)
-                    dev_ms, invalid = r["device_ms"], r["invalid"]
-                level = {"level": f"{sched}{lvl}", "device_ms": dev_ms,
-                         "invalid": invalid}
-                if T == BATCH:
-                    was = device_reading(
-                        name + " (before: ntt_level_ref, mont_mul kernel)",
-                        lambda: ntt.ntt_level_ref(x, g, tw), nbytes, mads)
-                    level.update(before_device_ms=was["device_ms"],
-                                 before_invalid=was["invalid"],
-                                 speedup=_ratio(was["device_ms"], dev_ms))
-                levels.append(level)
-                x = kernel()
-            del x
-        summary = {"levels": len(levels),
-                   "max_device_ms": max(v["device_ms"] for v in levels),
-                   "any_invalid": any(v["invalid"] or
-                                      v.get("before_invalid", False)
-                                      for v in levels)}
-        if T == BATCH:
-            summary["min_speedup"] = min(v["speedup"] for v in levels)
-            summary["before_device_ms"] = [min(v["before_device_ms"]
-                                               for v in levels),
-                                           max(v["before_device_ms"]
-                                               for v in levels)]
-        emit({"phase": "kernels", "ntt_levels": key, **summary,
-              "each": levels})
-        table[key].update(summary)
-        results[table[key]["shape"]].update(summary)
+                    level.update(device_ms=r["device_ms"],
+                                 invalid=r["invalid"])
+            levels.append(level)
+            x = kernel()
+        del x
+    read = [v for v in levels if "device_ms" in v]
+    summary = {"levels": len(levels), "levels_equal": len(levels),
+               "levels_read": len(read),
+               "max_device_ms": max(v["device_ms"] for v in read),
+               "any_invalid": any(v["invalid"] for v in read)}
+    emit({"phase": "kernels", "ntt_levels": key, **summary, "each": levels})
+    table[key].update(summary)
+    results[table[key]["shape"]].update(summary)
 
 
 BATCH_INV_X = 16384                     # the affine tree's widest call
@@ -1211,7 +1229,7 @@ def phase_profile(torch, prover, arrs, r, s, stages) -> None:
 # phase 7: the main path's step as one CUDA graph, and the bench entry
 # ---------------------------------------------------------------------------
 
-ROUNDS = 3                              # eager, replay, replay, eager
+ROUNDS = 2                              # eager, replay, replay, eager
 
 
 def _segments(torch, dev, pool=None) -> dict:
@@ -1264,6 +1282,39 @@ def _allocator(torch, dev) -> dict:
     out["segments_by_pool"] = _segments(torch, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     return out
+
+
+def _turns(torch, dev, prover, step, arrs, r, s) -> tuple[dict, dict]:
+    """The eager prove_arrays and the replayed step in turns (eager,
+    replay, replay, eager; ROUNDS rounds), wall and CUDA-event seconds of
+    each -> (runs, their medians and proofs/s)."""
+    batch = int(r.shape[-1])
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn(arrs, r, s)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return {"wall_s": time.perf_counter() - t0,
+                "event_s": start.elapsed_time(end) / 1e3}
+
+    runs = {"eager": [], "replay": []}
+    for _ in range(ROUNDS):
+        for name in ("eager", "replay", "replay", "eager"):
+            runs[name].append(timed(prover.prove_arrays if name == "eager"
+                                    else step))
+    summary = {name: {"wall_s_median": statistics.median(
+        x["wall_s"] for x in v), "event_s_median": statistics.median(
+        x["event_s"] for x in v)} for name, v in runs.items()}
+    for name in runs:
+        summary[name]["proofs_per_s"] = batch / summary[name]["wall_s_median"]
+    summary["replay_over_eager_wall"] = (summary["replay"]["wall_s_median"]
+                                         / summary["eager"]["wall_s_median"])
+    return runs, summary
 
 
 def phase_fused_step(torch, K, dev, prover, vk, arrs, r, s) -> dict:
@@ -1353,31 +1404,7 @@ def phase_fused_step(torch, K, dev, prover, vk, arrs, r, s) -> dict:
     if not all(ok.values()) or cross or tampered:
         raise AssertionError("fused_step: proof verification failed")
 
-    # eager and replay in turns, wall seconds and CUDA-event seconds
-    def timed(fn):
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        fn(arrs, r, s)
-        end.record()
-        torch.cuda.synchronize(dev)
-        return {"wall_s": time.perf_counter() - t0,
-                "event_s": start.elapsed_time(end) / 1e3}
-
-    runs = {"eager": [], "replay": []}
-    for _ in range(ROUNDS):
-        for name in ("eager", "replay", "replay", "eager"):
-            runs[name].append(timed(prover.prove_arrays if name == "eager"
-                                    else step))
-    summary = {name: {"wall_s_median": statistics.median(
-        x["wall_s"] for x in v), "event_s_median": statistics.median(
-        x["event_s"] for x in v)} for name, v in runs.items()}
-    for name in runs:
-        summary[name]["proofs_per_s"] = BATCH / summary[name]["wall_s_median"]
-    summary["replay_over_eager_wall"] = (summary["replay"]["wall_s_median"]
-                                         / summary["eager"]["wall_s_median"])
+    runs, summary = _turns(torch, dev, prover, step, arrs, r, s)
 
     # one replay under the profiler: its device busy time
     torch.cuda.synchronize(dev)
@@ -1678,6 +1705,279 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: nlevels=160 at batch 16, the package's default configuration
+# ---------------------------------------------------------------------------
+
+N_LEVELS_160, BATCH_160 = 160, 16       # config.Config's defaults
+
+
+def _counts(K) -> dict:
+    """The launch counters now, by kernel and by shape."""
+    return {"launches": dict(K.LAUNCHES), "mont": dict(K.MONT_SHAPES),
+            "padd": dict(K.PADD_SHAPES), "fold": dict(K.FOLD_SHAPES)}
+
+
+def _since(K, before: dict) -> dict:
+    """What the counters gained since `before` (_counts), zeros left out."""
+    now = _counts(K)
+    return {name: {k: v - before[name].get(k, 0)
+                   for k, v in sorted(now[name].items())
+                   if v != before[name].get(k, 0)}
+            for name in now}
+
+
+def _spmv_chunks(nnz: int) -> int:
+    """The chunks sparse.spmv streams nnz nonzeros in."""
+    from zkfranchise_tpu_torch.ops.sparse import MAX_NNZ_CHUNK
+
+    return 1 if nnz <= 2 * MAX_NNZ_CHUNK else -(-nnz // MAX_NNZ_CHUNK)
+
+
+def _fold_widths(planned: dict) -> tuple[list, list]:
+    """msm_lm.msm_fold_launches keys -> fold_shapes.run's shapes (one
+    level) and levels (several a launch)."""
+    shapes, levels = [], []
+    for key in planned:
+        name, kind, b, h, n = key.split("/")
+        B, h, n = int(b[1:]), int(h[1:]), int(n[1:])
+        if name == "fold_padd_aa":
+            shapes.append(("aa", kind, B, h))
+        elif n == 1:
+            shapes.append(("fold", kind, B, h))
+        else:
+            levels.append((kind, B, h, n))
+    return shapes, levels
+
+
+def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict]:
+    """nlevels=160 at batch 16 (config.Config's defaults) through the
+    entry points a user calls: the circuit and its dev key derived here
+    (the vk equal to the committed dev/160 one; no zkey is read), the eager
+    DeviceProver, its step captured through ReplayProver, proofs equal
+    byte for byte and verified, eager and replay timed in turns, the
+    bench's line; then the kernels at this path's shapes against their
+    plain versions.  -> (the path's launches, kernels-line rows)."""
+    from zkfranchise_tpu_torch import inputs as inp
+    from zkfranchise_tpu_torch.groth16 import qap
+    from zkfranchise_tpu_torch.groth16 import setup as gsetup
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+    from zkfranchise_tpu_torch.groth16.device import (DeviceProver,
+                                                      ReplayProver, draw_rs)
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+    from zkfranchise_tpu_torch.ops import lm, msm_lm, sparse
+    from zkfranchise_tpu_torch.tools import bench, fold_shapes, kernel_events
+    from zkfranchise_tpu_torch.utils.native import Laps
+
+    nl, B = N_LEVELS_160, BATCH_160
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds: dict = {}
+    lap = Laps(seconds)
+    circuit = CensusCircuit(nl)
+    cs = circuit.cs
+    lap("circuit")
+    arrays = cs.export_arrays(extra_rows=qap.binding_rows(cs.num_public))
+    lap("export_arrays")
+    n = qap.domain_size(cs.num_constraints, cs.num_public)
+    setup_parts: dict = {}
+    pk, vk = gsetup.dev_setup(cs, seconds=setup_parts)
+    lap("dev_setup")
+    vk_committed = json.loads(
+        (ROOT / "artifacts" / "zkCensus" / "dev" / str(nl) /
+         "verification_key.json").read_text())
+    vk_equal = vk.to_dict() == vk_committed
+    prover = DeviceProver(circuit, pk, arrays=arrays, device=dev)
+    lap("prover_init")
+    tables = {"a": (prover.a_tab, "g1"), "b1": (prover.b1_tab, "g1"),
+              "b2": (prover.b2_tab, "g2"), "c": (prover.c_tab, "g1")}
+    emit({"phase": "nlevels160_setup", "nlevels": nl, "batch": B,
+          "wires": cs.num_vars, "constraints": cs.num_constraints,
+          "domain": pk.domain,
+          "nnz": {k: int(arrays[k][0].shape[0]) for k in ("a", "b", "c")},
+          "spmv_chunks": {k: _spmv_chunks(int(arrays[k][0].shape[0]))
+                          for k in ("a", "b", "c")},
+          "msm_tables": {k: int(t.shape[0]) for k, (t, _) in tables.items()},
+          "msm_chunks": {k: [{"real": real, "padded": m,
+                              "window_group": msm_lm.default_window_group(
+                                  m, B, dev)}
+                             for _, real, m in msm_lm._chunks(
+                                 int(t.shape[0]))]
+                         for k, (t, _) in tables.items()},
+          "seconds": seconds, "dev_setup_parts": setup_parts,
+          "vk_equals_committed": vk_equal})
+    if not vk_equal:
+        raise AssertionError("nlevels160: the dev setup's vk differs from "
+                             "the committed dev/160 vk")
+    vk = gverify.VerifyingKey(vk_committed)
+    del pk
+
+    # the path: counts start at 0 here and are read right after the
+    # captured step's proofs
+    K.reset_launches()
+    t0 = time.perf_counter()
+    arrs = inp.batch_to_arrays(inp.mock_batch(nl, B, seed=7, device=dev), nl)
+    seconds["inputs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proofs, pubs = prover.prove_batch(arrs, seed=1)
+    torch.cuda.synchronize(dev)
+    seconds["first_prove_batch"] = time.perf_counter() - t0
+    r, s = (torch.as_tensor(x, device=dev) for x in draw_rs(3, B))
+    before = _counts(K)
+    stages: dict = {}
+    t0 = time.perf_counter()
+    prover.prove_arrays(arrs, r, s, stage_seconds=stages)
+    seconds["timed_prove_arrays"] = time.perf_counter() - t0
+    one = _since(K, before)
+    eager_memory = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+                    "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
+    proofs2, pubs2 = prover.prove_batch(arrs, seed=2)
+    planned: dict = {}
+    for tab, kind in tables.values():
+        for key, v in msm_lm.msm_fold_launches(
+                tab.shape[0], B, kind, prover.window_group).items():
+            planned[key] = planned.get(key, 0) + v
+    planned = dict(sorted(planned.items()))
+    emit({"phase": "nlevels160_eager", "nvidia_smi": smi_line(),
+          "stage_seconds": stages, "step_s": sum(stages.values()),
+          "proofs_per_s": B / sum(stages.values()),
+          "launches_per_prove_arrays": one["launches"],
+          "mont_launches_by_shape": one["mont"],
+          "padd_launches_by_shape": one["padd"],
+          "fold_launches_by_shape": one["fold"],
+          "fold_launches_planned": planned, **eager_memory,
+          "seconds": seconds})
+    if one["fold"] != planned:
+        raise AssertionError("nlevels160: fold launches differ from the MSM "
+                             "plan's count")
+
+    # the step captured at first use, into the ReplayProver's pool
+    pool_after = {}
+
+    def probe(batch, stage):
+        if stage == "instantiate":
+            pool_after.update(_pool_bytes(torch, dev, replay.pool),
+                              reserved_bytes=torch.cuda.memory_reserved(dev))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    replay = ReplayProver(prover, probe=probe)
+    t0 = time.perf_counter()
+    got, got_pubs = replay.prove_batch(arrs, seed=1)
+    seconds["first_replay_prove_batch"] = time.perf_counter() - t0
+    got2, got_pubs2 = replay.prove_batch(arrs, seed=2)
+    launches = dict(K.LAUNCHES)
+    step = replay.steps[B]
+    nodes = step.node_counts()
+
+    def text(ps):
+        return [json.dumps(p.to_dict()) for p in ps]
+
+    equal = {"seed_1": text(got) == text(proofs) and got_pubs == pubs,
+             "seed_2": text(got2) == text(proofs2) and got_pubs2 == pubs2,
+             "seeds_differ": text(proofs) != text(proofs2)}
+    emit({"phase": "nlevels160_capture", "warmup_s": step.warmup_s,
+          "capture_s": step.capture_s, "instantiate_s": step.instantiate_s,
+          "graph_nodes": nodes, "graph_nodes_total": sum(nodes.values()),
+          "graph_launches": step.launches,
+          "launches_equal_prove_arrays": step.launches == one["launches"],
+          "pool": pool_after,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+          "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+          "proofs_equal_eager": equal})
+    if step.launches != one["launches"]:
+        raise AssertionError("nlevels160: the captured launches differ from "
+                             "one prove_arrays'")
+    if not all(equal.values()):
+        raise AssertionError(f"nlevels160: captured proofs against the eager "
+                             f"prove_batch's: {equal}")
+    require_launches("nlevels160", launches)
+
+    # correctness by the repo's own means: the pairing verifier, against
+    # the committed key
+    t0 = time.perf_counter()
+    ok = {f"voter_{i}": gverify.verify(vk, got[i], got_pubs[i])
+          for i in (0, B - 1)}
+    cross = gverify.verify(vk, got[0], got_pubs[1])
+    tampered_pub = list(got_pubs[0])
+    tampered_pub[2] = (tampered_pub[2] + 1) % lm.FR.p
+    tampered = gverify.verify(vk, got[0], tampered_pub)
+    seconds["verify"] = time.perf_counter() - t0
+    emit({"phase": "nlevels160_verify", "accepted": ok,
+          "cross_voter_accepted": cross, "tampered_accepted": tampered})
+    if not all(ok.values()) or cross or tampered:
+        raise AssertionError("nlevels160: proof verification failed")
+
+    # eager and replay in turns, one profiled replay, the bench's line
+    t0 = time.perf_counter()
+    runs, summary = _turns(torch, dev, prover, step, arrs, r, s)
+    seconds["turns"] = time.perf_counter() - t0
+    for attempt in range(1, 4):
+        events, (lead, tail) = kernel_events(lambda: step(arrs, r, s),
+                                             runs=1)
+        if events:
+            break
+    busy: dict = {}
+    for name, us in events:
+        name = name.split("(")[0]
+        busy[name] = busy.get(name, 0.0) + us / 1e6
+    busy_s = sum(busy.values())
+    replay_s = summary["replay"]["wall_s_median"]
+    emit({"phase": "nlevels160_turns", "nvidia_smi": smi_line(),
+          "runs": runs, "summary": summary,
+          "replay_device_busy_s": busy_s, "replay_device_events": len(events),
+          "profile_attempts": attempt,
+          "sentinels": f"lead {lead}, tail {tail}",
+          "replay_idle_share": 1 - busy_s / replay_s if events else None,
+          "seconds": seconds,
+          "top_kernels_s": dict(sorted(busy.items(),
+                                       key=lambda kv: -kv[1])[:10])})
+    t0 = time.perf_counter()
+    result = bench.measure(prover, vk, arrs, 2, step=step)
+    seconds["bench"] = time.perf_counter() - t0
+    print(json.dumps(result), flush=True)
+    if not result["verified"]:
+        raise AssertionError("nlevels160: the bench's proof did not verify")
+    del replay, step, got, got2
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+    # the kernels at this path's shapes, against their plain versions
+    t0 = time.perf_counter()
+    results, table = {}, {}
+    check = _checker(torch, results, table)
+    rng = np.random.default_rng(160)
+    _ntt_levels(np, torch, K, dev, rng, check, results, table,
+                n.bit_length() - 1, B, f"ntt_level/{n}x{B}", read_each=False)
+    # the chunked spmv of A (6 chunks) against its plain version, both on
+    # the card: the plain spmv on the host takes 30-50 s at 16 lanes
+    # (tests/test_torch_cuda.py holds the card's against it)
+    w = torch.as_tensor(_random_limbs(np, rng, (cs.num_vars, 21, B)),
+                        device=dev)
+    spmv_equal = bool(torch.equal(
+        sparse.spmv(*prover._arrays_dev["a"], n, w),
+        sparse.spmv(*prover._arrays_dev["a"], n, w, mul=lm.mont_mul_ref)))
+    failed: list = []
+    shapes, levels = _fold_widths(planned)
+    fold_shapes.run(dev, shapes, levels, failed, timed=False)
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    emit({"phase": "nlevels160_kernels",
+          "ntt_levels": table[f"ntt_level/{n}x{B}"]["levels"],
+          "spmv_a_equal_plain": spmv_equal,
+          "fold_widths": len(shapes) + len(levels), "folds_failed": failed,
+          "seconds": seconds})
+    if not spmv_equal:
+        raise AssertionError("nlevels160: the chunked spmv differs from "
+                             "its plain version")
+    if failed:
+        raise AssertionError(f"nlevels160: folds differ from their plain "
+                             f"versions: {failed}")
+    del prover, w
+    torch.cuda.empty_cache()
+    return launches, table
 
 
 # ---------------------------------------------------------------------------
@@ -2025,7 +2325,7 @@ def phase_sharded(torch, K, dev, circuit, pk, vk, arrs,
         t0 = time.perf_counter()
         ranks = launch.run(
             jobs.prove_job, SHARDED_RANKS, backend="gloo", timeout_s=480,
-            args=(str(key), N_LEVELS, arrs, 1, SHARDED_RANKS, "cuda", 3,
+            args=(str(key), N_LEVELS, arrs, 1, SHARDED_RANKS, "cuda", 1,
                   (n.bit_length() - 1, BATCH, 5)))
         wall_s = time.perf_counter() - t0
     launches: dict = {}
@@ -2123,6 +2423,9 @@ def main() -> int:
     main_arrs = held[2]
     del held
     launches["stream"] = timed("stream", phase_stream, torch, K, dev, *keys)
+    launches["nlevels160"], rows160 = timed("nlevels160", phase_nlevels160,
+                                            np, torch, K, dev)
+    table.update(rows160)
     launches.update(timed("ceremony", phase_ceremony, np, torch, K, dev,
                           *keys))
     launches["sharded"] = timed("sharded", phase_sharded, torch, K, dev,

@@ -80,11 +80,12 @@ def test_mont_mul_patterns(dev, pattern):
 
 
 @pytest.mark.parametrize("log_n,T", [(6, 1), (6, 4), (6, 128), (14, 4),
-                                     (14, 128)])
+                                     (14, 128), (17, 16)])
 def test_ntt_level_every_level(dev, log_n, T):
     """Every level of both schedules, each fed the previous output, against
     the plain version (mont_mul_ref) and the level before this kernel (the
-    general mont_mul kernel); one launch a level."""
+    general mont_mul kernel); one launch a level.  (17, 16): nlevels=160
+    at batch 16."""
     rng = np.random.default_rng(21)
     tabs = ntt.plan(log_n).on(str(dev))
     for sched in ("fwd", "inv"):
@@ -940,3 +941,78 @@ def test_sharded_prover_1x2_equals_device_prover(dev):
     proofs, pubs = prover.prove_batch(arrs, seed=3)
     assert res[0]["proofs"] == [json.dumps(p.to_dict()) for p in proofs]
     assert res[0]["publics"] == pubs
+
+
+# ---------------------------------------------------------------------------
+# nlevels=160 at batch 16, the package's default configuration
+# ---------------------------------------------------------------------------
+
+NL160, B160 = 160, 16
+
+
+@pytest.fixture(scope="module")
+def nl160():
+    """(prover, arrays) at nlevels=160: a DeviceProver on the card keyed
+    from the dev setup (its vk is the committed dev/160 one), and the
+    circuit's exported R1CS arrays (numpy)."""
+    from zkfranchise_tpu_torch.groth16 import qap
+    from zkfranchise_tpu_torch.groth16 import setup as tsetup
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    circuit = CensusCircuit(NL160)
+    cs = circuit.cs
+    arrays = cs.export_arrays(extra_rows=qap.binding_rows(cs.num_public))
+    pk, _ = tsetup.dev_setup(cs)
+    return DeviceProver(circuit, pk, arrays=arrays,
+                        device=torch.device("cuda")), arrays
+
+
+@pytest.mark.parametrize("matrix,T", [("a", B160), ("b", 2)])
+def test_chunked_spmv_on_card_equals_cpu(nl160, matrix, T):
+    """A and B at 160 take spmv's chunked branch (6 and 11 chunks); A at
+    the path's 16 lanes (chip_smoke.py holds it against the plain version
+    on the card: on the host it takes 30-50 s)."""
+    from zkfranchise_tpu_torch.ops import sparse
+
+    prover, arrays = nl160
+    rows, cols, coeffs = arrays[matrix]
+    assert rows.shape[0] > 2 * sparse.MAX_NNZ_CHUNK
+    n = prover.pk_meta[2]
+    w = _limbs(np.random.default_rng(160), (prover.pk_meta[0], 21, T),
+               "cpu")
+    want = sparse.spmv(torch.as_tensor(rows).long(),
+                       torch.as_tensor(cols).long(),
+                       torch.as_tensor(np.ascontiguousarray(coeffs)), n, w)
+    K.reset_launches()
+    got = sparse.spmv(*prover._arrays_dev[matrix], n, w.to(prover.device))
+    assert K.LAUNCHES["mont_mul"] == -(-rows.shape[0] //
+                                       sparse.MAX_NNZ_CHUNK)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_nl160_captured_step_equals_eager(nl160):
+    """The 160 step at batch 16 captured through ReplayProver: proofs equal
+    to the eager prove_batch's byte for byte, launches equal to one
+    prove_arrays'."""
+    import json
+
+    from zkfranchise_tpu_torch import inputs as tinputs
+    from zkfranchise_tpu_torch.groth16.device import ReplayProver, draw_rs
+
+    prover, _ = nl160
+    arrs = tinputs.batch_to_arrays(
+        tinputs.mock_batch(NL160, B160, seed=7, device=prover.device), NL160)
+    replay = ReplayProver(prover)
+    got, got_pubs = replay.prove_batch(arrs, seed=1)
+    want, want_pubs = prover.prove_batch(arrs, seed=1)
+    assert [json.dumps(p.to_dict()) for p in got] == \
+        [json.dumps(p.to_dict()) for p in want]
+    assert got_pubs == want_pubs
+    K.reset_launches()
+    prover.prove_arrays(arrs, *(torch.as_tensor(x, device=prover.device)
+                                for x in draw_rs(1, B160)))
+    assert replay.steps[B160].launches == \
+        {k: v for k, v in K.LAUNCHES.items() if v}

@@ -76,9 +76,16 @@ class _KeyUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def dev_setup(cs, seed: bytes = b"zkfranchise-dev-setup") \
+def dev_setup(cs, seed: bytes = b"zkfranchise-dev-setup",
+              seconds: dict | None = None) \
         -> tuple[ProvingKey, VerifyingKey]:
-    """cs: models.r1cs.ConstraintSystem.  Returns (pk, vk)."""
+    """cs: models.r1cs.ConstraintSystem.  Returns (pk, vk).
+
+    seconds: if a dict is given, the seconds of each part go into it:
+    rows_and_lagrange (the QAP at tau and the key's scalars), g1_products,
+    g2_products, conversions (ints to and from the native library's
+    limbs) and key (the points put together into pk and vk)."""
+    lap = native.Laps(seconds)
     m = cs.num_vars
     npub = cs.num_public
     n = qap.domain_size(cs.num_constraints, npub)
@@ -121,7 +128,8 @@ def dev_setup(cs, seed: bytes = b"zkfranchise-dev-setup") \
     # all G1 keygen in one fixed-base batch (native C++ when available)
     g1_batch = ([alpha, beta, delta] + a_tau + b_tau + k_scalars
                 + h_scalars + ic_scalars)
-    g1_pts = native.g1_fixed_base_mul(g1_batch)
+    lap("rows_and_lagrange")
+    g1_pts = native.g1_fixed_base_mul(g1_batch, lap=lap)
     alpha_g1, beta_g1, delta_g1 = g1_pts[0], g1_pts[1], g1_pts[2]
     off = 3
     a_g1 = g1_pts[off:off + m]; off += m
@@ -130,7 +138,7 @@ def dev_setup(cs, seed: bytes = b"zkfranchise-dev-setup") \
     h_g1 = g1_pts[off:off + n]; off += n
     ic_g1 = g1_pts[off:off + npub + 1]
 
-    g2_pts = native.g2_fixed_base_mul([beta, delta] + b_tau)
+    g2_pts = native.g2_fixed_base_mul([beta, delta] + b_tau, lap=lap)
     beta_g2, delta_g2 = g2_pts[0], g2_pts[1]
     b_g2 = g2_pts[2:]
 
@@ -148,6 +156,7 @@ def dev_setup(cs, seed: bytes = b"zkfranchise-dev-setup") \
         delta_g1=delta_g1, delta_g2=delta_g2,
         a_g1=a_g1, b_g1=b_g1, b_g2=b_g2, k_g1=k_g1, h_g1=h_g1,
     )
+    lap("key")
     return pk, vk
 
 

@@ -119,16 +119,20 @@ class ConstraintSystem:
         for name, sel in (("a", 0), ("b", 1), ("c", 2)):
             rows, cols, coeffs = [], [], []
             for r, con in enumerate(all_rows):
-                for idx, cf in con[sel].items():
-                    rows.append(r)
-                    cols.append(idx)
-                    coeffs.append(cf * r1 % P)
+                entries = con[sel]
+                rows.extend([r] * len(entries))
+                cols.extend(entries.keys())
+                coeffs.extend(entries.values())
+            # few distinct coefficients (the Poseidon constants, +-1):
+            # each is put in R-form and cut into limbs once
+            distinct: dict = {}
+            which = [distinct.setdefault(cf, len(distinct)) for cf in coeffs]
+            limbs = lm.ints_to_limb_rows([cf * r1 % P for cf in distinct])
             out[name] = (
                 np.asarray(rows, dtype=np.int32),
                 np.asarray(cols, dtype=np.int32),
-                np.asarray(lm.ints_to_lm(coeffs),
-                           np.int32).T[:, :, None],   # (nnz, 21, 1)
-            )
+                limbs[np.asarray(which, dtype=np.int64)][:, :, None],
+            )                                           # (nnz, 21, 1)
         out["num_constraints"] = len(all_rows)
         out["num_vars"] = self.num_vars
         out["num_public"] = self.num_public

@@ -44,28 +44,27 @@ _Q = ff.P_FQ
 # tables / conversions
 # ---------------------------------------------------------------------------
 
+def _affine_rows(points: list, coords: int, flat) -> np.ndarray:
+    """(N, coords * 21 + 1) int32 rows: each point's `coords` coordinates
+    (flat(pt) lists them) in Montgomery form, then the infinity flag; all
+    coordinates cut into limbs in one lm.ints_to_limb_rows call."""
+    vals = []
+    for pt in points:
+        vals.extend((0,) * coords if pt is None else flat(pt))
+    limbs = lm.ints_to_limb_rows([v * _R % _Q for v in vals])
+    out = np.zeros((len(points), coords * NL + 1), np.int32)
+    out[:, :coords * NL] = limbs.reshape(len(points), coords * NL)
+    out[:, coords * NL] = [pt is None for pt in points]
+    return out
+
+
 def g1_affine_table(points: list) -> np.ndarray:
     """Affine host points [(x, y) | None] -> (N, 43) int32 rows."""
-    out = np.zeros((len(points), G1_AROWS), np.int32)
-    for j, pt in enumerate(points):
-        if pt is None:
-            out[j, 2 * NL] = 1
-        else:
-            out[j, :NL] = lm.int_to_limbs(pt[0] * _R % _Q)
-            out[j, NL:2 * NL] = lm.int_to_limbs(pt[1] * _R % _Q)
-    return out
+    return _affine_rows(points, 2, lambda pt: pt)
 
 
 def g2_affine_table(points: list) -> np.ndarray:
-    out = np.zeros((len(points), G2_AROWS), np.int32)
-    for j, pt in enumerate(points):
-        if pt is None:
-            out[j, 4 * NL] = 1
-        else:
-            (x0, x1), (y0, y1) = pt
-            for k, v in enumerate((x0, x1, y0, y1)):
-                out[j, k * NL:(k + 1) * NL] = lm.int_to_limbs(v * _R % _Q)
-    return out
+    return _affine_rows(points, 4, lambda pt: (*pt[0], *pt[1]))
 
 
 def affine_table(points: list, kind: str) -> np.ndarray:

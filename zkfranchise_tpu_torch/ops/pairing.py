@@ -10,7 +10,9 @@ Construction (standard for alt_bn128): Fq12 as Fq[w]/(w^12 - 18 w^6 + 82)
 — so u = w^6 - 9 generates the Fq2 subfield — with G2 points mapped into
 E(Fq12) via the twist (x, y) -> (x' w^2, y' w^3).  Miller loop over
 6u+2 = 29793968203157093288, two Frobenius line corrections, then final
-exponentiation by (q^12 - 1)/r.
+exponentiation by (q^12 - 1)/r, split as (q^6 - 1)(q^2 + 1) (Frobenius
+maps and one inversion) times (q^4 - q^2 + 1)/r (a square-and-multiply
+over 762 bits in place of 3,048).
 """
 from __future__ import annotations
 
@@ -208,32 +210,45 @@ def miller_loop(q_tw, p_emb):
     return f
 
 
-def _w_pow_q():
-    """w^q as an Fq12 element (cached)."""
-    global _W_Q
-    if _W_Q is None:
-        _W_Q = fq12_pow([0, 1] + [0] * 10, Q)
-    return _W_Q
+# the hard part of the final exponent: r divides q^4 - q^2 + 1 (the 12th
+# cyclotomic polynomial at q), so FINAL_EXP = (q^6-1)(q^2+1) * _HARD_EXP
+_HARD_EXP, _rem = divmod(Q ** 4 - Q ** 2 + 1, ff.P_FR)
+assert _rem == 0 and (Q ** 6 - 1) * (Q ** 2 + 1) * _HARD_EXP == FINAL_EXP
+del _rem
 
 
-_W_Q = None
+def _w_pow_q(k: int = 1):
+    """[w^(q^k)^i for i < 12] as Fq12 elements (cached per k)."""
+    if k not in _W_QK:
+        wqk = fq12_pow([0, 1] + [0] * 10, Q ** k)
+        pows = [fq12_one()]
+        for _ in range(11):
+            pows.append(fq12_mul(pows[-1], wqk))
+        _W_QK[k] = pows
+    return _W_QK[k]
 
 
-def frobenius(a):
-    """x -> x^q on Fq12: coefficients are Fq (fixed by Frobenius), so
-    substitute w -> w^q in sum c_i w^i."""
-    wq = _w_pow_q()
+_W_QK: dict = {}
+
+
+def frobenius(a, k: int = 1):
+    """x -> x^(q^k) on Fq12: coefficients are Fq (fixed by Frobenius), so
+    substitute w -> w^(q^k) in sum c_i w^i."""
     out = fq12_zero()
-    wpow = fq12_one()
-    for i in range(12):
-        if a[i]:
-            out = fq12_add(out, fq12_scalar(wpow, a[i]))
-        wpow = fq12_mul(wpow, wq)
+    for c, wpow in zip(a, _w_pow_q(k)):
+        if c:
+            out = fq12_add(out, fq12_scalar(wpow, c))
     return out
 
 
 def final_exponentiate(f):
-    return fq12_pow(f, FINAL_EXP)
+    """f^((q^12 - 1)/r): f^(q^6 - 1) = f^(q^6) / f, then ^(q^2 + 1), then
+    the hard part by square-and-multiply."""
+    if not any(f):
+        return fq12_zero()
+    f = fq12_mul(frobenius(f, 6), fq12_inv(f))
+    f = fq12_mul(frobenius(f, 2), f)
+    return fq12_pow(f, _HARD_EXP)
 
 
 def pairing(p_g1, q_g2):

@@ -24,7 +24,8 @@ MAX_NNZ_CHUNK = 1 << 17
 
 
 def spmv(rows: torch.Tensor, cols: torch.Tensor, coeffs_mont: torch.Tensor,
-         n_rows: int, w_mont: torch.Tensor) -> torch.Tensor:
+         n_rows: int, w_mont: torch.Tensor,
+         mul=lm.mont_mul) -> torch.Tensor:
     """rows/cols: (nnz,) int64; coeffs_mont: (nnz, 21, 1) int32 R-form
     coefficients; w_mont: (m, 21, T) Montgomery witness, all on one
     device.  Returns (n_rows, 21, T) Montgomery row values.
@@ -32,11 +33,12 @@ def spmv(rows: torch.Tensor, cols: torch.Tensor, coeffs_mont: torch.Tensor,
     More than 2*MAX_NNZ_CHUNK nonzeros stream in MAX_NNZ_CHUNK-entry
     chunks, bounding the (nnz, 21, T) gather.  Chunk padding uses zero
     coefficients (they add nothing to row 0); the accumulator is
-    re-weak-normalized per chunk."""
+    re-weak-normalized per chunk.  mul: the Montgomery product
+    (lm.mont_mul_ref gives the plain version on either device)."""
     nnz = int(rows.shape[0])
     T = w_mont.shape[-1]
     if nnz <= 2 * MAX_NNZ_CHUNK:
-        prods = lm.mont_mul(coeffs_mont, w_mont[cols], FR)
+        prods = mul(coeffs_mont, w_mont[cols], FR)
         seg = w_mont.new_zeros((n_rows, lm.N_LIMBS, T)).index_add_(
             0, rows, prods)
         return lm.weak_norm(seg, 2)
@@ -50,7 +52,7 @@ def spmv(rows: torch.Tensor, cols: torch.Tensor, coeffs_mont: torch.Tensor,
         (pad, lm.N_LIMBS, 1))]).reshape(k, c, lm.N_LIMBS, 1)
     acc = w_mont.new_zeros((n_rows, lm.N_LIMBS, T))
     for i in range(k):
-        prods = lm.mont_mul(F[i], w_mont[C[i]], FR)
+        prods = mul(F[i], w_mont[C[i]], FR)
         seg = torch.zeros_like(acc).index_add_(0, R[i], prods)
         acc = lm.weak_norm(acc + seg, 2)
     return acc

@@ -64,6 +64,10 @@ SHAPES = ([("fold", "g1", 128, h) for h in (8192, 4096, 2048, 1024, 512,
 LEVELS = [("g1", B, h, n) for B in (128, 64, 32)
           for h, n in ((2048, 3), (512, 3), (256, 2))] + \
     [("g1", 128, 8192, 3), ("g1", 128, 4096, 3), ("g1", 128, 1024, 3)]
+# lanes a plain version takes at once: it holds many temporaries of its
+# input's size, so a wide plane goes through it a few batch rows (or
+# lanes) at a time, which gives the same result
+PLAIN_LANES = 1 << 20
 SMALL_SHAPES = [("fold", "g1", 4, 16), ("fold", "g2", 2, 8),
                 ("aa", "g1", 4, 16), ("aa", "g2", 2, 8),
                 ("fold", "g1", 1, 33), ("aa", "g2", 1, 33)]
@@ -87,7 +91,9 @@ def fold_inputs(form: str, kind: str, B: int, m: int, rng, dev):
     else:
         table = torch.as_tensor((ec_lm.g1_table if kind == "g1"
                                  else ec_lm.g2_table)(pool).T, device=dev)
-        x = K.padd_ref(table[:, idx[0]], table[:, idx[1]], kind)  # Z != 1
+        x = torch.cat([K.padd_ref(table[:, i], table[:, j], kind)  # Z != 1
+                       for i, j in zip(idx[0].split(PLAIN_LANES),
+                                       idx[1].split(PLAIN_LANES))], -1)
     x = x.reshape(-1, B, m).permute(1, 0, 2).contiguous()
     special = torch.as_tensor(rng.permutation(h)[:4 * max(1, h // 16)],
                               device=dev)
@@ -103,6 +109,17 @@ def fold_inputs(form: str, kind: str, B: int, m: int, rng, dev):
     x[..., idl] = ident
     x[..., h + idr] = ident
     return x
+
+
+def plain_by_rows(ref, x, kind: str, *args):
+    """ref(x, kind, *args) for x (B, rows, m), a few batch rows at a time
+    (PLAIN_LANES lanes at most); ref returns a plane or a list of them."""
+    step = max(1, PLAIN_LANES // x.shape[-1])
+    parts = [ref(x[b:b + step], kind, *args)
+             for b in range(0, x.shape[0], step)]
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts, 0)
+    return [torch.cat(level, 0) for level in zip(*parts)]
 
 
 def levels_apart(x, kind: str, n: int) -> list:
@@ -141,10 +158,8 @@ def host_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def _time(dev, res: dict, name: str, fn, form: str, kind: str, adds: int,
+def _time(res: dict, name: str, fn, form: str, kind: str, adds: int,
           in_ints: int, out_ints: int) -> None:
-    if dev.type != "cuda":
-        return
     res["ms"] = event_ms(fn)
     mads = add_mads("padd" if form == "fold" else "padd_aa", kind) * adds
     r = device_reading(name, fn, 4 * (in_ints + out_ints), mads)
@@ -158,7 +173,11 @@ def _time(dev, res: dict, name: str, fn, form: str, kind: str, adds: int,
                sm_mhz=sm_mhz)
 
 
-def run(dev, shapes, levels, failed: list) -> list:
+def run(dev, shapes, levels, failed: list, timed: bool = True) -> list:
+    """Each shape and several-level launch held against its plain version
+    (a failure is appended to `failed`), then timed on the card unless
+    `timed` is False; one JSON line each."""
+    timed = timed and dev.type == "cuda"
     rng = np.random.default_rng(5)
     results = []
     for form, kind, B, h in shapes:
@@ -168,11 +187,13 @@ def run(dev, shapes, levels, failed: list) -> list:
         ref = K.fold_padd_ref if form == "fold" else K.fold_padd_aa_ref
         tag = f"fold_padd{'_aa' if form == 'aa' else ''}/{kind} " \
               f"({B},{x.shape[1]},{2 * h}) -> h {h}"
-        check(failed, tag, torch.equal(fn(x, kind), ref(x, kind)))
+        check(failed, tag, torch.equal(fn(x, kind),
+                                       plain_by_rows(ref, x, kind)))
         res = {"form": form, "kind": kind, "B": B, "h": h, "levels": 1,
                "adds": B * h}
-        _time(dev, res, tag, lambda: fn(x, kind), form, kind, B * h,
-              x.numel(), B * rows * h)
+        if timed:
+            _time(res, tag, lambda: fn(x, kind), form, kind, B * h,
+                  x.numel(), B * rows * h)
         print(json.dumps(res), flush=True)
         results.append(res)
         del x
@@ -180,16 +201,16 @@ def run(dev, shapes, levels, failed: list) -> list:
         rows = ec_lm.ROWS[kind]
         x = fold_inputs("fold", kind, B, 2 * h, rng, dev)
         got = K.fold_padd_levels(x, kind, n)
-        want = K.fold_padd_levels_ref(x, kind, n)
+        want = plain_by_rows(K.fold_padd_levels_ref, x, kind, n)
         tag = f"fold_padd_levels/{kind} ({B},{rows},{2 * h}) n {n}"
         check(failed, tag, len(got) == n and all(
             torch.equal(g, w) for g, w in zip(got, want)))
         adds = B * sum(h >> i for i in range(n))
         res = {"form": "levels", "kind": kind, "B": B, "h": h, "levels": n,
                "adds": adds}
-        _time(dev, res, tag, lambda: K.fold_padd_levels(x, kind, n),
-              "fold", kind, adds, x.numel(), rows * adds)
-        if dev.type == "cuda":
+        if timed:
+            _time(res, tag, lambda: K.fold_padd_levels(x, kind, n),
+                  "fold", kind, adds, x.numel(), rows * adds)
             res["apart_ms"] = event_ms(lambda: levels_apart(x, kind, n))
             r = device_reading(tag + " apart", lambda: levels_apart(x, kind, n),
                                4 * (x.numel() + rows * adds),
