@@ -104,10 +104,19 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      and bytes (one timed step after the first), peak memory and
      launches (summed over the ranks); one coset_evals_dist of a (16384,
      21, 128) plane on the four ranks, gathered, equal to the local NTT;
-     whether the collectives were staged through the host; then
-     tools.dryrun_multichip on 4 ranks and tools.scaling_sweep's full
-     step at nlevels=4, batch 8, over (1,1), (1,2), (2,2), (1,4), each
-     equal to the single device;
+     whether the collectives were staged through the host; then on the
+     same four ranks the step captured (ShardedProver.capture: one CUDA
+     graph a stretch between collectives, 18 stretches at (1, 4)), whose
+     proofs must equal the eager sharded step's and the main path's, with
+     sampled ones verified and a cross-voter one rejected, and whose
+     launches by kernel, summed over the stretches, must equal one eager
+     step's on each rank; per rank the stretches and nodes, warm-up,
+     capture and instantiation seconds, the pool's bytes and the peak
+     with the graphs alive, eager and replay steps in turns with their
+     collectives' seconds, and one replay's device busy time on rank 0;
+     then tools.dryrun_multichip on 4 ranks (through the capture) and
+     tools.scaling_sweep's full step at nlevels=4, batch 8, over (1,1),
+     (2,2), (1,4), each equal to the single device;
  11. drives nlevels=160 at batch 16, the package's default configuration
      (phase nlevels160, after phase stream, the flagship's graphs and
      provers released): CensusCircuit(160) and dev_setup with the seconds
@@ -136,6 +145,7 @@ It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -215,6 +225,7 @@ PATH_KERNELS["ceremony"] = ["scalar_mul/g1", "scalar_mul/g2", "padd/g1",
 PATH_KERNELS["ceremony_prove"] = PATH_KERNELS["main_path"]
 # the sharded prover runs the main path's stages on every rank
 PATH_KERNELS["sharded"] = PATH_KERNELS["main_path"]
+PATH_KERNELS["sharded_capture"] = PATH_KERNELS["main_path"]
 PATH_KERNELS["nlevels160"] = PATH_KERNELS["main_path"]
 
 
@@ -2300,15 +2311,22 @@ def phase_ceremony(np, torch, K, dev, circuit, pk_dev, vk) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARDED_RANKS = 4                       # a (data 1, model 4) mesh
-SWEEP_MESHES = [(1, 1), (1, 2), (2, 2), (1, 4)]
+# (1, 2) left out to pay for the captured step: (1, 4) runs the same
+# model-axis collectives
+SWEEP_MESHES = [(1, 1), (2, 2), (1, 4)]
+# 12 all_to_all of the distributed NTT, the quotient's all_gather and one
+# an MSM: 17 collectives, so 18 stretches at (1, 4)
+SHARDED_STRETCHES = 18
 
 
 def phase_sharded(torch, K, dev, circuit, pk, vk, arrs,
-                  main_proofs) -> dict:
+                  main_proofs) -> tuple:
     """The main path's configuration through parallel.prove.ShardedProver
     on four ranks that share the card over gloo: the proofs equal the main
     path's; launches summed over the ranks (each counts from 0 just before
-    its prove_batch and reads just after).  Then the two entry tools."""
+    its prove_batch and reads just after).  Then, on the same ranks, the
+    step captured (_sharded_capture), and the two entry tools.  -> (the
+    eager launches, the capture's), each summed over the ranks."""
     import tempfile
 
     from zkfranchise_tpu_torch.groth16 import verify as gverify
@@ -2323,10 +2341,12 @@ def phase_sharded(torch, K, dev, circuit, pk, vk, arrs,
         pk.save(key)
         save_s = time.perf_counter() - t0
         t0 = time.perf_counter()
+        job = functools.partial(
+            jobs.prove_job, steps=1, ntt_check=(n.bit_length() - 1, BATCH, 5),
+            capture=True)
         ranks = launch.run(
-            jobs.prove_job, SHARDED_RANKS, backend="gloo", timeout_s=480,
-            args=(str(key), N_LEVELS, arrs, 1, SHARDED_RANKS, "cuda", 1,
-                  (n.bit_length() - 1, BATCH, 5)))
+            job, SHARDED_RANKS, backend="gloo", timeout_s=600,
+            args=(str(key), N_LEVELS, arrs, 1, SHARDED_RANKS, "cuda"))
         wall_s = time.perf_counter() - t0
     launches: dict = {}
     for r in ranks:
@@ -2364,6 +2384,7 @@ def phase_sharded(torch, K, dev, circuit, pk, vk, arrs,
             and check["coset_equal"]):
         raise AssertionError(f"sharded: the distributed NTT differs: {check}")
     require_launches("sharded", launches)
+    captured = _sharded_capture(K, vk, ranks, proofs, pubs)
 
     t0 = time.perf_counter()
     dry = dryrun_multichip.dryrun(SHARDED_RANKS, dev, "gloo")
@@ -2377,6 +2398,70 @@ def phase_sharded(torch, K, dev, circuit, pk, vk, arrs,
           "wall_s": time.perf_counter() - t0,
           **{k: sw[k] for k in ("nlevels", "batch", "iters", "device",
                                 "backend", "world", "sweeps")}})
+    return launches, captured
+
+
+def _sharded_capture(K, vk, ranks, proofs, pubs) -> dict:
+    """Phase sharded's captured step (prove_job's "capture" record of each
+    rank): checks and one line -> the capture's launches summed over the
+    ranks, by kernel."""
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+
+    caps = [r["capture"] for r in ranks]
+    got, got_pubs = ranks[0]["replay_proofs"], ranks[0]["replay_publics"]
+    same = got == proofs and got_pubs == pubs
+    sample = [0, BATCH // 2, BATCH - 1]
+    accepted = {f"voter_{i}": gverify.verify(
+        vk, gverify.Proof.from_json(got[i]), got_pubs[i]) for i in sample}
+    cross = gverify.verify(vk, gverify.Proof.from_json(got[0]), got_pubs[1])
+    launches = {k: sum(c["launches"].get(k, 0) for c in caps)
+                for k in K.LAUNCHES}
+    per_rank = []
+    for r, c in zip(ranks, caps):
+        turns = {}
+        for kind in ("eager", "replay"):
+            runs = [t for t in c["turns"] if t["kind"] == kind]
+            turns[kind] = {"s": [t["s"] for t in runs],
+                           "collective_s": [t["collective_s"] for t in runs],
+                           "collective_share": [t["collective_s"] / t["s"]
+                                                for t in runs]}
+        per_rank.append({
+            "model_index": r["model_index"], "stretches": c["stretches"],
+            "collectives": len(c["schedule"]), "nodes": c["nodes"],
+            "launches_equal_eager_step":
+                c["launches"] == c["eager_launches"],
+            **{k: c[k] for k in (
+                "warmup_s", "capture_s", "instantiate_s", "pool_bytes",
+                "memory", "peak_allocated_with_graphs", "peak_reserved_with_graphs",
+                "replay_prove_batch_s", "part_s")},
+            "ntt_check_s": r["ntt_check_s"],
+            "turns": turns})
+    emit({"phase": "sharded_capture", "nvidia_smi": smi_line(),
+          "proofs_equal_eager_and_main_path": same, "accepted": accepted,
+          "cross_voter_accepted": cross, "per_rank": per_rank,
+          "schedule": caps[0]["schedule"],
+          "kernel_nodes_by_stretch": [n.get("kernel", 0) for n in
+                                      caps[0]["nodes_by_stretch"]],
+          "mismatch_refused": [c.get("mismatch") for c in caps],
+          "replay_busy_rank0": caps[0]["replay_busy"],
+          "launches": {k: v for k, v in launches.items() if v}})
+    if not same or not all(accepted.values()) or cross:
+        raise AssertionError("sharded_capture: the replay's proofs differ "
+                             "from the eager step's or fail verification")
+    for c in caps:
+        if c["stretches"] != len(c["schedule"]) + 1 or \
+                c["stretches"] != SHARDED_STRETCHES:
+            raise AssertionError(f"sharded_capture: {c['stretches']} "
+                                 f"stretches for {len(c['schedule'])} "
+                                 f"collectives")
+        if c["launches"] != c["eager_launches"]:
+            raise AssertionError(
+                f"sharded_capture: the capture launched {c['launches']}, "
+                f"an eager step {c['eager_launches']}")
+        if "step inputs" not in c.get("mismatch", ""):
+            raise AssertionError("sharded_capture: a mismatched input was "
+                                 "not refused")
+    require_launches("sharded_capture", launches)
     return launches
 
 
@@ -2428,8 +2513,9 @@ def main() -> int:
     table.update(rows160)
     launches.update(timed("ceremony", phase_ceremony, np, torch, K, dev,
                           *keys))
-    launches["sharded"] = timed("sharded", phase_sharded, torch, K, dev,
-                                *keys, main_arrs, main_proofs)
+    launches["sharded"], launches["sharded_capture"] = timed(
+        "sharded", phase_sharded, torch, K, dev, *keys, main_arrs,
+        main_proofs)
     emit({"phase": "wall_seconds", "phases": wall,
           "total_s": time.perf_counter() - start})
     kernels = []

@@ -943,6 +943,49 @@ def test_sharded_prover_1x2_equals_device_prover(dev):
     assert res[0]["publics"] == pubs
 
 
+def test_sharded_step_captured_1x2_equals_eager_and_device_prover(dev):
+    """prove_job with the capture (ShardedProver.capture) on a (1, 2) mesh
+    of 2 gloo ranks sharing the card, at nlevels=4 from the committed
+    dev/4 key: for two seeds the replay's proof JSON equals the eager
+    sharded step's and DeviceProver.prove_batch's; one graph more than
+    collectives; the capture's launches by kernel equal one eager step's;
+    a mismatched input raises."""
+    import functools
+    import json
+    import pathlib
+
+    from zkfranchise_tpu_torch import inputs as tinputs
+    from zkfranchise_tpu_torch.groth16 import setup as tsetup
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+    from zkfranchise_tpu_torch.parallel import jobs, launch
+
+    art = pathlib.Path(__file__).resolve().parent.parent / "artifacts" / \
+        "zkCensus" / "dev" / "4"
+    arrs = tinputs.batch_to_arrays(
+        tinputs.mock_batch(4, 4, seed=1, device=dev), 4)
+    K.build()
+    prover = DeviceProver(CensusCircuit(4), tsetup.ProvingKey.load(
+        art / "proving_key.pkl"), device=dev)
+    for seed in (3, 4):
+        res = launch.run(functools.partial(jobs.prove_job, capture=True), 2,
+                         backend="gloo", timeout_s=300,
+                         args=(str(art / "proving_key.pkl"), 4, arrs, seed,
+                               2, "cuda"))
+        for r in res:
+            cap = r["capture"]
+            assert len(cap["schedule"]) == 17
+            assert cap["stretches"] == len(cap["schedule"]) + 1
+            assert cap["launches"] == cap["eager_launches"]
+            assert cap["launches"]["mont_mul"] and cap["launches"]["padd/g2"]
+            assert "step inputs: password" in cap["mismatch"]
+        proofs, pubs = prover.prove_batch(arrs, seed=seed)
+        want = [json.dumps(p.to_dict()) for p in proofs]
+        assert res[0]["proofs"] == want and res[0]["publics"] == pubs
+        assert res[0]["replay_proofs"] == want
+        assert res[0]["replay_publics"] == pubs
+
+
 # ---------------------------------------------------------------------------
 # nlevels=160 at batch 16, the package's default configuration
 # ---------------------------------------------------------------------------

@@ -6,10 +6,8 @@ One CPU run of the step at batch 1 takes about 110 s here (plain PyTorch
 versions of the kernels, one thread), so the file proves once; the card
 tests (tests/test_torch_cuda.py) hold the replayed graph against
 prove_arrays."""
-import contextlib
 import json
 import pathlib
-import sys
 
 import numpy as np
 import pytest
@@ -27,6 +25,7 @@ from zkfranchise_tpu_torch.groth16 import verify as tverify
 from zkfranchise_tpu_torch.models.census import CensusCircuit
 from zkfranchise_tpu_torch.ops import lm
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
+from zkfranchise_tpu_torch.tools import CONSTANT_CACHES, host_tensors
 from zkfranchise_tpu_torch.tools import bench as tbench
 
 torch.set_num_threads(1)
@@ -34,44 +33,6 @@ torch.set_num_threads(1)
 NL = 4
 ART = pathlib.Path(__file__).resolve().parent.parent / "artifacts" / \
     "zkCensus" / "dev" / str(NL)
-# the functions that fill a device-constant cache at first use: a step
-# makes a tensor from host data nowhere else
-CACHE_FILLS = {"const", "_identity_col", "on"}
-
-
-@contextlib.contextmanager
-def host_tensors(record: list):
-    """Records (torch function, caller) for every tensor made from host
-    data (not from a tensor) through torch.as_tensor, torch.tensor or
-    torch.from_numpy, and every item assignment of host data into a
-    tensor (a copy from the host on the card)."""
-    names = ("as_tensor", "tensor", "from_numpy")
-    originals = {name: getattr(torch, name) for name in names}
-    setitem = torch.Tensor.__setitem__
-
-    def wrap(name, fn):
-        def made(data, *args, **kwargs):
-            if not isinstance(data, torch.Tensor):
-                record.append((name, sys._getframe(1).f_code.co_name))
-            return fn(data, *args, **kwargs)
-        return made
-
-    def assign(self, index, value):
-        if not isinstance(value, torch.Tensor):
-            record.append(("__setitem__", sys._getframe(1).f_code.co_name))
-        return setitem(self, index, value)
-
-    for name, fn in originals.items():
-        setattr(torch, name, wrap(name, fn))
-    torch.Tensor.__setitem__ = assign
-    try:
-        yield
-    finally:
-        for name, fn in originals.items():
-            setattr(torch, name, fn)
-        torch.Tensor.__setitem__ = setitem
-
-
 @pytest.fixture(scope="module")
 def arrs():
     return tinputs.batch_to_arrays(tinputs.mock_batch(NL, 2, seed=1,
@@ -124,7 +85,7 @@ def test_fused_step_makes_host_tensors_only_in_constant_caches(fused):
     """A host copy inside the step would break its capture on the card;
     the caches are filled by the capture's warm-up run."""
     _, made = fused
-    assert {caller for _, caller in made} <= CACHE_FILLS, made
+    assert {caller for _, caller in made} <= CONSTANT_CACHES, made
 
 
 def test_fused_step_refuses_the_cpu(prover):

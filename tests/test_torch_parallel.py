@@ -132,6 +132,7 @@ def test_dryrun_multichip_cpu_four_ranks(capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["mesh"] == [1, 4]
     assert all(line["equal_to_single_device"].values())
+    assert line["stretches"] == [None] * 4          # eager: no graphs
 
 
 def tree_state(root: pathlib.Path) -> dict:

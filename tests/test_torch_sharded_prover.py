@@ -7,9 +7,16 @@ proofs equal DeviceProver(device="cpu").prove_batch(seed) byte for byte
 test_torch_prover.py); they verify against the committed vk and a
 cross-voter proof is rejected.
 
+The same rank job holds what a segmented capture of the step rests on
+(ShardedStep records it on the card): the collective schedule is fixed
+from call to call and equal on every rank, the axes' collectives into
+given buffers equal the allocating ones, and the eager step makes host
+tensors only in the constant caches.  Off the card the capture raises.
+
 The batch is 2, one voter a data slice: at 4 voters the CPU run of the
 single-device prover alone takes about five minutes."""
 import concurrent.futures
+import functools
 import json
 import pathlib
 
@@ -22,6 +29,10 @@ from zkfranchise_tpu_torch.groth16 import verify as tverify
 from zkfranchise_tpu_torch.groth16.device import DeviceProver
 from zkfranchise_tpu_torch.models.census import CensusCircuit
 from zkfranchise_tpu_torch.parallel import jobs, launch
+from zkfranchise_tpu_torch.parallel.mesh import make_mesh
+from zkfranchise_tpu_torch.parallel.prove import (ShardedProver, ShardedStep,
+                                                  local_input_spec)
+from zkfranchise_tpu_torch.tools import CONSTANT_CACHES
 
 torch.set_num_threads(1)
 
@@ -43,7 +54,8 @@ def run():
     # the single-device prover runs while the ranks do
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         want = pool.submit(single_device)
-        ranks = launch.run(jobs.prove_job, 4, backend="gloo", timeout_s=900,
+        ranks = launch.run(functools.partial(jobs.prove_job, probes=True), 4,
+                           backend="gloo", timeout_s=900,
                            args=(str(ART / "proving_key.pkl"), NL, arrs,
                                  SEED, 2, "cpu"))
         return ranks, want.result()
@@ -78,3 +90,58 @@ def test_sharded_proofs_verify(run):
     assert tverify.verify(vk, tverify.Proof.from_json(p0), pub0)
     assert tverify.verify(vk, tverify.Proof.from_json(p1), pub1)
     assert not tverify.verify(vk, tverify.Proof.from_json(p0), pub1)
+
+
+def test_collective_schedule_is_fixed_and_the_same_on_every_rank(run):
+    """The cuts of a segmented capture: 12 all_to_all (four for each of
+    the three coset transforms) and 5 all_gather (the quotient, the four
+    MSMs), all over 'model', in the same order on both calls and on every
+    rank."""
+    ranks, _ = run
+    schedules = [r["probes"]["schedules"] for r in ranks]
+    assert all(first == second for first, second in schedules)
+    first = schedules[0][0]
+    assert all(s[0] == first for s in schedules)
+    assert len(first) == 17
+    ops = [op for op, _, _, _ in first]
+    assert ops == ["all_to_all"] * 12 + ["all_gather"] * 5
+    assert {(axis, dtype) for _, axis, _, dtype in first} == \
+        {("model", "torch.int32")}
+
+
+def test_axis_collectives_into_given_buffers(run):
+    ranks, _ = run
+    for r in ranks:
+        check = r["probes"]["out_buffers"]
+        assert sorted(check) == ["data", "model"]
+        for ops in check.values():
+            for res in ops.values():
+                assert res["equal"] and res["into_out"]
+                allocating, given = res["stats"]
+                assert allocating == given and allocating[0] == 1
+
+
+def test_sharded_step_makes_host_tensors_only_in_constant_caches(run):
+    """A host copy inside the step would break its capture on the card."""
+    ranks, _ = run
+    for r in ranks:
+        made = r["probes"]["host_tensors"]
+        assert {caller for _, caller in made} <= CONSTANT_CACHES, made
+
+
+def test_sharded_capture_refuses_the_cpu():
+    prover = ShardedProver(CensusCircuit(NL), tsetup.ProvingKey.load(
+        ART / "proving_key.pkl"), make_mesh(device="cpu"))
+    with pytest.raises(RuntimeError, match="on the card"):
+        prover.capture(BATCH)
+    with pytest.raises(RuntimeError, match="on the card"):
+        ShardedStep(prover, BATCH)
+
+
+def test_local_input_spec_cuts_the_voter_axis():
+    spec = local_input_spec(NL, 4, 2)
+    assert spec["censusSiblings"] == (NL + 1, 21, 2)
+    assert spec["electionId"] == (2, 21, 2)
+    assert spec["address"] == (21, 2)
+    with pytest.raises(ValueError, match="does not split"):
+        local_input_spec(NL, 3, 2)

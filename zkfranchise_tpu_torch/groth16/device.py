@@ -408,25 +408,8 @@ class FusedStep:
         return self.prover.finalize(*self(inputs, r_arr, s_arr))
 
     def node_counts(self) -> dict:
-        """{node type: count} of the captured graph, read through libcuda
-        (cuGraphGetNodes, cuGraphNodeGetType)."""
-        cuda = ctypes.CDLL("libcuda.so.1")
-        graph = ctypes.c_void_p(self.graph.raw_cuda_graph())
-        n = ctypes.c_size_t(0)
-        _cu_check(cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)),
-                  "cuGraphGetNodes")
-        nodes = (ctypes.c_void_p * n.value)()
-        _cu_check(cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
-                  "cuGraphGetNodes")
-        out: dict = {}
-        kind = ctypes.c_int(0)
-        for node in nodes:
-            _cu_check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                              ctypes.byref(kind)),
-                      "cuGraphNodeGetType")
-            name = _NODE_TYPES.get(kind.value, str(kind.value))
-            out[name] = out.get(name, 0) + 1
-        return out
+        """{node type: count} of the captured graph (graph_node_counts)."""
+        return graph_node_counts(self.graph)
 
 
 class ReplayProver:
@@ -483,6 +466,29 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
 def _cu_check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUresult {rc}")
+
+
+def graph_node_counts(graph) -> dict:
+    """{node type: count} of a torch.cuda.CUDAGraph captured with
+    keep_graph=True, read through libcuda (cuGraphGetNodes,
+    cuGraphNodeGetType)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _cu_check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)),
+              "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu_check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)),
+              "cuGraphGetNodes")
+    out: dict = {}
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        _cu_check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                          ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+        name = _NODE_TYPES.get(kind.value, str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    return out
 
 
 class _StageClock:

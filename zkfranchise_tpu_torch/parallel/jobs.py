@@ -5,6 +5,8 @@ them).  Each job builds its mesh from the world the launcher set up and
 returns plain Python and numpy values."""
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import statistics
 import time
@@ -84,18 +86,32 @@ def msm_job(scalars, tables: dict, device) -> dict:
 
 
 def prove_job(key_path: str, n_levels: int, arrays: dict, seed: int,
-              n_model: int, device, steps: int = 0,
-              ntt_check: tuple | None = None) -> dict:
+              n_model: int, device, *, steps: int = 0,
+              ntt_check: tuple | None = None, probes: bool = False,
+              capture: bool = False) -> dict:
     """A (world // n_model, n_model) mesh; the proving key read from
     key_path (ProvingKey.save), arrays the whole batch's
     inputs.batch_to_arrays.  prove_batch(arrays, seed) with the launch
     counts set to 0 just before it; the proofs come back from the ranks of
-    model index 0, with the first lane each holds.  Then `steps` timed
-    prove_batch_arrays on the same lanes (stage and collective seconds and
-    bytes, their median by key), and, given ntt_check = (log_n, T, seed),
-    ntt_job's check of a random_plane on this world as one model axis."""
+    model index 0, with the first lane each holds.  Then, on the same
+    lanes:
+      * probes: the collective schedule of that prove_batch and of one
+        more prove_fused (run under tools.host_tensors: the host tensors
+        it makes), and each axis's collectives into given buffers against
+        the allocating ones (out_buffer_check), under "probes";
+      * `steps` timed prove_batch_arrays (stage and collective seconds
+        and bytes, their median by key);
+      * capture (on the card): ShardedProver.capture, prove_batch through
+        it (the replay's proofs from the ranks of model index 0), the
+        step's records, memory, the error a mismatched input raises, one
+        round of eager and replay steps (eager, replay, replay, eager)
+        each with its collective seconds, and on rank 0 an upper bound of
+        one replay's device busy time, under "capture";
+      * given ntt_check = (log_n, T, seed), ntt_job's check of a
+        random_plane on this world as one model axis."""
     from ..groth16.setup import ProvingKey
     from ..models.census import CensusCircuit
+    from .. import tools
     from .prove import ShardedProver, _in_spec
 
     t0 = time.perf_counter()
@@ -109,9 +125,11 @@ def prove_job(key_path: str, n_levels: int, arrays: dict, seed: int,
         torch.cuda.reset_peak_memory_stats(mesh.device)
     init_s = time.perf_counter() - t0
 
+    first: list = []
     K.reset_launches()
     t0 = time.perf_counter()
-    proofs, pubs = prover.prove_batch(arrays, seed=seed)
+    with _recorded(mesh, first) if probes else contextlib.nullcontext():
+        proofs, pubs = prover.prove_batch(arrays, seed=seed)
     prove_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
 
@@ -128,12 +146,17 @@ def prove_job(key_path: str, n_levels: int, arrays: dict, seed: int,
     if mesh.model.index == 0:
         out.update(lane0=lane0, proofs=[json.dumps(p.to_dict())
                                         for p in proofs], publics=pubs)
+    local = {k: runtime.local_shard(v, mesh, _in_spec(k))
+             for k, v in arrays.items()}
+    r, s = prover.local_rs(seed, B)
+    if probes:
+        second: list = []
+        made: list = []
+        with _recorded(mesh, second), tools.host_tensors(made):
+            prover.prove_fused(local, r, s)
+        out["probes"] = {"schedules": [first, second], "host_tensors": made,
+                         "out_buffers": out_buffer_check(mesh, seed)}
     if steps:
-        local = {k: runtime.local_shard(v, mesh, _in_spec(k))
-                 for k, v in arrays.items()}
-        from ..groth16.device import draw_rs
-        r, s = (runtime.local_shard(x, mesh, (None, "data"))
-                for x in draw_rs(seed, B))
         runs = []
         for _ in range(steps):
             st: dict = {}
@@ -146,9 +169,175 @@ def prove_job(key_path: str, n_levels: int, arrays: dict, seed: int,
     if on_card:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
             mesh.device)
+    if capture:
+        out["capture"], replayed = _captured(prover, arrays, seed, local, r,
+                                             s)
+        if mesh.model.index == 0:
+            out.update(replay_proofs=[json.dumps(p.to_dict())
+                                      for p in replayed[0]],
+                       replay_publics=replayed[1])
     if ntt_check is not None:
         log_n, T, plane_seed = ntt_check
         del prover
+        t0 = time.perf_counter()
         out["ntt_check"] = ntt_job(random_plane(1 << log_n, T, plane_seed),
                                    log_n, device, False)
+        out["ntt_check_s"] = time.perf_counter() - t0
     return out
+
+
+def _recorded(mesh, log: list):
+    """Context: every collective of the mesh runs as always, and its
+    (op, axis, input shape, dtype) is appended to `log`."""
+    def hook(c):
+        log.append(c.signature())
+        c.run()
+    return mesh.hooked(hook)
+
+
+def out_buffer_check(mesh, seed: int) -> dict:
+    """On each axis of size > 1: all_to_all(x, out=buf) and all_gather(x,
+    out=parts) against the allocating forms on a random int32 x.  ->
+    {axis: {op: {"equal": results equal, "into_out": the result lies in
+    the given buffers, "stats": [(calls, bytes) the allocating form added,
+    (calls, bytes) the given-buffer form added]}}}."""
+    g = torch.Generator().manual_seed(1000 * seed + dist.get_rank())
+    st = mesh.stats
+    res: dict = {}
+    for ax in (mesh.data, mesh.model):
+        if ax.size == 1:
+            continue
+        x = torch.randint(0, 1 << lm.LIMB_BITS, (3 * ax.size, lm.N_LIMBS, 2),
+                          dtype=torch.int32, generator=g).to(mesh.device)
+
+        def ticks(fn):
+            c0 = st.snapshot()
+            y = fn()
+            c1 = st.snapshot()
+            return y, (c1[0] - c0[0], c1[1] - c0[1])
+
+        a, a_st = ticks(lambda: ax.all_to_all(x))
+        buf = torch.empty_like(x)
+        b, b_st = ticks(lambda: ax.all_to_all(x, out=buf))
+        ga, ga_st = ticks(lambda: ax.all_gather(x))
+        parts = [torch.empty_like(x) for _ in range(ax.size)]
+        gb, gb_st = ticks(lambda: ax.all_gather(x, out=parts))
+        res[ax.name] = {
+            "all_to_all": {"equal": torch.equal(a, b),
+                           "into_out": b.data_ptr() == buf.data_ptr(),
+                           "stats": [a_st, b_st]},
+            "all_gather": {"equal": torch.equal(ga, gb),
+                           "into_out": all(torch.equal(p, ga[i])
+                                           for i, p in enumerate(parts)),
+                           "stats": [ga_st, gb_st]}}
+    return res
+
+
+class _PartClock:
+    """Wall seconds since the last mark, by part name."""
+
+    def __init__(self):
+        self.parts: dict = {}
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.parts[name] = now - self.t
+        self.t = now
+
+
+def _pool_bytes(dev, pool) -> int:
+    """Bytes of the allocator's segments in graph pool `pool` on `dev`."""
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if seg["device"] == dev.index
+               and tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def _captured(prover, arrays, seed, local, r, s) -> tuple:
+    """prove_job's capture part -> (its record, the replay's (proofs,
+    publics)).  "memory" holds the allocator at the capture's four probe
+    points, "part_s" the wall seconds of each part: the capture with its
+    warm-up, the records, the replayed prove_batch, the turns and the
+    profiled replay."""
+    from .. import tools
+
+    dev = prover.device
+    B = int(np.asarray(arrays["address"]).shape[-1])
+    memory: dict = {}
+
+    def probe(stage):
+        torch.cuda.synchronize(dev)
+        mem = torch.cuda.memory_stats(dev)
+        memory[stage] = {k: mem.get(f"{k}_bytes.all.current", 0)
+                         for k in ("reserved", "allocated")}
+
+    clock = _PartClock()
+    step = prover.capture(B, probe=probe)
+    torch.cuda.synchronize(dev)
+    clock.mark("capture")
+    rec = {"stretches": step.stretches, "schedule": step.schedule(),
+           "launches": step.launches, "eager_launches": step.eager_launches,
+           "nodes": step.node_counts(),
+           "nodes_by_stretch": step.node_counts_by_stretch(),
+           "warmup_s": step.warmup_s, "capture_s": step.capture_s,
+           "instantiate_s": step.instantiate_s,
+           "pool_bytes": _pool_bytes(dev, step.pool), "memory": memory,
+           "part_s": clock.parts}
+    clock.mark("records")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    replayed = step.prove_batch(arrays, seed=seed)
+    rec["replay_prove_batch_s"] = time.perf_counter() - t0
+    rec["peak_allocated_with_graphs"] = torch.cuda.max_memory_allocated(dev)
+    rec["peak_reserved_with_graphs"] = torch.cuda.max_memory_reserved(dev)
+    clock.mark("replay_prove_batch")
+    # check_step_inputs refuses it before any copy or collective
+    try:
+        step({**local, "password": local["password"].long()}, r, s)
+    except ValueError as err:
+        rec["mismatch"] = str(err)
+
+    st = prover.mesh.stats
+
+    def timed(kind, fn):
+        st.timing = True
+        try:
+            c0 = st.snapshot()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn(local, r, s)
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter() - t0
+            c1 = st.snapshot()
+        finally:
+            st.timing = False
+        return {"kind": kind, "s": t, "collective_s": c1[2] - c0[2],
+                "collective_bytes": c1[1] - c0[1]}
+
+    rec["turns"] = [timed("eager", prover.prove_fused), timed("replay", step),
+                    timed("replay", step), timed("eager", prover.prove_fused)]
+    clock.mark("turns")
+    # one replay profiled between spins on rank 0 (tools.kernel_events
+    # calls it twice), two unprofiled on every other rank: each rank must
+    # call a step with collectives as often as the others.  Kernels count
+    # (the port's and PyTorch's own), copies do not: gloo stages through
+    # them.  The other ranks time-slice the card and stretch rank 0's
+    # kernels, so their sum bounds its busy time from above.
+    replay = functools.partial(step, local, r, s)
+    if dist.get_rank() == 0:
+        events, spins = tools.kernel_events(replay, runs=1)
+        kernels = [(name, us) for name, us in events
+                   if not name.startswith(("Memcpy", "Memset"))]
+        ours = [us for name, us in kernels if not tools._torch_kernel(name)]
+        rec["replay_busy"] = {
+            "busy_upper_bound_s":
+                sum(us for _, us in kernels) / 1e6 if kernels else None,
+            "port_kernels_s": sum(ours) / 1e6,
+            "kernel_events": len(kernels), "port_kernel_events": len(ours),
+            "copy_events": len(events) - len(kernels), "spins": spins}
+    else:
+        replay()
+        replay()
+    clock.mark("profiled_replay")
+    return rec, replayed

@@ -22,9 +22,16 @@ communicator on one device); it takes CUDA tensors for all_to_all_single
 and all_gather (PyTorch 2.11, checked on the card) and moves them
 through pinned host memory itself.  ``CollectiveStats.devices`` records
 the device types the collectives were given.
+
+Every collective call is a ``Collective`` (op, axis, input, output
+buffers) that the axis runs at once, unless the mesh is ``hooked``: then
+the hook gets it instead.  parallel/prove.py's ShardedStep records a
+step that way, cutting its CUDA capture at each collective, and runs the
+recorded collectives on their buffers between the graphs' replays.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -51,6 +58,34 @@ class CollectiveStats:
 
 
 @dataclass
+class Collective:
+    """One collective call of an Axis: its op ("all_to_all" or
+    "all_gather"), the axis, the input tensor and the output buffers (a
+    tensor like x for all_to_all, a list of `size` tensors like x for
+    all_gather).  run() runs it on exactly those tensors, so it can run
+    again on buffers that a CUDA graph reads and writes."""
+    op: str
+    axis: "Axis"
+    x: torch.Tensor
+    out: object
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes this member sends to the others."""
+        n = self.axis.size
+        if self.op == "all_to_all":
+            return self.x.nbytes * (n - 1) // n
+        return self.x.nbytes * (n - 1)
+
+    def signature(self) -> tuple:
+        return (self.op, self.axis.name, tuple(self.x.shape),
+                str(self.x.dtype))
+
+    def run(self) -> None:
+        self.axis._run(self)
+
+
+@dataclass
 class Axis:
     name: str
     size: int
@@ -58,48 +93,60 @@ class Axis:
     group: object                 # ProcessGroup, or None at size 1
     device: torch.device
     stats: CollectiveStats = field(default_factory=CollectiveStats)
+    # set by Mesh.hooked: called with each Collective in place of running it
+    hook: object = None
 
-    def _run(self, x: torch.Tensor, nbytes: int, fn):
+    def _run(self, c: Collective) -> None:
         st = self.stats
-        st.devices.add(x.device.type)
+        st.devices.add(c.x.device.type)
         if st.timing and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        out = fn()
+        if c.op == "all_to_all":
+            dist.all_to_all_single(c.out, c.x, group=self.group)
+        else:
+            dist.all_gather(c.out, c.x, group=self.group)
         if st.timing:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             st.seconds += time.perf_counter() - t0
         st.calls += 1
-        st.bytes += nbytes
-        return out
+        st.bytes += c.nbytes
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+    def _dispatch(self, c: Collective) -> None:
+        if self.hook is None:
+            self._run(c)
+        else:
+            self.hook(c)
+
+    def all_to_all(self, x: torch.Tensor,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
         """Split the leading dimension into `size` chunks, send chunk i to
-        member i, concatenate the chunks received in member order."""
+        member i, concatenate the chunks received in member order.  With
+        `out` (a contiguous tensor like x) the result is written there and
+        out is returned."""
         if self.size == 1:
-            return x
+            return x if out is None else out.copy_(x)
         x = x.contiguous()
+        c = Collective("all_to_all", self, x,
+                       torch.empty_like(x) if out is None else out)
+        self._dispatch(c)
+        return c.out
 
-        def go():
-            out = torch.empty_like(x)
-            dist.all_to_all_single(out, x, group=self.group)
-            return out
-
-        return self._run(x, x.nbytes * (self.size - 1) // self.size, go)
-
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """-> (size, *x.shape): every member's x, in member order."""
+    def all_gather(self, x: torch.Tensor,
+                   out: list | None = None) -> torch.Tensor:
+        """-> (size, *x.shape): every member's x, in member order.  With
+        `out` (a list of `size` contiguous tensors like x) the collective
+        writes member i's x into out[i]; the result is stacked from them."""
         if self.size == 1:
+            if out is not None:
+                out[0].copy_(x)
             return x[None]
         x = x.contiguous()
-
-        def go():
-            parts = [torch.empty_like(x) for _ in range(self.size)]
-            dist.all_gather(parts, x, group=self.group)
-            return torch.stack(parts)
-
-        return self._run(x, x.nbytes * (self.size - 1), go)
+        parts = [torch.empty_like(x) for _ in range(self.size)] \
+            if out is None else out
+        self._dispatch(Collective("all_gather", self, x, parts))
+        return torch.stack(parts)
 
 
 @dataclass
@@ -115,6 +162,24 @@ class Mesh:
 
     def axis(self, name: str) -> Axis:
         return {"data": self.data, "model": self.model}[name]
+
+    @contextlib.contextmanager
+    def hooked(self, hook):
+        """Within: every collective of either axis is handed to
+        hook(Collective) in place of running; the hook may run it
+        (Collective.run) or keep it for later (a segmented capture)."""
+        self.data.hook = self.model.hook = hook
+        try:
+            yield
+        finally:
+            self.data.hook = self.model.hook = None
+
+    def barrier(self) -> None:
+        """Returns once every rank of the mesh has called it: a barrier on
+        the model group, then on the data group."""
+        for ax in (self.model, self.data):
+            if ax.group is not None:
+                dist.barrier(group=ax.group)
 
 
 def rank_device(device=None) -> torch.device:

@@ -22,18 +22,28 @@ reduction order is the JAX package's (gather order by model index, then
 pairwise adds with an identity pad on odd counts), so the planes equal
 its ShardedProver's limb for limb.
 
-Every rank of the mesh runs the same steps on its own shards.  Eager
-PyTorch compiles nothing ahead of time, so the JAX prover's
-``compile_only`` has no counterpart here.
+Every rank of the mesh runs the same steps on its own shards.  The
+JAX package compiles the whole sharded step as one program, collectives
+inside, and its ``compile_only`` builds that program ahead of time.
+Here ``ShardedProver.capture`` is the counterpart: ``ShardedStep``
+captures the step on each rank as CUDA graphs, one per stretch between
+its collectives, and replays them with the collectives run between the
+graphs (gloo collectives cannot be recorded into a graph, and NCCL
+refuses two ranks of one communicator on one card).
 """
 from __future__ import annotations
+
+import contextlib
+import gc
+import time
 
 import numpy as np
 import torch
 
 from ..groth16 import qap
 from ..groth16.device import (DeviceProver, _StageClock, _tensor,
-                              assemble_stage, draw_rs, neg_rs_scalar,
+                              assemble_stage, check_step_inputs, draw_rs,
+                              graph_node_counts, input_spec, neg_rs_scalar,
                               quotient_stage, witness_stage)
 from ..models.census import CensusCircuit
 from ..ops import ec_affine, ec_lm, lm, msm_lm, ntt_dist, sparse
@@ -114,6 +124,16 @@ _IN_RANKS = {"electionId": 3, "voteHash": 3, "censusSiblings": 3,
 
 def _in_spec(key: str) -> tuple:
     return (None,) * (_IN_RANKS.get(key, 2) - 1) + ("data",)
+
+
+def local_input_spec(n_levels: int, batch: int, n_data: int) -> dict:
+    """{key: shape} of one rank's lanes of input_spec(n_levels, batch)
+    under _in_spec: the last (voter) axis cut n_data ways."""
+    if batch % n_data:
+        raise ValueError(f"a batch of {batch} does not split over "
+                         f"{n_data} data ranks")
+    return {k: (*shape[:-1], shape[-1] // n_data)
+            for k, shape in input_spec(n_levels, batch).items()}
 
 
 def _pad0(s: torch.Tensor, total: int) -> torch.Tensor:
@@ -240,7 +260,9 @@ class ShardedProver:
         pi_a, pi_b, pi_c = assemble_stage(pa, pb1, pb2, pc, r_plain, s_plain,
                                           self.alpha, self.beta1, self.beta2)
         mark("assemble")
-        return pi_a, pi_b, pi_c, w_plain[1:1 + npub]
+        # a copy, not a view: a view would keep the whole witness plane
+        # alive (a captured step's outputs stay allocated in its pool)
+        return pi_a, pi_b, pi_c, w_plain[1:1 + npub].clone()
 
     # -- entry points on this rank's lanes ------------------------------------
     def prove_fused(self, inputs: dict, r_plain: torch.Tensor,
@@ -282,16 +304,199 @@ class ShardedProver:
         takes its lanes, so one seed gives the single-device prover's
         proofs."""
         count = int(np.asarray(inputs["address"]).shape[-1])
-        r_arr, s_arr = draw_rs(seed, count)
-        mesh = self.mesh
-        local = {k: local_shard(v, mesh, _in_spec(k))
+        local = {k: local_shard(v, self.mesh, _in_spec(k))
                  for k, v in inputs.items()}
-        r_l, s_l = (local_shard(x, mesh, (None, "data"))
-                    for x in (r_arr, s_arr))
-        return self.finalize(*self.prove_fused(local, r_l, s_l))
+        return self.finalize(*self.prove_fused(
+            local, *self.local_rs(seed, count)))
+
+    def local_rs(self, seed: int, count: int) -> tuple:
+        """r and s of prove_batch(seed) for a batch of `count`: this rank's
+        lanes on its device."""
+        return tuple(local_shard(x, self.mesh, (None, "data"))
+                     for x in draw_rs(seed, count))
+
+    def capture(self, batch: int, probe=None) -> "ShardedStep":
+        """prove_fused captured on this rank for a whole batch of `batch`
+        voters, one CUDA graph a stretch between collectives (see
+        ShardedStep for `probe`).  Every rank of the mesh must call it."""
+        return ShardedStep(self, batch, probe=probe)
 
     # planes -> snarkjs-format proofs, as the single-device prover does
     finalize = DeviceProver.finalize
+
+
+class ShardedStep:
+    """ShardedProver.prove_fused captured on one rank as CUDA graphs, one
+    per stretch between its collectives: the counterpart of the JAX
+    package's compiled sharded step (``prove_fused(..., compile_only=
+    True)``), and the sharded twin of groth16.device.FusedStep.
+
+    Static buffers hold this rank's lanes of the inputs (local_input_spec)
+    and of r and s.  At construction prove_fused runs once eagerly on
+    them on a side stream, collectives included, filling the lazy device
+    constants; every rank of the mesh must construct its step together.
+    Then prove_fused runs again with the mesh hooked: every stretch is
+    captured into one memory pool (torch.cuda.graph_pool_handle(),
+    capture_error_mode="thread_local"), and at each collective the
+    capture ends, the call is kept (op, axis, input, output buffers)
+    without running it, and the next stretch's capture begins.  So a step
+    of k collectives has k + 1 graphs, cut at the same calls in the same
+    order on every rank.  The graphs are instantiated, then the ranks meet
+    at a barrier on the mesh.
+
+    A call checks its inputs, copies them into the buffers, replays graph
+    0, runs collective 0 on its kept buffers, replays graph 1, and so on,
+    and returns clones of the outputs.  The graphs share one pool and
+    always replay in capture order, never two at once; the tensors that
+    cross a cut (the collectives' inputs and outputs, and the outputs)
+    stay referenced by the step.  A replay ticks no launch counter:
+    `launches` holds what the capture launched, by kernel, summed over
+    the stretches, and `eager_launches` what the warm-up launched.  There
+    is no eager fallback: a mesh off the card, a failed capture or a
+    mismatched input raises.
+
+    probe(stage), if given, is called before the warm-up ("start") and
+    after the warm-up, the capture and the instantiation ("warmup",
+    "capture", "instantiate")."""
+
+    def __init__(self, prover: ShardedProver, batch: int, *, probe=None):
+        dev = prover.device
+        if dev.type != "cuda":
+            raise RuntimeError(f"ShardedStep: CUDA graphs need a mesh on "
+                               f"the card, not on {dev}")
+        probe = probe or _no_mark
+        mesh = prover.mesh
+        self.prover = prover
+        self.batch = batch
+        self.spec = local_input_spec(prover.circuit.n_levels, batch,
+                                     mesh.data.size)
+        self.inputs = {k: torch.zeros(shape, dtype=torch.int32, device=dev)
+                       for k, shape in self.spec.items()}
+        self.r = torch.zeros(self.spec["address"], dtype=torch.int32,
+                             device=dev)
+        self.s = torch.zeros_like(self.r)
+
+        probe("start")
+        t0 = time.perf_counter()
+        before = dict(K.LAUNCHES)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            prover.prove_fused(self.inputs, self.r, self.s)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.eager_launches = _launched_since(before)
+        self.warmup_s = time.perf_counter() - t0
+        probe("warmup")
+
+        # as torch.cuda.graph does before a capture: no warm-up block
+        # outlives it
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: list = []
+        self.collectives: list = []
+        self._open = False
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side), mesh.hooked(self._cut):
+            self._begin()
+            try:
+                self.outputs = prover.prove_fused(self.inputs, self.r,
+                                                  self.s)
+            except BaseException:
+                self._abandon()
+                raise
+            self._end()
+        self.capture_s = time.perf_counter() - t0
+        self.launches = _launched_since(before)
+        probe("capture")
+        t0 = time.perf_counter()
+        for graph in self.graphs:
+            graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.instantiate_s = time.perf_counter() - t0
+        probe("instantiate")
+        mesh.barrier()
+
+    # -- the segmented capture: a graph a stretch, cut at each collective --
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self.graphs.append(graph)
+        self._open = True
+
+    def _end(self) -> None:
+        self._open = False
+        self.graphs[-1].capture_end()
+
+    def _cut(self, c) -> None:
+        """The mesh's hook while recording: end this stretch's graph, keep
+        the collective without running it, begin the next graph."""
+        self._end()
+        self.collectives.append(c)
+        self._begin()
+
+    def _abandon(self) -> None:
+        """Ends an open capture after a failure; the failure is the error
+        to report, not what ending the broken capture raises."""
+        if self._open:
+            with contextlib.suppress(RuntimeError):
+                self._end()
+
+    @property
+    def stretches(self) -> int:
+        return len(self.graphs)
+
+    def schedule(self) -> list:
+        """(op, axis, input shape, dtype) of each collective, in order."""
+        return [c.signature() for c in self.collectives]
+
+    def __call__(self, inputs: dict, r_plain, s_plain):
+        """This rank's lanes (as prove_fused takes them) -> clones of
+        (pi_a, pi_b, pi_c, publics).  Every rank of the mesh must call it
+        together."""
+        check_step_inputs(self.spec, inputs, r_plain, s_plain)
+        for key, buf in self.inputs.items():
+            buf.copy_(_tensor(inputs[key]))
+        self.r.copy_(_tensor(r_plain))
+        self.s.copy_(_tensor(s_plain))
+        for graph, c in zip(self.graphs, self.collectives):
+            graph.replay()
+            c.run()
+        self.graphs[-1].replay()
+        return tuple(o.clone() for o in self.outputs)
+
+    def prove_batch(self, inputs: dict, seed: int = 0):
+        """ShardedProver.prove_batch through the graphs: the whole batch's
+        host inputs (the same on every rank), r and s drawn from the seed
+        for the whole batch, this rank's lanes -> its voters' (proofs,
+        public signals), the eager step's and the single device's."""
+        count = int(np.asarray(inputs["address"]).shape[-1])
+        if count != self.batch:
+            raise ValueError(f"step inputs: a batch of {count}, the step "
+                             f"was captured for {self.batch}")
+        mesh = self.prover.mesh
+        local = {k: local_shard(v, mesh, _in_spec(k))
+                 for k, v in inputs.items()}
+        return self.prover.finalize(
+            *self(local, *self.prover.local_rs(seed, count)))
+
+    def node_counts(self) -> dict:
+        """{node type: count} summed over the stretches' graphs."""
+        out: dict = {}
+        for counts in self.node_counts_by_stretch():
+            for k, v in counts.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def node_counts_by_stretch(self) -> list:
+        return [graph_node_counts(g) for g in self.graphs]
+
+
+def _launched_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()
+            if v != before.get(k, 0)}
 
 
 class _MeshClock(_StageClock):

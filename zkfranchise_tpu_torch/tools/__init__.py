@@ -22,10 +22,12 @@ unless another device is named; on the CPU the kernels' plain versions run
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
@@ -333,3 +335,44 @@ def check_and_time(failed: list, dev: torch.device, name: str, fn, want,
         ms = event_ms(fn)
         print(f"{name:44s} {ms:9.4f} ms   {rate(ms)}   device "
               f"{device_ms(fn):.4f} ms", flush=True)
+
+
+# The functions that fill a device-constant cache at first use (lm.const,
+# ec_lm._identity_col, NTTPlan.on and DistNTTPlan.on): a proving step
+# makes a tensor from host data nowhere else.
+CONSTANT_CACHES = {"const", "_identity_col", "on"}
+
+
+@contextlib.contextmanager
+def host_tensors(record: list):
+    """Records (torch function, caller) for every tensor made from host
+    data (not from a tensor) through torch.as_tensor, torch.tensor or
+    torch.from_numpy, and every item assignment of host data into a
+    tensor (a copy from the host on the card).  Such a copy inside a step
+    breaks its capture as a CUDA graph, so a step run under this records
+    callers in CONSTANT_CACHES at most."""
+    names = ("as_tensor", "tensor", "from_numpy")
+    originals = {name: getattr(torch, name) for name in names}
+    setitem = torch.Tensor.__setitem__
+
+    def wrap(name, fn):
+        def made(data, *args, **kwargs):
+            if not isinstance(data, torch.Tensor):
+                record.append((name, sys._getframe(1).f_code.co_name))
+            return fn(data, *args, **kwargs)
+        return made
+
+    def assign(self, index, value):
+        if not isinstance(value, torch.Tensor):
+            record.append(("__setitem__", sys._getframe(1).f_code.co_name))
+        return setitem(self, index, value)
+
+    for name, fn in originals.items():
+        setattr(torch, name, wrap(name, fn))
+    torch.Tensor.__setitem__ = assign
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(torch, name, fn)
+        torch.Tensor.__setitem__ = setitem

@@ -8,7 +8,11 @@ runs), proves one fused step on ``mock_batch(4, B, seed=1)`` with 62-bit
 r and s from numpy.random.default_rng(0), and holds the planes against a
 single-device DeviceProver.prove_arrays on the same inputs: the points in
 affine form (the reduction order differs, so projective Z does not
-match), the publics exactly.
+match), the publics exactly.  On the card the step goes through
+``ShardedProver.capture`` (one CUDA graph a stretch between collectives),
+as the JAX dry run goes through the compiled ``prove_fused``, and the
+output gives each rank's stretches; a CPU mesh has no graphs, so there
+the step runs eagerly.
 
     python -m zkfranchise_tpu_torch.tools.dryrun_multichip [--ranks 4] \\
         [--device cuda|cpu] [--backend gloo|nccl] [--batch B]
@@ -70,8 +74,9 @@ def mesh_shape(n: int) -> tuple:
 
 
 def _rank(n_data: int, n_model: int, device, arrs: dict, r, s) -> dict:
-    """One rank: the fused sharded step on its lanes -> its planes (from
-    the ranks of model index 0) with the index of its first lane."""
+    """One rank: the fused sharded step on its lanes (captured on the
+    card, eager on the CPU) -> its stretches, and on the ranks of model
+    index 0 its planes with the index of its first lane."""
     from ..models.census import CensusCircuit
     from ..parallel import runtime
     from ..parallel.mesh import make_mesh, staged_through_host
@@ -83,18 +88,26 @@ def _rank(n_data: int, n_model: int, device, arrs: dict, r, s) -> dict:
     local = {k: runtime.local_shard(v, mesh, _in_spec(k))
              for k, v in arrs.items()}
     r_l, s_l = (runtime.local_shard(x, mesh, (None, "data")) for x in (r, s))
-    planes = prover.prove_fused(local, r_l, s_l)
-    if mesh.model.index:
-        return {}
     B = r.shape[-1]
+    if mesh.device.type == "cuda":
+        step = prover.capture(B)
+        planes = step(local, r_l, s_l)
+        stretches = step.stretches
+    else:
+        planes = prover.prove_fused(local, r_l, s_l)
+        stretches = None
+    if mesh.model.index:
+        return {"stretches": stretches}
     return {"lane0": mesh.data.index * (B // n_data),
             "planes": [p.cpu().numpy() for p in planes],
+            "stretches": stretches,
             "staged_through_host": staged_through_host(mesh)}
 
 
 def _lanes(results: list, i: int) -> np.ndarray:
     """Plane i of every rank of model index 0, in lane order."""
-    parts = sorted((r["lane0"], r["planes"][i]) for r in results if r)
+    parts = sorted((r["lane0"], r["planes"][i]) for r in results
+                   if "planes" in r)
     return np.concatenate([p for _, p in parts], -1)
 
 
@@ -145,6 +158,7 @@ def dryrun(n: int, device=None, backend: str = "gloo",
            "backend": backend, "pi_a_shape": list(got[0].shape),
            "staged_through_host": any(res.get("staged_through_host")
                                       for res in results),
+           "stretches": [res["stretches"] for res in results],
            "equal_to_single_device": checks,
            "seconds": time.perf_counter() - t0}
     if not all(checks.values()):
