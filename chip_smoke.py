@@ -115,8 +115,8 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      with the graphs alive, eager and replay steps in turns with their
      collectives' seconds, and one replay's device busy time on rank 0;
      then tools.dryrun_multichip on 4 ranks (through the capture) and
-     tools.scaling_sweep's full step at nlevels=4, batch 8, over (1,1),
-     (2,2), (1,4), each equal to the single device;
+     tools.scaling_sweep's full step at nlevels=4, batch 8, over (1,1)
+     and (1,4), each equal to the single device;
  11. drives nlevels=160 at batch 16, the package's default configuration
      (phase nlevels160, after phase stream, the flagship's graphs and
      provers released): CensusCircuit(160) and dev_setup with the seconds
@@ -128,14 +128,31 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      seconds, nodes, the pool's bytes, launches equal to one
      prove_arrays'), its proofs byte-equal to the eager prove_batch's for
      seeds 1 and 2, sampled proofs verified and a cross-voter and a
-     tampered one rejected; eager and replay in turns (two rounds), one
+     tampered one rejected; eager and replay in turns (one round), one
      profiled replay, tools.bench's line; then the kernels at this path's
      shapes: ntt_level at every level of the 2^17 schedules at 16 lanes,
      the chunked sparse.spmv of A at 16 lanes against its plain version
      (mont_mul_ref), and the folds at every width the 160 tables give at
-     batch 16.
+     batch 16;
+ 12. serves the default deployment (phase stream160, right after phase
+     nlevels160, whose circuit and dev key it takes): config.Config()'s
+     n_levels and batch_size (160, 16) and the key of
+     Config().artifact_dir, rebuilt as native-ordered zkey bytes
+     (zkey_from_pk, write_zkey) whose sha256 must equal the committed
+     file's (circuits-info.md's digest; the 130 MB file does not ride to
+     the card), ingested (A and B only) with its vk equal to the committed
+     one; a DeviceProver keyed from it alone serves mock_batch(160, 47,
+     seed=7) through ProofStream at batch 16 with a crash at cursor 32 and
+     a resume over 8, 4, 2, 1, every slice on a captured step (16, 8, 4, 2
+     and 1 each captured once into one pool, launches equal to one
+     prove_arrays' at its size), then eagerly: the 95 files equal byte for
+     byte, voters 0, 31, 32, 39, 40, 44, 46 verify and a cross-voter pair
+     is rejected; the same line as phase stream's (captures, pool, peaks,
+     each stream's seconds and proofs/s by slice and over the voters);
+     then, untimed, the folds at every width the tail sizes launch that
+     batch 16 does not, against their plain versions.
 
-Launch counts are set to 0 just before each of the paths 3 to 11 and
+Launch counts are set to 0 just before each of the paths 3 to 12 and
 read just after it; the run fails if a kernel of a path was not launched
 on it.
 
@@ -227,6 +244,7 @@ PATH_KERNELS["ceremony_prove"] = PATH_KERNELS["main_path"]
 PATH_KERNELS["sharded"] = PATH_KERNELS["main_path"]
 PATH_KERNELS["sharded_capture"] = PATH_KERNELS["main_path"]
 PATH_KERNELS["nlevels160"] = PATH_KERNELS["main_path"]
+PATH_KERNELS["stream160"] = PATH_KERNELS["main_path"]
 
 
 def require_launches(path: str, launches: dict) -> None:
@@ -1086,7 +1104,7 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple, tuple]:
     from zkfranchise_tpu_torch.groth16 import verify as gverify
     from zkfranchise_tpu_torch.groth16.device import DeviceProver
     from zkfranchise_tpu_torch.models.census import CensusCircuit
-    from zkfranchise_tpu_torch.ops import lm, msm_lm
+    from zkfranchise_tpu_torch.ops import lm
     from zkfranchise_tpu_torch.utils import native
 
     if not native.available():
@@ -1123,12 +1141,8 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple, tuple]:
     first_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     folds = dict(sorted(K.FOLD_SHAPES.items()))
-    planned: dict = {}
-    for tab, kind in ((prover.a_tab, "g1"), (prover.b1_tab, "g1"),
-                      (prover.b2_tab, "g2"), (prover.c_tab, "g1")):
-        for key, v in msm_lm.msm_fold_launches(
-                tab.shape[0], BATCH, kind, prover.window_group).items():
-            planned[key] = planned.get(key, 0) + v
+    planned = _planned_folds(_msm_tables(prover).values(), BATCH,
+                             prover.window_group)
     emit({"phase": "main_path", "inputs_s": inputs_s,
           "prover_init_s": prover_init_s, "first_prove_batch_s": first_s,
           "proofs": len(proofs), "launches": launches,
@@ -1137,7 +1151,7 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple, tuple]:
           "fold_launches_by_shape": folds,
           "fold_launches": sum(folds.values())})
     require_launches("main_path", launches)
-    if folds != dict(sorted(planned.items())):
+    if folds != planned:
         raise AssertionError(f"fold launches differ from the MSM plan's "
                              f"count: {planned}")
 
@@ -1295,10 +1309,11 @@ def _allocator(torch, dev) -> dict:
     return out
 
 
-def _turns(torch, dev, prover, step, arrs, r, s) -> tuple[dict, dict]:
+def _turns(torch, dev, prover, step, arrs, r, s,
+           rounds: int = ROUNDS) -> tuple[dict, dict]:
     """The eager prove_arrays and the replayed step in turns (eager,
-    replay, replay, eager; ROUNDS rounds), wall and CUDA-event seconds of
-    each -> (runs, their medians and proofs/s)."""
+    replay, replay, eager; `rounds` rounds), wall and CUDA-event seconds
+    of each -> (runs, their medians and proofs/s)."""
     batch = int(r.shape[-1])
 
     def timed(fn):
@@ -1314,7 +1329,7 @@ def _turns(torch, dev, prover, step, arrs, r, s) -> tuple[dict, dict]:
                 "event_s": start.elapsed_time(end) / 1e3}
 
     runs = {"eager": [], "replay": []}
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         for name in ("eager", "replay", "replay", "eager"):
             runs[name].append(timed(prover.prove_arrays if name == "eager"
                                     else step))
@@ -1495,42 +1510,43 @@ def _tree_bytes(root: pathlib.Path) -> dict:
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-def _serve(torch, K, prover, voters, out, sink) -> dict:
-    """ProofStream over `prover` (wrapped in _RecordingProver) on a fresh
-    directory: a crash in place of the third batch, a resume over the
-    tail and a third run that must be a no-op.  -> the two recorders and
-    the wall seconds from the first run's start to the resumed run's
-    end."""
+def _serve(torch, K, prover, voters, out, sink, batch, tail) -> dict:
+    """ProofStream over `prover` (wrapped in _RecordingProver) at `batch` on
+    a fresh directory: a crash in place of the third slice (cursor 2 x
+    batch), a resume over the slices `tail` and a third run that must be a
+    no-op.  -> the two recorders and the wall seconds from the first run's
+    start to the resumed run's end."""
     from zkfranchise_tpu_torch.stream import ProofStream
     from zkfranchise_tpu_torch.utils.metrics import Metrics
 
+    n = len(voters)
     first = _RecordingProver(prover, K, fail_after=2)
-    s1 = ProofStream(first, out, batch_size=BATCH, metrics=Metrics(sink=sink))
+    s1 = ProofStream(first, out, batch_size=batch, metrics=Metrics(sink=sink))
     crashed = False
     t0 = time.perf_counter()
     try:
         s1.run(voters, seed=1)
     except RuntimeError as e:
         crashed = str(e) == "injected crash"
-    if not crashed or s1.cursor != 2 * BATCH:
+    if not crashed or s1.cursor != 2 * batch:
         raise AssertionError(f"stream: expected a crash at cursor "
-                             f"{2 * BATCH}, got cursor {s1.cursor}")
+                             f"{2 * batch}, got cursor {s1.cursor}")
     # a fresh stream on the same directory resumes over the tail
     second = _RecordingProver(prover, K)
-    s2 = ProofStream(second, out, batch_size=BATCH, metrics=Metrics(sink=sink))
+    s2 = ProofStream(second, out, batch_size=batch, metrics=Metrics(sink=sink))
     produced = s2.run(voters, seed=1)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     sizes = [x["batch"] for x in second.slices]
     done = sorted(d.name for d in out.iterdir() if d.is_dir())
-    if (produced, sizes, s2.cursor) != (44, [32, 8, 4], N_VOTERS) or \
-            done != [f"proof_{i:08d}" for i in range(N_VOTERS)]:
+    if (produced, sizes, s2.cursor) != (sum(tail), tail, n) or \
+            done != [f"proof_{i:08d}" for i in range(n)]:
         raise AssertionError(f"stream resume: produced {produced}, "
                              f"slices {sizes}, cursor {s2.cursor}, "
                              f"{len(done)} proof directories")
     launches = dict(K.LAUNCHES)
     third = _RecordingProver(prover, K)
-    if ProofStream(third, out, batch_size=BATCH,
+    if ProofStream(third, out, batch_size=batch,
                    metrics=Metrics(sink=sink)).run(voters, seed=1) or \
             third.slices or dict(K.LAUNCHES) != launches:
         raise AssertionError("stream: a third run was not a no-op")
@@ -1550,15 +1566,11 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
     ProofStream, proving every slice on a captured step (ReplayProver:
     sizes 128, 32, 8 and 4 each captured once, across the crash, into one
     pool), then the same stream on the eager prover in the same process:
-    the two trees of files must be equal byte for byte.  -> the launches
-    of the captured stream's run (its warm-ups, captures and finalize)."""
-    import io
-    import tempfile
-
+    the two trees of files must be equal byte for byte (_stream_pair).
+    -> the launches of the captured stream's run (its warm-ups, captures
+    and finalize)."""
     from zkfranchise_tpu_torch import inputs as inp
-    from zkfranchise_tpu_torch.groth16 import verify as gverify
-    from zkfranchise_tpu_torch.groth16.device import (DeviceProver,
-                                                      ReplayProver, draw_rs)
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
     from zkfranchise_tpu_torch.utils import serialize, zkey_compat
 
     vk_path = ROOT / "artifacts" / "zkCensus" / "dev" / str(N_LEVELS) / \
@@ -1599,13 +1611,42 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
           "nnz": {k: int(arrays[k][0].shape[0]) for k in ("a", "b")},
           "seconds": seconds})
     del z, raw, data
+    # the first batch, the batch before the crash, and each slice of the
+    # resumed tail
+    return _stream_pair(torch, K, dev, "stream", prover, voters, BATCH,
+                        [32, 8, 4], vk_path,
+                        (0, 200, 256, 287, 288, 295, 296, 299))
 
+
+def _stream_pair(torch, K, dev, name, prover, voters, batch, tail, vk_path,
+                 sample) -> dict:
+    """Phase `name`'s stream: `voters` through ProofStream at `batch` with a
+    crash and a resume over the slices `tail` (_serve), every slice on a
+    captured step (ReplayProver: batch and each size of tail captured once,
+    in that order, into one pool), then the same stream on the eager
+    `prover` in the same process: the two trees of files must be equal
+    byte for byte; each size's captured launches equal one eager
+    prove_arrays' at that size; the proof files of the voters in `sample`
+    verify against the key at `vk_path` and a cross-voter pair does not.
+    One line: each capture's seconds, nodes and pool bytes, the peaks,
+    each stream's seconds and proofs/s by slice and over all voters.  The
+    counts are set to 0 before the captured stream and read after its
+    no-op run.  -> those launches (its warm-ups, captures and
+    finalize)."""
+    import io
+    import tempfile
+
+    from zkfranchise_tpu_torch import inputs as inp
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+    from zkfranchise_tpu_torch.groth16.device import ReplayProver, draw_rs
+
+    n_levels, n_voters = prover.circuit.n_levels, len(voters)
     # the shared pool and the process after each capture
     pool_after = {}
 
-    def probe(batch, stage):
+    def probe(size, stage):
         if stage == "instantiate":
-            pool_after[batch] = {
+            pool_after[size] = {
                 "pool": _pool_bytes(torch, dev, replay.pool),
                 "reserved_bytes": torch.cuda.memory_reserved(dev),
                 "allocated_bytes": torch.cuda.memory_allocated(dev)}
@@ -1619,44 +1660,46 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         K.reset_launches()
-        graph = _serve(torch, K, replay, voters, tmp / "graph", graph_sink)
+        graph = _serve(torch, K, replay, voters, tmp / "graph", graph_sink,
+                       batch, tail)
         launches = dict(K.LAUNCHES)
         graph_memory = {
             "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
             "pool": _pool_bytes(torch, dev, replay.pool)}
-        if list(replay.steps) != [BATCH, 32, 8, 4]:
-            raise AssertionError(f"stream: sizes captured "
+        if list(replay.steps) != [batch, *tail]:
+            raise AssertionError(f"{name}: sizes captured "
                                  f"{list(replay.steps)}, expected each of "
-                                 f"128, 32, 8, 4 once")
+                                 f"{[batch, *tail]} once")
         # (c) the same stream on the eager prover, same voters and seed
         torch.cuda.reset_peak_memory_stats(dev)
-        eager = _serve(torch, K, prover, voters, tmp / "eager", eager_sink)
+        eager = _serve(torch, K, prover, voters, tmp / "eager", eager_sink,
+                       batch, tail)
         eager_memory = {
             "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
-        trees = [_tree_bytes(tmp / name) for name in ("graph", "eager")]
-        if trees[0] != trees[1] or len(trees[0]) != 2 * N_VOTERS + 1:
+        trees = [_tree_bytes(tmp / run) for run in ("graph", "eager")]
+        if trees[0] != trees[1] or len(trees[0]) != 2 * n_voters + 1:
             differ = sorted(k for k in set(trees[0]) | set(trees[1])
                             if trees[0].get(k) != trees[1].get(k))
-            raise AssertionError(f"stream: the captured stream's files "
+            raise AssertionError(f"{name}: the captured stream's files "
                                  f"differ from the eager stream's: "
                                  f"{differ[:8]} ({len(differ)} in all)")
         # (d) each size's captured launches against one eager prove_arrays
         # at that size on the same prover
         eager_step = {}
-        for batch in replay.steps:
-            arrs = inp.batch_to_arrays(voters[:batch], N_LEVELS)
+        for size in replay.steps:
+            arrs = inp.batch_to_arrays(voters[:size], n_levels)
             r, s = (torch.as_tensor(x, device=dev)
-                    for x in draw_rs(1, batch))
+                    for x in draw_rs(1, size))
             before = dict(K.LAUNCHES)
             prover.prove_arrays(arrs, r, s)
-            eager_step[batch] = {k: v - before[k]
-                                 for k, v in K.LAUNCHES.items()
-                                 if v != before[k]}
+            eager_step[size] = {k: v - before[k]
+                                for k, v in K.LAUNCHES.items()
+                                if v != before[k]}
         torch.cuda.synchronize(dev)
-        # (e) sampled proof files against the committed key: first batch,
-        # the batch before the crash, and each slice of the resumed tail
+
+        # (e) sampled proof files against the committed key
         def files(i):
             d = tmp / "graph" / f"proof_{i:08d}"
             return str(d / "proof.json"), str(d / "signals.json")
@@ -1664,7 +1707,7 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
         t0 = time.perf_counter()
         accepted = {f"voter_{i}": gverify.verify_files(str(vk_path),
                                                        *files(i))
-                    for i in (0, 200, 256, 287, 288, 295, 296, 299)}
+                    for i in sample}
         cross = gverify.verify_files(str(vk_path), files(0)[0], files(1)[1])
         verify_s = time.perf_counter() - t0
     capture_s = {b: st.warmup_s + st.capture_s + st.instantiate_s
@@ -1680,12 +1723,12 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
                 for b, st in replay.steps.items()}
     captures_s = sum(capture_s.values())
     streams = {}
-    for name, run, sink in (("graph", graph, graph_sink),
-                            ("eager", eager, eager_sink)):
-        streams[name] = {
-            "slices": run["first"].slices + run["second"].slices,
-            "rates": _rates(sink), "stream_s": run["stream_s"],
-            "proofs_per_s": N_VOTERS / run["stream_s"]}
+    for run, served, sink in (("graph", graph, graph_sink),
+                              ("eager", eager, eager_sink)):
+        streams[run] = {
+            "slices": served["first"].slices + served["second"].slices,
+            "rates": _rates(sink), "stream_s": served["stream_s"],
+            "proofs_per_s": n_voters / served["stream_s"]}
     # a slice that met a new size paid its capture: the seconds without it
     for rate, sl in zip(streams["graph"]["rates"],
                         streams["graph"]["slices"]):
@@ -1694,9 +1737,10 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
             rate["without_capture_s"] = rate["seconds"] - rate["capture_s"]
     proving_s = graph["stream_s"] - captures_s
     streams["graph"].update(captures_s=captures_s, proving_s=proving_s,
-                            proofs_per_s_without_captures=N_VOTERS /
+                            proofs_per_s_without_captures=n_voters /
                             proving_s)
-    emit({"phase": "stream", "nvidia_smi": smi_line(), "voters": N_VOTERS,
+    emit({"phase": name, "nvidia_smi": smi_line(), "nlevels": n_levels,
+          "batch": batch, "voters": n_voters,
           "captured_sizes": list(replay.steps), "captures": captures,
           "graph_memory": graph_memory, "eager_memory": eager_memory,
           "files_equal": True, "files": len(trees[0]),
@@ -1705,13 +1749,13 @@ def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:
           "accepted": accepted, "cross_voter_accepted": cross,
           "verify_s": verify_s})
     if not all(accepted.values()) or cross:
-        raise AssertionError("stream: proof verification failed")
+        raise AssertionError(f"{name}: proof verification failed")
     unequal = [b for b, c in captures.items()
                if not c["launches_equal_prove_arrays"]]
     if unequal:
-        raise AssertionError(f"stream: the captured launches at sizes "
+        raise AssertionError(f"{name}: the captured launches at sizes "
                              f"{unequal} differ from one prove_arrays'")
-    require_launches("stream", launches)
+    require_launches(name, launches)
     del replay, graph
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
@@ -1747,6 +1791,25 @@ def _spmv_chunks(nnz: int) -> int:
     return 1 if nnz <= 2 * MAX_NNZ_CHUNK else -(-nnz // MAX_NNZ_CHUNK)
 
 
+def _msm_tables(prover) -> dict:
+    """{name: (table, kind)} of a DeviceProver's four MSMs."""
+    return {"a": (prover.a_tab, "g1"), "b1": (prover.b1_tab, "g1"),
+            "b2": (prover.b2_tab, "g2"), "c": (prover.c_tab, "g1")}
+
+
+def _planned_folds(tables, B: int, G=None) -> dict:
+    """msm_lm.msm_fold_launches summed over the MSM tables [(table,
+    kind)] at batch B, keys sorted."""
+    from zkfranchise_tpu_torch.ops import msm_lm
+
+    planned: dict = {}
+    for tab, kind in tables:
+        for key, v in msm_lm.msm_fold_launches(tab.shape[0], B, kind,
+                                               G).items():
+            planned[key] = planned.get(key, 0) + v
+    return dict(sorted(planned.items()))
+
+
 def _fold_widths(planned: dict) -> tuple[list, list]:
     """msm_lm.msm_fold_launches keys -> fold_shapes.run's shapes (one
     level) and levels (several a launch)."""
@@ -1763,14 +1826,15 @@ def _fold_widths(planned: dict) -> tuple[list, list]:
     return shapes, levels
 
 
-def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict]:
+def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
     """nlevels=160 at batch 16 (config.Config's defaults) through the
     entry points a user calls: the circuit and its dev key derived here
     (the vk equal to the committed dev/160 one; no zkey is read), the eager
     DeviceProver, its step captured through ReplayProver, proofs equal
     byte for byte and verified, eager and replay timed in turns, the
     bench's line; then the kernels at this path's shapes against their
-    plain versions.  -> (the path's launches, kernels-line rows)."""
+    plain versions.  -> (the path's launches, kernels-line rows, the
+    circuit and its dev key (circuit, pk, vk) for phase stream160)."""
     from zkfranchise_tpu_torch import inputs as inp
     from zkfranchise_tpu_torch.groth16 import qap
     from zkfranchise_tpu_torch.groth16 import setup as gsetup
@@ -1795,16 +1859,15 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict]:
     lap("export_arrays")
     n = qap.domain_size(cs.num_constraints, cs.num_public)
     setup_parts: dict = {}
-    pk, vk = gsetup.dev_setup(cs, seconds=setup_parts)
+    pk, dev_vk = gsetup.dev_setup(cs, seconds=setup_parts)
     lap("dev_setup")
     vk_committed = json.loads(
         (ROOT / "artifacts" / "zkCensus" / "dev" / str(nl) /
          "verification_key.json").read_text())
-    vk_equal = vk.to_dict() == vk_committed
+    vk_equal = dev_vk.to_dict() == vk_committed
     prover = DeviceProver(circuit, pk, arrays=arrays, device=dev)
     lap("prover_init")
-    tables = {"a": (prover.a_tab, "g1"), "b1": (prover.b1_tab, "g1"),
-              "b2": (prover.b2_tab, "g2"), "c": (prover.c_tab, "g1")}
+    tables = _msm_tables(prover)
     emit({"phase": "nlevels160_setup", "nlevels": nl, "batch": B,
           "wires": cs.num_vars, "constraints": cs.num_constraints,
           "domain": pk.domain,
@@ -1824,7 +1887,6 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict]:
         raise AssertionError("nlevels160: the dev setup's vk differs from "
                              "the committed dev/160 vk")
     vk = gverify.VerifyingKey(vk_committed)
-    del pk
 
     # the path: counts start at 0 here and are read right after the
     # captured step's proofs
@@ -1846,12 +1908,7 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict]:
     eager_memory = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
                     "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
     proofs2, pubs2 = prover.prove_batch(arrs, seed=2)
-    planned: dict = {}
-    for tab, kind in tables.values():
-        for key, v in msm_lm.msm_fold_launches(
-                tab.shape[0], B, kind, prover.window_group).items():
-            planned[key] = planned.get(key, 0) + v
-    planned = dict(sorted(planned.items()))
+    planned = _planned_folds(tables.values(), B, prover.window_group)
     emit({"phase": "nlevels160_eager", "nvidia_smi": smi_line(),
           "stage_seconds": stages, "step_s": sum(stages.values()),
           "proofs_per_s": B / sum(stages.values()),
@@ -1922,9 +1979,10 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict]:
     if not all(ok.values()) or cross or tampered:
         raise AssertionError("nlevels160: proof verification failed")
 
-    # eager and replay in turns, one profiled replay, the bench's line
+    # eager and replay in turns (one round: phase stream160's per-slice
+    # rates repeat the reading), one profiled replay, the bench's line
     t0 = time.perf_counter()
-    runs, summary = _turns(torch, dev, prover, step, arrs, r, s)
+    runs, summary = _turns(torch, dev, prover, step, arrs, r, s, rounds=1)
     seconds["turns"] = time.perf_counter() - t0
     for attempt in range(1, 4):
         events, (lead, tail) = kernel_events(lambda: step(arrs, r, s),
@@ -1988,7 +2046,128 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict]:
                              f"versions: {failed}")
     del prover, w
     torch.cuda.empty_cache()
-    return launches, table
+    return launches, table, (circuit, pk, dev_vk)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the default deployment served: ProofStream at config.Config()'s
+# defaults, keyed from the deployment's zkey bytes
+# ---------------------------------------------------------------------------
+
+# 2 batches of 16, then the whole ladder 8, 4, 2, 1
+STREAM160_VOTERS, STREAM160_TAIL = 47, [8, 4, 2, 1]
+# both full batches, the first voter of each tail slice, the 1-voter slice
+STREAM160_SAMPLE = (0, 31, 32, 39, 40, 44, 46)
+
+
+def _manifest_digest(key_dir: pathlib.Path, name: str) -> str:
+    """The sha256 the committed manifest (circuits-info.md beside the
+    nlevels directories) gives file `name` of key_dir."""
+    text = (key_dir.parent / "circuits-info.md").read_text()
+    section = re.search(rf"^### \S+ {key_dir.name}\n((?:- .*\n)+)", text,
+                        re.M)
+    found = section and re.search(
+        rf"^- {re.escape(name)}: `([0-9a-f]{{64}})`", section.group(1), re.M)
+    if not found:
+        raise AssertionError(f"no digest of {key_dir.name}/{name} in "
+                             f"{key_dir.parent / 'circuits-info.md'}")
+    return found.group(1)
+
+
+def phase_stream160(torch, K, dev, circuit, pk, vk) -> dict:
+    """The deployment an operator runs as shipped: ProofStream at
+    config.Config()'s defaults (nlevels=160, batch 16) from the key of
+    Config().artifact_dir.  That key is rebuilt from phase nlevels160's dev
+    key as native-ordered zkey bytes (zkey_from_pk, write_zkey) whose
+    sha256 must equal the committed file's (the manifest's digest; the
+    130 MB file itself does not ride to the card), then ingested (A and B
+    only) with its vk equal to the committed one; a DeviceProver keyed from
+    it alone serves mock_batch(160, 47, seed=7): a crash at cursor 32 and
+    a resume over 8, 4, 2, 1, so every size of the batch-16 ladder is
+    captured once into one pool (_stream_pair).  Then the folds at the
+    widths the tail sizes launch and batch 16 does not, untimed, against
+    their plain versions.  -> the launches of the captured stream's run."""
+    import hashlib
+
+    from zkfranchise_tpu_torch import inputs as inp
+    from zkfranchise_tpu_torch.config import Config
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
+    from zkfranchise_tpu_torch.tools import fold_shapes
+    from zkfranchise_tpu_torch.utils import serialize, zkey_compat
+    from zkfranchise_tpu_torch.utils.native import Laps
+
+    cfg = Config()
+    nl, B, key_dir = cfg.n_levels, cfg.batch_size, cfg.artifact_dir
+    if circuit.n_levels != nl:
+        raise AssertionError(f"stream160: phase nlevels160's circuit has "
+                             f"nlevels={circuit.n_levels}, Config() {nl}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    seconds: dict = {}
+    lap = Laps(seconds)
+    z = zkey_compat.zkey_from_pk(circuit.cs, pk, vk)
+    lap("zkey_from_pk")
+    data = serialize.write_zkey(z)
+    lap("write_zkey")
+    del z
+    digest = hashlib.sha256(data).hexdigest()
+    lap("sha256")
+    committed = _manifest_digest(key_dir, "proving_key.zkey")
+    zpk, zvk, arrays = zkey_compat.ingest_zkey(data, cs=circuit.cs,
+                                               ordering="native")
+    lap("zkey_ingest")
+    vk_path = key_dir / "verification_key.json"
+    vk_equal = zvk.to_dict() == json.loads(vk_path.read_text())
+    has_c = "c" in arrays
+    prover = DeviceProver(circuit, zpk, arrays=arrays, device=dev)
+    lap("prover_init")
+    voters = inp.mock_batch(nl, STREAM160_VOTERS, seed=7, device=dev)
+    lap("mock_batch")
+    emit({"phase": "stream160_setup", "nlevels": nl, "batch": B,
+          "key_dir": str(key_dir),
+          "zkey_bytes": len(data), "zkey_sha256": digest,
+          "committed_sha256": committed, "zkey_equals_committed":
+              digest == committed, "vk_equals_committed": vk_equal,
+          "has_c_matrix": has_c,
+          "nnz": {k: int(arrays[k][0].shape[0]) for k in ("a", "b")},
+          "seconds": seconds})
+    del data, zpk, arrays
+    if digest != committed:
+        raise AssertionError("stream160: the rebuilt zkey differs from the "
+                             "committed one")
+    if not vk_equal:
+        raise AssertionError("stream160: the ingested vk differs from the "
+                             "committed dev/160 vk")
+    if has_c:
+        raise AssertionError("stream160: an ingested zkey carries no C "
+                             "matrix")
+    launches = _stream_pair(torch, K, dev, "stream160", prover, voters, B,
+                            STREAM160_TAIL, vk_path, STREAM160_SAMPLE)
+
+    # the folds the tail sizes launch at the 160 tables that batch 16 does
+    # not (phase nlevels160 checks those), against their plain versions
+    t0 = time.perf_counter()
+    tables = _msm_tables(prover).values()
+    checked = _planned_folds(tables, B, prover.window_group)
+    new: dict = {}
+    for size in STREAM160_TAIL:
+        for key in _planned_folds(tables, size, prover.window_group):
+            if key not in checked and key not in new:
+                new[key] = size
+    del prover
+    torch.cuda.empty_cache()
+    failed: list = []
+    shapes, levels = _fold_widths(new)
+    fold_shapes.run(dev, shapes, levels, failed, timed=False)
+    emit({"phase": "stream160_folds", "sizes": STREAM160_TAIL,
+          "fold_widths": len(new),
+          "by_size": {b: sum(v == b for v in new.values())
+                      for b in STREAM160_TAIL},
+          "folds_failed": failed, "seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError(f"stream160: folds differ from their plain "
+                             f"versions: {failed}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2311,9 +2490,10 @@ def phase_ceremony(np, torch, K, dev, circuit, pk_dev, vk) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARDED_RANKS = 4                       # a (data 1, model 4) mesh
-# (1, 2) left out to pay for the captured step: (1, 4) runs the same
-# model-axis collectives
-SWEEP_MESHES = [(1, 1), (2, 2), (1, 4)]
+# (1, 2) left out to pay for the captured step and (2, 2) for phase
+# stream160: (1, 4) runs the same model-axis collectives, and the data
+# axis is held on the CPU (tests/test_torch_sharded_prover.py at (2, 2))
+SWEEP_MESHES = [(1, 1), (1, 4)]
 # 12 all_to_all of the distributed NTT, the quotient's all_gather and one
 # an MSM: 17 collectives, so 18 stretches at (1, 4)
 SHARDED_STRETCHES = 18
@@ -2508,9 +2688,12 @@ def main() -> int:
     main_arrs = held[2]
     del held
     launches["stream"] = timed("stream", phase_stream, torch, K, dev, *keys)
-    launches["nlevels160"], rows160 = timed("nlevels160", phase_nlevels160,
-                                            np, torch, K, dev)
+    launches["nlevels160"], rows160, key160 = timed(
+        "nlevels160", phase_nlevels160, np, torch, K, dev)
     table.update(rows160)
+    launches["stream160"] = timed("stream160", phase_stream160, torch, K,
+                                  dev, *key160)
+    del key160
     launches.update(timed("ceremony", phase_ceremony, np, torch, K, dev,
                           *keys))
     launches["sharded"], launches["sharded_capture"] = timed(

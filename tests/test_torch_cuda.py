@@ -1059,3 +1059,29 @@ def test_nl160_captured_step_equals_eager(nl160):
                                 for x in draw_rs(1, B160)))
     assert replay.steps[B160].launches == \
         {k: v for k, v in K.LAUNCHES.items() if v}
+
+
+def test_nl160_replay_stream_equals_eager_stream(nl160, tmp_path):
+    """The default deployment's stream (batch 16) over 7 voters: the tail
+    ladder 4, 2, 1 on steps captured at 160 in one pool, its files byte-equal
+    to the eager stream's."""
+    import io
+
+    from zkfranchise_tpu_torch import inputs as tinputs
+    from zkfranchise_tpu_torch.groth16.device import ReplayProver
+    from zkfranchise_tpu_torch.stream import ProofStream
+    from zkfranchise_tpu_torch.utils.metrics import Metrics
+
+    prover, _ = nl160
+    voters = tinputs.mock_batch(NL160, 7, seed=5, device=prover.device)
+    replay = ReplayProver(prover)
+    trees = []
+    for p, name in ((replay, "graph"), (prover, "eager")):
+        stream = ProofStream(p, tmp_path / name, batch_size=B160,
+                             metrics=Metrics(io.StringIO()))
+        assert stream.run(voters, seed=3) == 7 and stream.cursor == 7
+        root = tmp_path / name
+        trees.append({str(f.relative_to(root)): f.read_bytes()
+                      for f in sorted(root.rglob("*")) if f.is_file()})
+    assert list(replay.steps) == [4, 2, 1]
+    assert trees[0] == trees[1] and len(trees[0]) == 2 * 7 + 1

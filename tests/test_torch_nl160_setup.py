@@ -1,10 +1,13 @@
 """The host side of the dev key at nlevels=160: the port's dev_setup gives
 the committed dev/160 verification key field by field (so a key derived
-on the card's host proves against it, and no zkey is needed), with the
-seconds of each part; the native library's conversions (one to_bytes or
+on the card's host proves against it), with the seconds of each part, and
+its native-ordered zkey bytes equal the committed dev/160 proving_key.zkey
+byte for byte (so the card serves from exactly the deployment's key
+without the file); the native library's conversions (one to_bytes or
 from_bytes an int) equal the JAX package's limb by limb; the pairing's
 final exponentiation, split into its easy and hard parts, equals the JAX
 package's."""
+import hashlib
 import json
 import pathlib
 import random
@@ -17,22 +20,44 @@ from zkfranchise_tpu.utils import native as jnative
 from zkfranchise_tpu_torch.groth16 import setup as tsetup
 from zkfranchise_tpu_torch.models.census import CensusCircuit
 from zkfranchise_tpu_torch.ops import ec, pairing
-from zkfranchise_tpu_torch.utils import native
+from zkfranchise_tpu_torch.utils import native, serialize, zkey_compat
 
 ART = pathlib.Path(__file__).resolve().parent.parent / "artifacts" / \
     "zkCensus" / "dev"
 
 
-def test_dev_setup_160_vk_equals_committed():
+@pytest.fixture(scope="module")
+def dev160():
+    """(cs, pk, vk, seconds by part) of one dev_setup at nlevels=160."""
     if not native.available():
         pytest.skip("native/build/libzkhost.so did not build")
+    cs = CensusCircuit(160).cs
     parts: dict = {}
-    _, vk = tsetup.dev_setup(CensusCircuit(160).cs, seconds=parts)
+    pk, vk = tsetup.dev_setup(cs, seconds=parts)
+    return cs, pk, vk, parts
+
+
+def test_dev_setup_160_vk_equals_committed(dev160):
+    _, _, vk, parts = dev160
     want = json.loads((ART / "160" / "verification_key.json").read_text())
     assert vk.to_dict() == want
     assert set(parts) == {"rows_and_lagrange", "g1_products", "g2_products",
                           "conversions", "key"}
     assert all(v >= 0 for v in parts.values())
+
+
+def test_dev_setup_160_zkey_equals_committed(dev160):
+    """The deployment's key (Config().artifact_dir) rebuilt from the dev
+    key in native ordering, as chip_smoke.py's phase stream160 rebuilds
+    it, is the committed file byte for byte, and its sha256 is the one
+    the committed manifest gives (what the card, without the file,
+    compares with)."""
+    cs, pk, vk, _ = dev160
+    data = serialize.write_zkey(zkey_compat.zkey_from_pk(cs, pk, vk))
+    assert data == (ART / "160" / "proving_key.zkey").read_bytes()
+    digest = hashlib.sha256(data).hexdigest()
+    assert f"- proving_key.zkey: `{digest}`" in \
+        (ART / "circuits-info.md").read_text()
 
 
 def _points(rng):

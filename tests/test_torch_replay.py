@@ -4,10 +4,11 @@ key, on the CPU.
 
 A CUDA graph needs the card, so here ReplayProver and FusedStep are held
 to their refusals, and ReplayProver's bookkeeping runs over a stub step in
-place of FusedStep: ProofStream at the card phase's ladder (300 voters at
-batch 128, a crash in place of the third batch, a resume) must capture
-each size once, in the order the stream asks for them, into one pool, and
-write the files a stream over the eager prover writes.  The card tests
+place of FusedStep: ProofStream at the card phases' ladders (300 voters at
+batch 128, and the default deployment's 47 at batch 16; a crash in place
+of the third batch, a resume) must capture each size once, in the order
+the stream asks for them (128, 32, 8, 4; 16, 8, 4, 2, 1), into one pool,
+and write the files a stream over the eager prover writes.  The card tests
 (tests/test_torch_cuda.py) replay the real graphs.  The build key carries
 ``nvcc --version``: the JAX package's program cache
 (zkfranchise_tpu/utils/progcache.py:30) keys its snapshots without the
@@ -184,17 +185,17 @@ class _Crashing:
         return self.prover.prove_batch(arrs, seed=seed)
 
 
-def _serve(prover, out, voters):
-    """The card phase's stream: crash in place of the third batch, resume,
-    then a third run that proves nothing."""
+def _serve(prover, out, voters, batch):
+    """A card phase's stream at `batch`: crash in place of the third
+    batch, resume, then a third run that proves nothing."""
     with pytest.raises(RuntimeError, match="injected crash"):
-        ProofStream(_Crashing(prover, fail_after=2), out, batch_size=128,
+        ProofStream(_Crashing(prover, fail_after=2), out, batch_size=batch,
                     metrics=Metrics(io.StringIO())).run(voters, seed=1)
-    resumed = ProofStream(_Crashing(prover), out, batch_size=128,
+    resumed = ProofStream(_Crashing(prover), out, batch_size=batch,
                           metrics=Metrics(io.StringIO()))
-    assert resumed.cursor == 256
-    assert resumed.run(voters, seed=1) == 44
-    assert ProofStream(_Crashing(prover), out, batch_size=128,
+    assert resumed.cursor == 2 * batch
+    assert resumed.run(voters, seed=1) == len(voters) - 2 * batch
+    assert ProofStream(_Crashing(prover), out, batch_size=batch,
                        metrics=Metrics(io.StringIO())).run(voters) == 0
 
 
@@ -203,13 +204,23 @@ def _tree(root):
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
+# chip_smoke.py's serving phases: (voters, batch, the sizes captured in
+# order): phase stream, and phase stream160 (config.Config()'s defaults,
+# the whole batch-16 ladder)
+CARD_STREAMS = {"batch128": (300, 128, [128, 32, 8, 4]),
+                "batch16": (47, 16, [16, 8, 4, 2, 1])}
+
+
+@pytest.mark.parametrize("case", CARD_STREAMS)
 def test_replay_stream_captures_each_size_once_in_one_pool(tmp_path,
-                                                           monkeypatch):
+                                                           monkeypatch,
+                                                           case):
+    n, batch, sizes = CARD_STREAMS[case]
     token = ("pool", 1)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: token)
     monkeypatch.setattr(tdevice, "FusedStep", _StubStep)
     _StubStep.made.clear()
-    voters = (tinputs.mock_batch(16, 11, seed=6, device="cpu") * 28)[:300]
+    voters = (tinputs.mock_batch(16, 11, seed=6, device="cpu") * 28)[:n]
     eager = _EagerStub()
     probed = []
     replay = tdevice.ReplayProver(
@@ -217,18 +228,18 @@ def test_replay_stream_captures_each_size_once_in_one_pool(tmp_path,
     assert (replay.circuit, replay.device) == (eager.circuit, eager.device)
     assert replay.pool is token
 
-    _serve(replay, tmp_path / "graph", voters)
-    assert [s.batch for s in _StubStep.made] == [128, 32, 8, 4]
-    assert list(replay.steps) == [128, 32, 8, 4]
+    _serve(replay, tmp_path / "graph", voters, batch)
+    assert [s.batch for s in _StubStep.made] == sizes
+    assert list(replay.steps) == sizes
     assert all(s.pool is token and s.prover is eager
                for s in _StubStep.made)
     assert replay.steps == {s.batch: s for s in _StubStep.made}
-    assert probed == [(b, stage) for b in (128, 32, 8, 4)
+    assert probed == [(b, stage) for b in sizes
                       for stage in ("start", "warmup", "capture",
                                     "instantiate")]
-    assert replay.step(32) is replay.steps[32]          # kept, not again
-    assert len(_StubStep.made) == 4
+    assert replay.step(sizes[1]) is replay.steps[sizes[1]]  # kept, not again
+    assert len(_StubStep.made) == len(sizes)
 
-    _serve(eager, tmp_path / "eager", voters)
+    _serve(eager, tmp_path / "eager", voters, batch)
     graph, plain = _tree(tmp_path / "graph"), _tree(tmp_path / "eager")
-    assert graph == plain and len(graph) == 2 * 300 + 1
+    assert graph == plain and len(graph) == 2 * n + 1

@@ -110,41 +110,65 @@ def test_stream_tail_ladder(tmp_path, voters):
         [8, 2, 1]
 
 
-def test_stream_300_at_128_is_the_card_phase_ladder(tmp_path, voters):
-    """The slices of the serving phase on the card: 300 voters at batch
-    128 with a crash in place of the third batch, then 32, 8, 4."""
-    many = (voters * 28)[:300]
+# the card's two serving phases (chip_smoke.py): 300 voters at batch 128
+# (phase stream) and config.Config()'s default deployment, 47 voters at
+# batch 16 (phase stream160); a crash in place of the third batch, then the
+# tail's ladder
+CARD_STREAMS = {"batch128": (300, 128, [32, 8, 4]),
+                "batch16": (47, 16, [8, 4, 2, 1])}
+
+
+@pytest.mark.parametrize("case", CARD_STREAMS)
+def test_stream_300_at_128_is_the_card_phase_ladder(tmp_path, voters, case):
+    """The slices of a serving phase on the card: a crash in place of the
+    third batch (cursor 2 x batch), then the tail's ladder (300 at 128:
+    32, 8, 4; 47 at 16: 8, 4, 2, 1), each slice seeded with seed + base."""
+    n, batch, tail = CARD_STREAMS[case]
+    many = (voters * 28)[:n]
     out = tmp_path / "proofs"
     p1 = _StubProver(fail_after_batches=2)
+    s1 = ProofStream(p1, out, batch_size=batch, metrics=Metrics(io.StringIO()))
     with pytest.raises(RuntimeError):
-        ProofStream(p1, out, batch_size=128,
-                    metrics=Metrics(io.StringIO())).run(many, seed=1)
+        s1.run(many, seed=1)
+    assert s1.cursor == 2 * batch
     p2 = _StubProver()
-    s2 = ProofStream(p2, out, batch_size=128, metrics=Metrics(io.StringIO()))
-    assert s2.run(many, seed=1) == 44
-    assert p1.sizes == [128, 128] and p2.sizes == [32, 8, 4]
-    assert p2.seeds == [257, 289, 297] and s2.cursor == 300
+    s2 = ProofStream(p2, out, batch_size=batch, metrics=Metrics(io.StringIO()))
+    assert s2.run(many, seed=1) == sum(tail) == n - 2 * batch
+    assert p1.sizes == [batch, batch] and p2.sizes == tail
+    bases = [2 * batch + sum(tail[:i]) for i in range(len(tail))]
+    assert p2.seeds == [1 + b for b in bases] and s2.cursor == n
 
 
-def test_stream_files_and_cursor_match_jax(tmp_path, voters):
+# (voters, batch, slices before the crash, the resumed slices)
+JAX_STREAMS = {"batch4": (11, 4, 1, [4, 2, 1]),
+               "batch16": (47, 16, 2, [8, 4, 2, 1])}
+
+
+@pytest.mark.parametrize("case", JAX_STREAMS)
+def test_stream_files_and_cursor_match_jax(tmp_path, voters, case):
     """The same stub behind the JAX package's ProofStream and the port's,
-    a crash and a resume each: the same files with the same bytes."""
+    a crash and a resume each: the same files with the same bytes, the
+    same cursors and the same slices (11 at 4, and the default
+    deployment's 47 at 16 with the whole ladder 8, 4, 2, 1)."""
+    n, batch, before, tail = JAX_STREAMS[case]
     jvoters = jinputs.mock_batch(16, 11, seed=6)
     assert [v.to_json() for v in voters] == [v.to_json() for v in jvoters]
     trees = []
-    for cls, vs, name in ((JaxProofStream, jvoters, "jax"),
-                          (ProofStream, voters, "torch")):
+    for cls, vs, name in ((JaxProofStream, (jvoters * 5)[:n], "jax"),
+                          (ProofStream, (voters * 5)[:n], "torch")):
         out = tmp_path / name
         with pytest.raises(RuntimeError):
-            cls(_StubProver(fail_after_batches=1), out, batch_size=4,
-                metrics=Metrics(io.StringIO())).run(vs, seed=9)
-        resumed = cls(_StubProver(), out, batch_size=4,
+            cls(_StubProver(fail_after_batches=before), out,
+                batch_size=batch, metrics=Metrics(io.StringIO())).run(
+                    vs, seed=9)
+        stub = _StubProver()
+        resumed = cls(stub, out, batch_size=batch,
                       metrics=Metrics(io.StringIO()))
-        assert resumed.cursor == 4
-        assert resumed.run(vs, seed=9) == 7
-        assert resumed.cursor == 11
+        assert resumed.cursor == before * batch
+        assert resumed.run(vs, seed=9) == n - before * batch == sum(tail)
+        assert resumed.cursor == n and stub.sizes == tail
         trees.append(_tree(out))
     assert trees[0] == trees[1]
-    assert len(trees[0]) == 2 * 11 + 1
+    assert len(trees[0]) == 2 * n + 1
     assert json.loads(trees[1]["stream_checkpoint.json"]) == \
-        {"cursor": 11, "batch_size": 4}
+        {"cursor": n, "batch_size": batch}
