@@ -1,0 +1,10 @@
+"""kernels_roofline.arrivals: the program's counted kernels in the traced
+stretch, the sum of their launches' bounds over the sum of their device
+time, in %.  Kernels that are not counted are listed, with their share,
+in the result line's "kernels" entry."""
+
+
+def read(run):
+    if run.window.loop != "open":
+        return None
+    return run.roofline
