@@ -1554,11 +1554,15 @@ def _serve(torch, K, prover, voters, out, sink, batch, tail) -> dict:
 
 
 def _rates(sink) -> list:
-    """Metrics' throughput records: one a slice."""
-    return [{"batch": r["items"], "seconds": r["seconds"],
-             "proofs_per_s": r["per_second"]}
-            for r in map(json.loads, sink.getvalue().splitlines())
-            if r["kind"] == "throughput"]
+    """The stream's prove_batch records, one a slice that was proven: of
+    two with one base (a crash in place of a slice, then its resume) the
+    later."""
+    by_base = {r["base"]: r
+               for r in map(json.loads, sink.getvalue().splitlines())
+               if r["kind"] == "stage" and r["stage"] == "prove_batch"}
+    return [{"batch": r["batch"], "seconds": r["seconds"],
+             "proofs_per_s": r["batch"] / r["seconds"]}
+            for r in by_base.values()]
 
 
 def phase_stream(torch, K, dev, circuit, pk, vk) -> dict:

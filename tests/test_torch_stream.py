@@ -10,6 +10,7 @@ import pytest
 
 from zkfranchise_tpu import inputs as jinputs
 from zkfranchise_tpu.stream import ProofStream as JaxProofStream
+from zkfranchise_tpu.utils.metrics import Metrics as JaxMetrics
 from zkfranchise_tpu_torch import inputs as tinputs
 from zkfranchise_tpu_torch.stream import ProofStream, _prev_pow2
 from zkfranchise_tpu_torch.utils.metrics import Metrics
@@ -106,8 +107,8 @@ def test_stream_tail_ladder(tmp_path, voters):
     records = [json.loads(line) for line in sink.getvalue().splitlines()]
     assert [(r["base"], r["batch"]) for r in records
             if r["kind"] == "stage"] == [(0, 8), (8, 2), (10, 1)]
-    assert [r["items"] for r in records if r["kind"] == "throughput"] == \
-        [8, 2, 1]
+    assert [r["batch"] for r in records if r["kind"] == "stage"
+            and r["stage"] == "prove_batch"] == [8, 2, 1]
 
 
 # the card's two serving phases (chip_smoke.py): 300 voters at batch 128
@@ -154,16 +155,17 @@ def test_stream_files_and_cursor_match_jax(tmp_path, voters, case):
     jvoters = jinputs.mock_batch(16, 11, seed=6)
     assert [v.to_json() for v in voters] == [v.to_json() for v in jvoters]
     trees = []
-    for cls, vs, name in ((JaxProofStream, (jvoters * 5)[:n], "jax"),
-                          (ProofStream, (voters * 5)[:n], "torch")):
+    for cls, met, vs, name in (
+            (JaxProofStream, JaxMetrics, (jvoters * 5)[:n], "jax"),
+            (ProofStream, Metrics, (voters * 5)[:n], "torch")):
         out = tmp_path / name
         with pytest.raises(RuntimeError):
             cls(_StubProver(fail_after_batches=before), out,
-                batch_size=batch, metrics=Metrics(io.StringIO())).run(
+                batch_size=batch, metrics=met(io.StringIO())).run(
                     vs, seed=9)
         stub = _StubProver()
         resumed = cls(stub, out, batch_size=batch,
-                      metrics=Metrics(io.StringIO()))
+                      metrics=met(io.StringIO()))
         assert resumed.cursor == before * batch
         assert resumed.run(vs, seed=9) == n - before * batch == sum(tail)
         assert resumed.cursor == n and stub.sizes == tail
@@ -172,3 +174,108 @@ def test_stream_files_and_cursor_match_jax(tmp_path, voters, case):
     assert len(trees[0]) == 2 * n + 1
     assert json.loads(trees[1]["stream_checkpoint.json"]) == \
         {"cursor": n, "batch_size": batch}
+
+
+def _step_stand_ins(monkeypatch):
+    """A DeviceProver on the CPU, and a ReplayProver over it with a step of
+    every size, whose step, replay and finalize are stand-ins: what runs
+    of theirs is prove_batch, with its spans."""
+    import torch
+
+    from zkfranchise_tpu_torch.groth16.device import (DeviceProver, FusedStep,
+                                                      ReplayProver)
+    stub = _StubProver()
+
+    def planes(inputs, r, s):
+        return (inputs["address"], r, s, inputs["address"])
+
+    def finalize(pa, pb, pc, publics):
+        return stub.prove_batch({"address": pa}, seed=int(pb[0, 0]))
+
+    prover = object.__new__(DeviceProver)
+    prover.device = torch.device("cpu")
+    prover.circuit = _StubProver.circuit
+    prover.prove_arrays = planes
+    prover.finalize = finalize
+    monkeypatch.setattr(FusedStep, "__call__",
+                        lambda self, inputs, r, s: planes(inputs, r, s))
+    replay = object.__new__(ReplayProver)
+    replay.prover, replay.circuit = prover, prover.circuit
+    replay.device = prover.device
+    replay.steps = {}
+    for size in (1, 2, 4, 8):
+        replay.steps[size] = step = object.__new__(FusedStep)
+        step.prover, step.batch = prover, size
+    return {"eager": prover, "replay": replay}
+
+
+STEP_SPANS = ["step.enqueue", "step.wait", "step.finalize"]
+
+
+@pytest.mark.parametrize("path", ["eager", "replay"])
+def test_stream_spans_of_each_slice(tmp_path, voters, monkeypatch, path):
+    """Each slice writes one stage record, prove_batch, with its keys, and
+    the spans stream.arrays, step.enqueue, step.wait, step.finalize and
+    stream.files, all with the slice's base and batch; the step's spans
+    name prove_batch as their parent (the eager prover's prove_batch and
+    the captured step's, through the ReplayProver)."""
+    prover = _step_stand_ins(monkeypatch)[path]
+    sink = io.StringIO()
+    s = ProofStream(prover, tmp_path / "proofs", batch_size=8,
+                    metrics=Metrics(sink))
+    assert s.run(voters) == 11
+    records = [json.loads(line) for line in sink.getvalue().splitlines()]
+    assert all(r["kind"] in ("stage", "span") for r in records)
+    slices = [(0, 8), (8, 2), (10, 1)]
+    for i, (base, batch) in enumerate(slices):
+        mine = records[6 * i:6 * (i + 1)]
+        assert [r.get("name", r.get("stage")) for r in mine] == \
+            ["stream.arrays", *STEP_SPANS, "prove_batch", "stream.files"]
+        arrays, enqueue, wait, finalize, stage, files = mine
+        assert set(stage) == {"kind", "stage", "seconds", "base", "batch",
+                              "id", "t0", "t1", "ts"}
+        for r in mine:
+            assert (r["base"], r["batch"]) == (base, batch)
+        for r in (enqueue, wait, finalize):
+            assert r["parent"] == stage["id"]
+        assert arrays["parent"] is None and files["parent"] is None
+        assert arrays["t1"] <= stage["t0"] <= enqueue["t0"] and \
+            finalize["t1"] <= stage["t1"] <= files["t0"]
+    assert len(records) == 6 * len(slices)
+    assert [r["batch"] for r in records if r["kind"] == "stage"] == [8, 2, 1]
+    assert sorted(s.metrics.timers) == sorted(
+        ["stream.arrays", "prove_batch", "stream.files", *STEP_SPANS])
+
+
+@pytest.mark.parametrize("path", ["eager", "replay"])
+def test_step_spans_outside_a_stream_keep_process_totals(voters, monkeypatch,
+                                                         path):
+    """prove_batch called outside a stream: its spans go to PROCESS's
+    totals and write no record."""
+    from zkfranchise_tpu_torch.utils import metrics
+
+    def no_record(self, record):
+        raise AssertionError(f"a record was written: {record}")
+
+    prover = _step_stand_ins(monkeypatch)[path]
+    monkeypatch.setattr(Metrics, "_emit", no_record)
+    monkeypatch.setattr(metrics.PROCESS, "timers", {})
+    proofs, _ = prover.prove_batch(tinputs.batch_to_arrays(voters[:2], 16))
+    assert len(proofs) == 2
+    assert list(metrics.PROCESS.timers) == STEP_SPANS
+
+
+def test_only_host_spans_reach_the_profiler(tmp_path, voters, monkeypatch):
+    """Under a CPU torch.profiler: ranges named stream.arrays and
+    stream.files, and none named prove_batch or step.*, whose bodies
+    hold the card's work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prover = _step_stand_ins(monkeypatch)["eager"]
+    s = ProofStream(prover, tmp_path / "proofs", batch_size=8,
+                    metrics=Metrics(io.StringIO()))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert s.run(voters[:10]) == 10
+    names = [e.name for e in prof.events()]
+    assert names.count("stream.arrays") == names.count("stream.files") == 2
+    assert not {"prove_batch", *STEP_SPANS} & set(names)

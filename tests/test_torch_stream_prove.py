@@ -51,8 +51,17 @@ def test_real_stream_files_equal_host_prover(tmp_path):
                          metrics=Metrics(sink))
     assert stream.run(voters, seed=SEED) == 3 and stream.cursor == 3
     records = [json.loads(line) for line in sink.getvalue().splitlines()]
-    assert [r["items"] for r in records if r["kind"] == "throughput"] == \
-        [2, 1]
+    # a slice: one prove_batch record, and the stream's and the step's
+    # spans with its base and batch, the step's inside prove_batch
+    assert [(r["kind"], r.get("name", r.get("stage")), r["base"],
+             r["batch"]) for r in records] == [
+        (kind, name, base, size) for base, size in ((0, 2), (2, 1))
+        for kind, name in (("span", "stream.arrays"), ("span", "step.enqueue"),
+                           ("span", "step.wait"), ("span", "step.finalize"),
+                           ("stage", "prove_batch"), ("span", "stream.files"))]
+    stages = [r for r in records if r["kind"] == "stage"]
+    assert [r["parent"] for r in records if r.get("name", "").startswith(
+        "step.")] == [stages[0]["id"]] * 3 + [stages[1]["id"]] * 3
 
     arrs = tinputs.batch_to_arrays(voters, NL)
     plain = lm.from_mont(circuit.witness(

@@ -89,14 +89,18 @@ def test_metrics_jsonl():
     m = Metrics(sink=buf)
     with m.stage("witness", batch=4):
         pass
-    m.count("proofs", 4)
-    m.throughput("proofs", 8, 2.0)
     lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    assert len(lines) == 1
     assert lines[0]["kind"] == "stage" and lines[0]["stage"] == "witness"
     assert lines[0]["batch"] == 4
-    assert lines[1]["value"] == 4
-    assert lines[2]["per_second"] == 4.0
-    assert m.timers["witness"] >= 0 and m.counters["proofs"] == 4
+    assert set(lines[0]) == {"kind", "stage", "seconds", "batch", "id", "t0",
+                             "t1", "ts"}
+    assert lines[0]["t0"] <= lines[0]["t1"]
+    assert m.timers["witness"] >= 0
+    # the tracing nobody read is gone
+    for name in ("count", "counters", "throughput"):
+        assert not hasattr(m, name)
+    assert not hasattr(metrics, "device_timer")
 
 
 def test_metrics_stage_is_recorded_when_the_block_raises():
@@ -108,23 +112,108 @@ def test_metrics_stage_is_recorded_when_the_block_raises():
     assert json.loads(buf.getvalue())["stage"] == "prove_batch"
 
 
+def _records(buf):
+    return [json.loads(line) for line in buf.getvalue().splitlines()]
+
+
+def test_span_records_nest_and_carry_their_parents_labels():
+    buf = io.StringIO()
+    m = Metrics(sink=buf)
+    with metrics.recording(m):
+        with m.stage("prove_batch", base=32, batch=16):
+            with metrics.span("step.enqueue", part=1):
+                with metrics.span("inner"):
+                    pass
+            with metrics.span("step.wait"):
+                pass
+        with metrics.span("stream.files", base=32, batch=16):
+            pass
+    inner, enqueue, wait, stage, files = _records(buf)
+    assert [r["kind"] for r in (inner, enqueue, wait, files)] == ["span"] * 4
+    assert [r["name"] for r in (inner, enqueue, wait, files)] == \
+        ["inner", "step.enqueue", "step.wait", "stream.files"]
+    assert stage["kind"] == "stage" and stage["stage"] == "prove_batch"
+    assert enqueue["parent"] == wait["parent"] == stage["id"]
+    assert inner["parent"] == enqueue["id"] and files["parent"] is None
+    assert len({r["id"] for r in (inner, enqueue, wait, stage, files)}) == 5
+    for r in (inner, enqueue, wait, files):
+        assert (r["base"], r["batch"]) == (32, 16)
+        assert r["t0"] <= r["t1"]
+        assert set(r) >= {"kind", "name", "id", "parent", "t0", "t1"}
+    assert inner["part"] == 1 and "part" not in wait
+    assert stage["t0"] <= enqueue["t0"] <= enqueue["t1"] <= wait["t0"] <= \
+        wait["t1"] <= stage["t1"] <= files["t0"]
+    assert m.timers["step.enqueue"] == pytest.approx(
+        enqueue["t1"] - enqueue["t0"])
+    assert set(m.timers) == {"prove_batch", "step.enqueue", "inner",
+                             "step.wait", "stream.files"}
+
+
+def test_span_is_recorded_when_the_block_raises():
+    buf = io.StringIO()
+    m = Metrics(sink=buf)
+    with metrics.recording(m):
+        with pytest.raises(RuntimeError):
+            with metrics.span("stream.arrays", base=0, batch=2):
+                raise RuntimeError("boom")
+        with metrics.span("after"):          # the failed span is closed
+            pass
+    failed, after = _records(buf)
+    assert failed["name"] == "stream.arrays" and failed["base"] == 0
+    assert after["parent"] is None
+    assert m.timers["stream.arrays"] >= 0
+
+
+def test_spans_outside_a_recording_keep_only_process_totals(monkeypatch):
+    def no_record(self, record):
+        raise AssertionError(f"a record was written: {record}")
+
+    monkeypatch.setattr(Metrics, "_emit", no_record)
+    monkeypatch.setattr(metrics.PROCESS, "timers", {})
+    with metrics.span("ingest.read_zkey"):
+        pass
+    with metrics.span("ingest.read_zkey"):
+        pass
+    assert list(metrics.PROCESS.timers) == ["ingest.read_zkey"]
+    # a recording block's Metrics is active only inside it
+    m = Metrics(sink=io.StringIO(), writes=False)
+    with metrics.recording(m):
+        with metrics.span("stream.files"):
+            pass
+    assert list(m.timers) == ["stream.files"]
+    assert "stream.files" not in metrics.PROCESS.timers
+
+
+def test_no_profiler_range_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    m = Metrics(sink=io.StringIO())
+    with metrics.recording(m):
+        for name in sorted(metrics.PROFILED):
+            with metrics.span(name):
+                pass
+    assert set(m.timers) == metrics.PROFILED
+
+
 def test_force_and_device_timer_on_the_cpu():
-    metrics.force("cpu")                             # nothing to wait for
-    store = {}
-    for _ in range(2):
-        with metrics.device_timer(store, "step", "cpu"):
-            torch.ones(4).sum()
-    assert store["step"] > 0
+    """force on the CPU returns at once: nothing to wait for."""
+    metrics.force("cpu")
+    metrics.force(torch.device("cpu"))
+    x = torch.ones(4)
+    metrics.force(x.device)
+    assert x.sum().item() == 4
 
 
 def test_force_and_device_timer_default_to_the_card():
+    """force with no device means the card, and raises without one."""
     if torch.cuda.is_available():
         pytest.skip("a card is visible")
     with pytest.raises(RuntimeError):
         metrics.force()
     with pytest.raises(RuntimeError):
-        with metrics.device_timer({}, "step"):
-            pass
+        metrics.force("cuda")
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -5,6 +5,7 @@ tables and arrays, the same A/B-only quotient.  Exact comparisons
 throughout.  (The prover keyed from an ingested zkey proves in
 test_torch_zkey_prove.py.)"""
 import dataclasses
+import io
 import json
 import pathlib
 import random
@@ -206,6 +207,29 @@ def test_unadapted_ingest_is_wrong_ordering(keys, producer_bytes):
     assert pk_raw.a_g1 != keys[0].a_g1
     with pytest.raises(ValueError):
         zkey_compat.ingest_zkey(producer_bytes, ordering="circom-3")
+
+
+def test_ingest_spans_fill_the_process_totals(circuit, producer_bytes,
+                                              monkeypatch):
+    """ingest_zkey's parts, each a span: outside a recording they add to
+    PROCESS's totals (ingest.permute only under the census-circom
+    ordering); inside one they are records in order."""
+    from zkfranchise_tpu_torch.utils import metrics
+
+    monkeypatch.setattr(metrics.PROCESS, "timers", {})
+    zkey_compat.ingest_zkey(producer_bytes, ordering="native")
+    parts = ["ingest.read_zkey", "ingest.pk_from_zkey",
+             "ingest.arrays_from_zkey"]
+    assert list(metrics.PROCESS.timers) == parts
+    assert all(v > 0 for v in metrics.PROCESS.timers.values())
+    buf = io.StringIO()
+    with metrics.recording(metrics.Metrics(sink=buf)):
+        zkey_compat.ingest_zkey(producer_bytes, cs=circuit.cs,
+                                ordering="census-circom")
+    records = [json.loads(line) for line in buf.getvalue().splitlines()]
+    assert [r["name"] for r in records] == \
+        ["ingest.read_zkey", "ingest.permute", *parts[1:]]
+    assert list(metrics.PROCESS.timers) == parts
 
 
 def test_ab_only_quotient_matches_jax(circuit, ingested):

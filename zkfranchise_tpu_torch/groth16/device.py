@@ -37,7 +37,7 @@ from ..models.census import CensusCircuit
 from ..ops import ec_affine, ec_lm, ff, lm, msm_lm, ntt, sparse
 from ..ops.cuda import lm_kernels as K
 from ..ops.lm import FR
-from ..utils import devices
+from ..utils import devices, metrics
 from . import qap
 from .setup import ProvingKey
 from .verify import Proof
@@ -298,12 +298,18 @@ class DeviceProver:
     def prove_batch(self, inputs: dict, seed: int = 0):
         """Returns (proofs: list[Proof], public_signals: list[list[int]]).
         r and s come from numpy.random.default_rng(seed), as in the JAX
-        package, so one seed gives the same proofs."""
-        count = int(np.asarray(inputs["address"]).shape[-1])
-        r_arr, s_arr = (torch.as_tensor(x, device=self.device)
-                        for x in draw_rs(seed, count))
-        pa, pb, pc, publics = self.prove_arrays(inputs, r_arr, s_arr)
-        return self.finalize(pa, pb, pc, publics)
+        package, so one seed gives the same proofs.  Spans: step.enqueue
+        (r and s drawn, the step issued), step.wait (until the device has
+        finished it), step.finalize."""
+        with metrics.span("step.enqueue"):
+            count = int(np.asarray(inputs["address"]).shape[-1])
+            r_arr, s_arr = (torch.as_tensor(x, device=self.device)
+                            for x in draw_rs(seed, count))
+            planes = self.prove_arrays(inputs, r_arr, s_arr)
+        with metrics.span("step.wait"):
+            metrics.force(self.device)
+        with metrics.span("step.finalize"):
+            return self.finalize(*planes)
 
     def finalize(self, pa, pb, pc, publics):
         """pa/pc: (63, B); pb: (126, B) planes; publics (8, 21, B) plain
@@ -403,9 +409,16 @@ class FusedStep:
 
     def prove_batch(self, inputs: dict, seed: int = 0):
         """DeviceProver.prove_batch through the graph: the same r and s
-        from the same seed, so the same proofs."""
-        r_arr, s_arr = draw_rs(seed, self.batch)
-        return self.prover.finalize(*self(inputs, r_arr, s_arr))
+        from the same seed, so the same proofs, and the same spans
+        (step.enqueue: r and s drawn, the inputs checked and copied in,
+        the replay and the clones)."""
+        with metrics.span("step.enqueue"):
+            r_arr, s_arr = draw_rs(seed, self.batch)
+            planes = self(inputs, r_arr, s_arr)
+        with metrics.span("step.wait"):
+            metrics.force(self.prover.device)
+        with metrics.span("step.finalize"):
+            return self.prover.finalize(*planes)
 
     def node_counts(self) -> dict:
         """{node type: count} of the captured graph (graph_node_counts)."""

@@ -12,12 +12,11 @@ chooses no device of its own.
 from __future__ import annotations
 
 import json
-import time
 from pathlib import Path
 
 from . import inputs as inp
 from .groth16.device import DeviceProver
-from .utils.metrics import Metrics
+from .utils.metrics import Metrics, recording, span
 
 
 class ProofStream:
@@ -59,34 +58,37 @@ class ProofStream:
         process pays at most log2(batch_size) + 1 captures; a graph does
         not outlive its process.  Slice `base` is proven with seed + base,
         whatever the slicing, so a resumed run gives the proofs the
-        uninterrupted run would have given.  Returns the number of proofs
-        produced this call."""
-        start = self.cursor
-        produced = 0
-        base = start
-        n = len(voters)
-        while base < n:
-            size = self.batch_size
-            if n - base < size:                 # tail: pow2 ladder
-                size = _prev_pow2(n - base)
-            produced += self._prove_slice(voters, base, size, seed)
-            base += size
+        uninterrupted run would have given.  The call's spans (each
+        slice's stream.arrays, prove_batch, stream.files and the prover's
+        own) record into the stream's Metrics.  Returns the number of
+        proofs produced this call."""
+        with recording(self.metrics):
+            start = self.cursor
+            produced = 0
+            base = start
+            n = len(voters)
+            while base < n:
+                size = self.batch_size
+                if n - base < size:             # tail: pow2 ladder
+                    size = _prev_pow2(n - base)
+                produced += self._prove_slice(voters, base, size, seed)
+                base += size
         return produced
 
     def _prove_slice(self, voters, base, size, seed) -> int:
-        arrs = inp.batch_to_arrays(voters[base:base + size],
-                                   self.prover.circuit.n_levels)
-        t0 = time.perf_counter()
+        with span("stream.arrays", base=base, batch=size):
+            arrs = inp.batch_to_arrays(voters[base:base + size],
+                                       self.prover.circuit.n_levels)
         with self.metrics.stage("prove_batch", base=base, batch=size):
             proofs, pubs = self.prover.prove_batch(arrs, seed=seed + base)
-        self.metrics.throughput("proofs", size, time.perf_counter() - t0)
-        for i in range(size):
-            d = self.out_dir / f"proof_{base + i:08d}"
-            d.mkdir(exist_ok=True)
-            (d / "proof.json").write_text(json.dumps(proofs[i].to_dict()))
-            (d / "signals.json").write_text(
-                json.dumps([str(x) for x in pubs[i]]))
-        self._save_cursor(base + size)
+        with span("stream.files", base=base, batch=size):
+            for i in range(size):
+                d = self.out_dir / f"proof_{base + i:08d}"
+                d.mkdir(exist_ok=True)
+                (d / "proof.json").write_text(json.dumps(proofs[i].to_dict()))
+                (d / "signals.json").write_text(
+                    json.dumps([str(x) for x in pubs[i]]))
+            self._save_cursor(base + size)
         return size
 
 

@@ -1,10 +1,25 @@
-"""Structured metrics and tracing: per-stage timers with JSON-lines output
-(proofs/s, stage latencies) and an optional torch.profiler trace.  No
-secret (key, password, signature) is ever logged.
+"""Structured metrics and tracing: spans with JSON-lines output (slice
+latencies, proofs/s) and an optional torch.profiler trace.  No secret
+(key, password, signature) is ever logged.
+
+A span records into the active Metrics: inside a ``recording(m)`` block
+(ProofStream.run makes its own Metrics active) that is ``m``; anywhere
+else the process-wide ``PROCESS``, which keeps only its totals (``timers``,
+seconds by span name) and writes no record.  A span opened inside another
+names it as its parent and carries its labels, so the spans of one slice
+all carry the slice's ``base`` and ``batch``.
+
+Only the spans in PROFILED also open a ``torch.profiler.record_function``
+range, and only while a profiler is collecting: their bodies are host
+work alone.  A range around work on the card shows on the device's
+timeline as an annotation, which a trace's reader would take for device
+work.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import itertools
 import json
 import os
 import sys
@@ -12,15 +27,27 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.autograd.profiler as _profiler
 
 from . import devices
+
+# spans whose body does no work on the card (the stream's numpy and files,
+# the key's ingest on the host): the ones that open a profiler range
+PROFILED = frozenset({"stream.arrays", "stream.files", "ingest.read_zkey",
+                      "ingest.permute", "ingest.pk_from_zkey",
+                      "ingest.arrays_from_zkey"})
+
+_ids = itertools.count(1)
+# (id, labels) of the innermost open span, or None
+_open: contextvars.ContextVar = contextvars.ContextVar("metrics_open",
+                                                       default=None)
 
 
 @dataclass
 class Metrics:
     sink: object = None                       # file-like; default stderr
-    counters: dict = field(default_factory=dict)
     timers: dict = field(default_factory=dict)
+    writes: bool = True                       # False: totals only
 
     def _emit(self, record: dict) -> None:
         out = self.sink or sys.stderr
@@ -28,27 +55,66 @@ class Metrics:
         print(json.dumps(record), file=out, flush=True)
 
     @contextlib.contextmanager
-    def stage(self, name: str, **labels):
+    def _timed(self, kind: str, name: str, labels: dict):
+        """Times the block, adds its seconds to timers[name] and writes
+        its record, also when the block raises."""
+        parent = _open.get()
+        if parent is not None:
+            labels = {**parent[1], **labels}
+        sid = next(_ids)
+        token = _open.set((sid, labels))
+        ranged = None
+        if name in PROFILED and _profiler._is_profiler_enabled:
+            ranged = torch.profiler.record_function(name)
+            ranged.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            self.timers[name] = self.timers.get(name, 0.0) + dt
-            self._emit({"kind": "stage", "stage": name,
-                        "seconds": round(dt, 6), **labels})
+            t1 = time.perf_counter()
+            if ranged is not None:
+                ranged.__exit__(None, None, None)
+            _open.reset(token)
+            self.timers[name] = self.timers.get(name, 0.0) + t1 - t0
+            if self.writes and kind == "stage":
+                self._emit({"kind": "stage", "stage": name,
+                            "seconds": round(t1 - t0, 6), "id": sid,
+                            "t0": t0, "t1": t1, **labels})
+            elif self.writes:
+                self._emit({"kind": "span", "name": name, "id": sid,
+                            "parent": parent and parent[0], "t0": t0,
+                            "t1": t1, **labels})
 
-    def count(self, name: str, value: float = 1, **labels) -> None:
-        self.counters[name] = self.counters.get(name, 0) + value
-        self._emit({"kind": "counter", "name": name, "value": value,
-                    **labels})
+    def span(self, name: str, **labels):
+        """A span of this Metrics: {"kind": "span", "name", "id", "parent",
+        "t0", "t1", **labels}; t0 and t1 are perf_counter readings."""
+        return self._timed("span", name, labels)
 
-    def throughput(self, name: str, items: int, seconds: float,
-                   **labels) -> None:
-        self._emit({"kind": "throughput", "name": name, "items": items,
-                    "seconds": round(seconds, 6),
-                    "per_second": round(items / seconds, 3) if seconds else 0,
-                    **labels})
+    def stage(self, name: str, **labels):
+        """A span written as a stage record: {"kind": "stage", "stage",
+        "seconds", "id", "t0", "t1", **labels}.  The stream's prove_batch
+        is the only one."""
+        return self._timed("stage", name, labels)
+
+
+PROCESS = Metrics(writes=False)
+_active: contextvars.ContextVar = contextvars.ContextVar("metrics_active",
+                                                         default=PROCESS)
+
+
+@contextlib.contextmanager
+def recording(m: Metrics):
+    """Makes `m` the active Metrics inside the block."""
+    token = _active.set(m)
+    try:
+        yield
+    finally:
+        _active.reset(token)
+
+
+def span(name: str, **labels):
+    """A span of the active Metrics (see the module's docstring)."""
+    return _active.get().span(name, **labels)
 
 
 @contextlib.contextmanager
@@ -79,17 +145,3 @@ def force(device=None) -> None:
     dev = devices.resolve(device)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-@contextlib.contextmanager
-def device_timer(store: dict, name: str, device=None):
-    """Times a block of device work honestly: the exit waits for the
-    device (see force()) before reading the clock, and adds the seconds to
-    store[name]."""
-    dev = devices.resolve(device)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        force(dev)
-        store[name] = store.get(name, 0.0) + time.perf_counter() - t0

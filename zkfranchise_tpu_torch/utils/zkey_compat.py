@@ -48,7 +48,7 @@ import numpy as np
 from ..groth16.setup import ProvingKey
 from ..groth16.verify import VerifyingKey
 from ..ops import ff, lm
-from . import serialize
+from . import metrics, serialize
 
 P = ff.P_FR
 
@@ -211,12 +211,23 @@ def zkey_from_pk(cs, pk: ProvingKey, vk: VerifyingKey) \
 def ingest_zkey(data: bytes, cs=None, ordering: str = "native") \
         -> tuple[ProvingKey, VerifyingKey, dict]:
     """Parse zkey bytes and return (pk, vk, arrays) ready for
-    DeviceProver.  ordering: "native" | "census-circom" (requires cs)."""
-    z = serialize.read_zkey(data)
+    DeviceProver.  ordering: "native" | "census-circom" (requires cs).
+    Spans: ingest.read_zkey, ingest.permute (census-circom only),
+    ingest.pk_from_zkey, ingest.arrays_from_zkey (with the parsed key's
+    release)."""
+    if ordering not in ("native", "census-circom"):
+        raise ValueError(f"unknown ordering {ordering!r}")
+    with metrics.span("ingest.read_zkey"):
+        z = serialize.read_zkey(data)
     if ordering == "census-circom":
         assert cs is not None, "census-circom ordering needs the circuit"
-        z = permute_zkey(z, census_circom_perm(cs))
-    elif ordering != "native":
-        raise ValueError(f"unknown ordering {ordering!r}")
-    pk, vk = pk_from_zkey(z)
-    return pk, vk, arrays_from_zkey(z)
+        with metrics.span("ingest.permute"):
+            z = permute_zkey(z, census_circom_perm(cs))
+    with metrics.span("ingest.pk_from_zkey"):
+        pk, vk = pk_from_zkey(z)
+    with metrics.span("ingest.arrays_from_zkey"):
+        arrays = arrays_from_zkey(z)
+        # freed after its last use, inside the span: the parsed key's
+        # release (its coefficient tuples) is a share of the ingest
+        del z
+    return pk, vk, arrays
