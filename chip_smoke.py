@@ -206,6 +206,10 @@ KERNELS = {
                    "main_path", ["scalar_mul/g1", "scalar_mul/g2"]),
     "poseidon": (_CSRC + "lm_poseidon.cu", _PALLAS + ":217", "main_path",
                  ["poseidon/t3", "poseidon/t4", "poseidon/t5"]),
+    # the witness's SMT chains: the levels at or below each lane's leaf
+    # from a table, the levels above it hashed in one launch
+    "smt": (_CSRC + "lm_poseidon.cu", "zkfranchise_tpu/models/census.py:300",
+            "main_path", ["smt/fill", "smt/levels"]),
     "mm2d": (_CSRC + "lm_layout.cu", _EXPT + ".py:56", "layout_tools",
              ["mm2d"]),
     "mm3d": (_CSRC + "lm_layout.cu", _EXPT + ".py:83", "layout_tools",
@@ -222,7 +226,7 @@ PATH_KERNELS = {
     "main_path": ["mont_mul", "ntt_level", "padd/g1", "padd/g2",
                   "fold_padd/g1",
                   "fold_padd/g2", "fold_padd_aa/g1", "fold_padd_aa/g2",
-                  "poseidon/t3", "poseidon/t4", "poseidon/t5",
+                  "poseidon/t4", "poseidon/t5", "smt/fill", "smt/levels",
                   "scalar_mul/g1"],
     "affine_tree": ["fold_mul", "batch_inv/top", "batch_inv/down",
                     "mont_mul"],
@@ -609,6 +613,7 @@ def phase_kernels(np, torch, K, dev) -> dict:
     del a, b
     _ladders(np, torch, K, dev, rng, check, results, table)
     _poseidon(np, torch, K, dev, rng, check, results, table)
+    _smt_chain(np, torch, K, dev, rng, check, results, table)
     torch.cuda.empty_cache()
     _layout_kernels(np, torch, K, dev, rng, check, results, table)
     emit({"phase": "kernels", "kernels": results,
@@ -856,6 +861,64 @@ def _poseidon(np, torch, K, dev, rng, check, results, table) -> None:
             results[name].update(yard)
             table[key].update(yard)
             del x, a
+
+
+SMT_LANES = 16                          # the deployment's batch
+
+
+def _smt_chain(np, torch, K, dev, rng, check, results, table) -> None:
+    """The witness's SMT chains at nlevels=160 (L = 161) for both trees of
+    16 voters: smt_walk (the head rows, smt_fill, smt_levels) against the
+    plain per-level loop on the same card (smt_chain_ref: a permutation
+    launch and three products a level), with the lanes' deepest leaf at
+    14 (the table's row; depths 0 .. 14) and at 161 (every lane: no level
+    from the table).  The yardstick is the critical path: a mont_chain of
+    as many dependent products (d_max levels of 65 rounds of 3 + 3, and
+    the level's m_sw and m2) at the same 32 lanes."""
+    from zkfranchise_tpu_torch.ops import lm
+    from zkfranchise_tpu_torch.ops.poseidon_constants import N_ROUNDS_F, \
+        N_ROUNDS_P
+    from zkfranchise_tpu_torch.tools import MAD_MONT, device_reading, \
+        mont_chain_work, smt_inputs
+
+    L, T, n = 161, SMT_LANES, 2
+    rounds = N_ROUNDS_F + N_ROUNDS_P[1]
+    per_level = 3 * (N_ROUNDS_F * 3 + N_ROUNDS_P[1]) + 9 * rounds + 2
+    for d_max, key in ((14, "smt"), (L, "smt/d161")):
+        depths = np.full(n * T, L) if d_max == L else \
+            rng.integers(0, d_max + 1, n * T)
+        depths[0] = d_max
+        args = smt_inputs(L, T, depths.tolist(), int(rng.integers(1 << 30)),
+                          dev)
+        root, _, hashed = K.smt_walk(*args)
+        want_root, _, _ = K.smt_chain_ref(*args)
+        if not torch.equal(root, want_root) or \
+                hashed.tolist() != depths.tolist():
+            raise AssertionError(f"smt d_max {d_max}: roots or counts "
+                                 f"differ from the plain loop's")
+        name = f"smt/161x21x{n}x{T}/dmax{d_max}"
+        rows = K.smt_block_rows(L)
+        hashed_levels = int(depths.sum())
+        check(name, lambda: K.smt_walk(*args)[1],
+              lambda: K.smt_chain_ref(*args)[1],
+              4 * (21 * (n * rows * T + 2 * L * n * T) + L * T),
+              MAD_MONT * per_level * hashed_levels, key, plain_runs=1)
+        depth = d_max * (rounds * 6 + 2)
+        a = torch.as_tensor(_random_limbs(np, rng, (21, n * T)), device=dev)
+        chain = device_reading(
+            f"mont_chain/fr/21x{n * T}x{depth} (the chain's critical path)",
+            lambda: K.mont_chain(a, a, depth, lm.FR),
+            *mont_chain_work(n * T, depth))
+        yard = {"d_max": d_max, "hashed_levels": hashed_levels,
+                "levels": n * L * T, "chain_products": depth,
+                "critical_path_ms": chain["device_ms"],
+                "critical_path_invalid": chain["invalid"],
+                "vs_critical_path": _ratio(results[name]["device_ms"],
+                                           chain["device_ms"])}
+        results[name].update(yard)
+        table[key].update(yard)
+        del args, a
+    torch.cuda.empty_cache()
 
 
 def _layout_kernels(np, torch, K, dev, rng, check, results, table) -> None:
@@ -1166,7 +1229,7 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple, tuple]:
     t0 = time.perf_counter()
     planes = prover.prove_arrays(arrs, r, s, stage_seconds=stages)
     t1 = time.perf_counter()
-    proofs2, pubs2 = prover.finalize(*planes)
+    proofs2, pubs2 = prover.finalize(*planes[:4])
     stages["finalize"] = time.perf_counter() - t1
     total = time.perf_counter() - t0
     emit({"phase": "timed_prove", "nvidia_smi": smi_line(),

@@ -422,6 +422,104 @@ def test_poseidon(dev, t, T):
     assert torch.equal(got, K.permutation_ref(state, t))
 
 
+# ---------------------------------------------------------------------------
+# the witness's SMT chains: smt_walk's two launches (smt_fill, smt_levels)
+# ---------------------------------------------------------------------------
+
+def _smt_case(L, T, every_l, seed, device):
+    """(depths, smt_chain's inputs) for two trees of T voters at L levels:
+    every lane at d = L, or mixed depths with d = 0, 1, L // 2, L - 1 and L
+    among the first lanes."""
+    from zkfranchise_tpu_torch.tools import smt_inputs
+
+    rng = np.random.default_rng(seed)
+    depths = [L] * (2 * T) if every_l else \
+        ([0, 1, L // 2, L - 1, L] +
+         [int(d) for d in rng.integers(0, L + 1, 2 * T)])[:2 * T]
+    return depths, smt_inputs(L, T, depths, seed, device)
+
+
+@pytest.mark.parametrize("L,T,every_l", [(5, 1, False), (17, 16, False),
+                                         (17, 17, False), (17, 33, False),
+                                         (17, 16, True), (161, 16, False),
+                                         (161, 16, True)])
+def test_smt_chain_equals_the_per_level_loop(dev, L, T, every_l):
+    """Roots and blocks limb for limb against the plain loop on the card
+    (today's launches: a permutation and three products a level) and the
+    walk's plain versions on the CPU; two launches; counts = depths."""
+    depths, args = _smt_case(L, T, every_l, 10 * L + T, dev)
+    K.smt_zero_table(args[0].device)            # the device's, made once
+    K.reset_launches()
+    root, blocks, hashed = K.smt_chain(*args)
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == \
+        {"smt/fill": 1, "smt/levels": 1}
+    assert hashed.tolist() == depths
+    want_root, want_blocks, _ = K.smt_chain_ref(*args)
+    assert torch.equal(root, want_root) and torch.equal(blocks, want_blocks)
+    if L < 161:
+        cpu_root, cpu_blocks, _ = K.smt_walk(*(a.cpu() for a in args))
+        assert torch.equal(root.cpu(), cpu_root)
+        assert torch.equal(blocks.cpu(), cpu_blocks)
+
+
+@pytest.mark.parametrize("L,T", [(17, 17), (161, 16)])
+def test_smt_fill_and_levels_equal_their_plain_versions(dev, L, T):
+    """Each launch from the same block against its plain version."""
+    depths, (bits, sib_plain, sib_mont, leaf, _) = _smt_case(
+        L, T, False, L + T, dev)
+    d = K.smt_depth(sib_plain)
+    assert d.tolist() == depths
+    block = torch.randint(0, 1 << 13, (2, K.smt_block_rows(L), 21, T),
+                          dtype=torch.int32, device=dev)
+    mine, want = block.clone(), block.clone()
+    K.smt_fill(mine, bits, d, L)
+    K.smt_fill_ref(want, bits, d, L)
+    assert torch.equal(mine, want)
+    got = K.smt_levels(mine, bits, sib_mont, leaf, d)
+    ref = K.smt_levels_ref(want, bits, sib_mont, leaf, d)
+    assert torch.equal(mine, want)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+def test_smt_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    _, (bits, sib_plain, sib_mont, leaf, leaf_tr) = _smt_case(
+        5, 2, False, 1, dev)
+    with pytest.raises(ValueError):
+        K.smt_chain(bits, sib_plain, sib_mont, leaf[:, :3], leaf_tr)
+    with pytest.raises(ValueError):
+        K.smt_chain(bits[:3], sib_plain, sib_mont, leaf, leaf_tr)
+    block = torch.zeros((2, K.smt_block_rows(5) - 1, 21, 2),
+                        dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        K.smt_fill(block, bits, K.smt_depth(sib_plain), 5)
+
+
+def test_witness_at_nl160_equals_the_per_level_loop(dev, monkeypatch):
+    """The whole witness at nlevels=160, 16 voters: through the two
+    launches and through the plain loop on the card, equal limb for
+    limb; the counts are the trees' depths."""
+    from zkfranchise_tpu_torch import inputs as tinputs
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+
+    circuit = CensusCircuit(160)
+    arrs = tinputs.batch_to_arrays(
+        tinputs.mock_batch(160, 16, seed=7, device=dev), 160)
+    inputs = {k: torch.as_tensor(v, device=dev) for k, v in arrs.items()}
+    K.smt_zero_table(inputs["address"].device)  # the device's, made once
+    K.reset_launches()
+    w, hashed = circuit.witness_counted(inputs)
+    assert K.LAUNCHES["poseidon/t3"] == 0
+    assert (K.LAUNCHES["smt/fill"], K.LAUNCHES["smt/levels"]) == (1, 1)
+    assert K.LAUNCHES["poseidon/t4"] == 2                 # SIK, both leaves
+    depth = K.smt_depth(torch.cat([inputs["sikSiblings"],
+                                   inputs["censusSiblings"]], -1))
+    assert hashed.tolist() == depth.tolist()
+    monkeypatch.setattr(K, "smt_chain", K.smt_chain_ref)
+    want, want_hashed = circuit.witness_counted(inputs)
+    assert torch.equal(w, want)
+    assert want_hashed.tolist() == [161] * 32
+
+
 @pytest.mark.parametrize("kind", ["g1", "g2"])
 def test_fold_affine_on_card_equals_cpu(dev, kind):
     rng = np.random.default_rng(7)
@@ -610,7 +708,7 @@ def test_fused_step_replay_equals_prove_arrays(fused_steps, B):
         got = step(arrs, r, s)
         want = prover.prove_arrays(arrs, r, s)
         assert [tuple(g.shape) for g in got] == [(63, B), (126, B), (63, B),
-                                                 (8, 21, B)]
+                                                 (8, 21, B), (2 * B,)]
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 

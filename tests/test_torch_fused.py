@@ -63,8 +63,8 @@ def fused(prover, arrs):
 def test_fused_step_proof_byte_identical_to_host_prover(prover, arrs, fused):
     planes, _ = fused
     assert [tuple(p.shape) for p in planes] == [(63, 1), (126, 1), (63, 1),
-                                                (8, 21, 1)]
-    proofs, pubs = prover.finalize(*planes)
+                                                (8, 21, 1), (2,)]
+    proofs, pubs = prover.finalize(*planes[:4])
     rng = np.random.default_rng(11)
     r = int.from_bytes(rng.bytes(31), "big") % lm.FR.p
     s = int.from_bytes(rng.bytes(31), "big") % lm.FR.p

@@ -187,7 +187,11 @@ def _step_stand_ins(monkeypatch):
     stub = _StubProver()
 
     def planes(inputs, r, s):
-        return (inputs["address"], r, s, inputs["address"])
+        # the step's outputs: four planes, then the SMT levels each lane
+        # of the two trees hashed (here one level a lane)
+        lanes = 2 * inputs["address"].shape[-1]
+        return (inputs["address"], r, s, inputs["address"],
+                torch.ones(lanes, dtype=torch.int32))
 
     def finalize(pa, pb, pc, publics):
         return stub.prove_batch({"address": pa}, seed=int(pb[0, 0]))
@@ -238,6 +242,9 @@ def test_stream_spans_of_each_slice(tmp_path, voters, monkeypatch, path):
             assert (r["base"], r["batch"]) == (base, batch)
         for r in (enqueue, wait, finalize):
             assert r["parent"] == stage["id"]
+        assert (finalize["smt_hashed"], finalize["smt_levels"]) == \
+            (2 * batch, 2 * 17 * batch)
+        assert "smt_hashed" not in enqueue and "smt_hashed" not in stage
         assert arrays["parent"] is None and files["parent"] is None
         assert arrays["t1"] <= stage["t0"] <= enqueue["t0"] and \
             finalize["t1"] <= stage["t1"] <= files["t0"]

@@ -50,9 +50,18 @@ P = ff.P_FR
 # ---------------------------------------------------------------------------
 
 def witness_stage(circuit: CensusCircuit, inputs: dict):
-    """-> (w Montgomery (num_vars, 21, B), w plain canonical)."""
-    w = circuit.witness(inputs)
-    return w, lm.from_mont(w, FR)
+    """-> (w Montgomery (num_vars, 21, B), w plain canonical, the SMT
+    levels each lane of the two trees hashed (2 B,))."""
+    w, hashed = circuit.witness_counted(inputs)
+    return w, lm.from_mont(w, FR), hashed
+
+
+def smt_counts(hashed: torch.Tensor, n_levels: int) -> dict:
+    """The step's record of the witness's SMT chains: the levels hashed
+    over every lane of both trees (one read-back of 2 B integers) and the
+    levels there are (2 (n_levels + 1) B)."""
+    return {"smt_hashed": sum(hashed.tolist()),
+            "smt_levels": hashed.numel() * (n_levels + 1)}
 
 
 def quotient_stage(arrays: dict, n: int, w: torch.Tensor) -> torch.Tensor:
@@ -242,14 +251,16 @@ class DeviceProver:
         canonical, all already on the prover's device.  No host copy, no
         synchronisation and no value read back, so it can be captured as
         one CUDA graph (FusedStep).  Returns (pi_a (63, B), pi_b (126, B),
-        pi_c (63, B), publics (npub, 21, B))."""
+        pi_c (63, B), publics (npub, 21, B), the SMT levels each lane of
+        the two trees hashed (2 B,))."""
         return self._step(inputs, r_plain, s_plain, _no_mark)
 
     def prove_arrays(self, inputs: dict, r_plain: torch.Tensor,
                      s_plain: torch.Tensor,
                      stage_seconds: dict | None = None):
         """Batched prove; r/s: (21, B) plain canonical.  Returns limb-major
-        planes (pi_a (63, B), pi_b (126, B), pi_c (63, B), publics).
+        planes (pi_a (63, B), pi_b (126, B), pi_c (63, B), publics) and
+        the SMT levels hashed, as fused_step.
         Inputs may lie anywhere (numpy arrays or tensors): they are copied
         to the prover's device first; then the body of fused_step runs.
 
@@ -263,7 +274,7 @@ class DeviceProver:
     def _step(self, inputs: dict, r_plain, s_plain, mark):
         """The body of fused_step and prove_arrays; mark(stage) is called
         after each stage."""
-        w, w_plain = witness_stage(self.circuit, inputs)
+        w, w_plain, hashed = witness_stage(self.circuit, inputs)
         mark("witness")
         q_plain = quotient_stage(self._arrays_dev, self.pk_meta[2], w)
         mark("quotient")
@@ -287,7 +298,7 @@ class DeviceProver:
         mark("assemble")
         # a copy, not a view: a view would keep the whole witness plane
         # alive (a captured step's outputs stay allocated in its pool)
-        return pi_a, pi_b, pi_c, w_plain[1:1 + npub].clone()
+        return pi_a, pi_b, pi_c, w_plain[1:1 + npub].clone(), hashed
 
     def capture(self, batch: int, probe=None) -> "FusedStep":
         """fused_step captured as one CUDA graph at this batch size (see
@@ -300,15 +311,16 @@ class DeviceProver:
         r and s come from numpy.random.default_rng(seed), as in the JAX
         package, so one seed gives the same proofs.  Spans: step.enqueue
         (r and s drawn, the step issued), step.wait (until the device has
-        finished it), step.finalize."""
+        finished it), step.finalize (its record carries smt_counts)."""
         with metrics.span("step.enqueue"):
             count = int(np.asarray(inputs["address"]).shape[-1])
             r_arr, s_arr = (torch.as_tensor(x, device=self.device)
                             for x in draw_rs(seed, count))
-            planes = self.prove_arrays(inputs, r_arr, s_arr)
+            *planes, hashed = self.prove_arrays(inputs, r_arr, s_arr)
         with metrics.span("step.wait"):
             metrics.force(self.device)
         with metrics.span("step.finalize"):
+            metrics.note(**smt_counts(hashed, self.circuit.n_levels))
             return self.finalize(*planes)
 
     def finalize(self, pa, pb, pc, publics):
@@ -398,7 +410,8 @@ class FusedStep:
         probe("instantiate")
 
     def __call__(self, inputs: dict, r_plain, s_plain):
-        """-> clones of (pi_a, pi_b, pi_c, publics) for these inputs."""
+        """-> clones of (pi_a, pi_b, pi_c, publics, hashed) for these
+        inputs."""
         check_step_inputs(self.spec, inputs, r_plain, s_plain)
         for key, buf in self.inputs.items():
             buf.copy_(_tensor(inputs[key]))
@@ -414,10 +427,12 @@ class FusedStep:
         the replay and the clones)."""
         with metrics.span("step.enqueue"):
             r_arr, s_arr = draw_rs(seed, self.batch)
-            planes = self(inputs, r_arr, s_arr)
+            *planes, hashed = self(inputs, r_arr, s_arr)
         with metrics.span("step.wait"):
             metrics.force(self.prover.device)
         with metrics.span("step.finalize"):
+            metrics.note(**smt_counts(hashed,
+                                      self.prover.circuit.n_levels))
             return self.prover.finalize(*planes)
 
     def node_counts(self) -> dict:

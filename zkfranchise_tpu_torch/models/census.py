@@ -223,13 +223,6 @@ def build_census_cs(n_levels: int) -> r1cs.ConstraintSystem:
 # A field element is (21, T); signal blocks stack elements on the LEADING
 # axis, matching the witness layout (num_vars, 21, T).
 
-def _bits_to_mont(bits: torch.Tensor) -> torch.Tensor:
-    """(n, ..., T) 0/1 -> (n, ..., 21, T) Montgomery field elements."""
-    one = lm.const(FR.one_mont, bits.device)          # (21, 1)
-    zero = torch.zeros((), dtype=lm.DTYPE, device=bits.device)
-    return torch.where((bits == 1)[..., None, :], one, zero)
-
-
 def eval_poseidon_trace(inputs_mont: torch.Tensor):
     """Poseidon with sbox-intermediate capture.
     inputs_mont: (k, 21, T) -> (out (21, T), trace (n_sbox*3, 21, T));
@@ -243,7 +236,7 @@ def eval_leq_const_trace(bits: torch.Tensor, c_val: int,
     """(n, T) 0/1 bits -> (n_ones, 21, T) eq-chain signals in MSB->LSB
     order over positions where c_val has a 1-bit."""
     sel = bits[lm.const(_ones_pos(c_val, n), bits.device)]
-    return _bits_to_mont(torch.cumprod(sel, 0, dtype=lm.DTYPE))
+    return lm.bits_to_mont(torch.cumprod(sel, 0, dtype=lm.DTYPE))
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,47 +248,22 @@ def _ones_pos(c_val: int, n: int) -> np.ndarray:
                       dtype=np.int64)
 
 
-def eval_smt_trace(key_bits: torch.Tensor, key_mont: torch.Tensor,
-                   value_mont: torch.Tensor, siblings_plain: torch.Tensor,
-                   siblings_mont: torch.Tensor):
-    """Witness block for build_smt_inclusion.
-    key_bits: (>=L, T) 0/1; key/value mont (21, T);
-    siblings (L, 21, T).  Returns (root (21, T), block (block_len, 21, T))."""
-    L = siblings_plain.shape[0]
-    T = key_mont.shape[-1]
-    dev = key_mont.device
-    one = lm.const(FR.one_mont, dev).expand(N_LIMBS, T)
-
-    nz = (siblings_plain != 0).any(dim=-2)                  # (L, T)
-    # depth d = last nonzero index + 1  (0 if none)
-    idx = torch.arange(1, L + 1, dtype=lm.DTYPE, device=dev)[:, None]
-    d = torch.where(nz, idx, torch.zeros_like(idx)).max(dim=0).values
-    lev = (torch.arange(L + 1, dtype=lm.DTYPE, device=dev)[:, None]
-           == d[None, :]).to(lm.DTYPE)                      # (L+1, T)
-    after = torch.cumsum(lev[:L], 0, dtype=lm.DTYPE)        # (L, T) 0/1
-    lev_mont = _bits_to_mont(lev)
-    after_mont = _bits_to_mont(after)
-    bit_mont = _bits_to_mont(key_bits[:L])
-
-    leaf, leaf_tr = eval_poseidon_trace(
-        torch.stack([key_mont, value_mont, one], 0))
-    c_top = lm.mont_mul(lev_mont[L], leaf, FR)
-
-    # levels i = L-1 .. 0; c_next stays weak-normalized (value < 2p)
-    c_next = c_top
-    blocks = []
-    for i in range(L - 1, -1, -1):
-        s_m = siblings_mont[i]
-        m_sw = lm.mont_mul(bit_mont[i], lm.sub_n(s_m, c_next, FR), FR)
-        left = lm.weak_norm(c_next + m_sw)
-        right = lm.sub_n(s_m + c_next, left, FR)
-        h, h_tr = eval_poseidon_trace(torch.stack([left, right], 0))
-        m1 = lm.mont_mul(lev_mont[i], leaf, FR)
-        m2 = lm.mont_mul(lm.sub_n(one, after_mont[i], FR), h, FR)
-        c_next = lm.weak_norm(m1 + m2)
-        blocks += [m_sw[None], h_tr, m1[None], m2[None]]
-    full = torch.cat([lev_mont, leaf_tr, c_top[None], *blocks], 0)
-    return c_next, full
+def eval_smt_trees(key_bits: torch.Tensor, key_mont: torch.Tensor,
+                   values_mont: list, siblings_plain: list,
+                   siblings_mont: list):
+    """Witness blocks for build_smt_inclusion of n trees over one key,
+    side by side on the lane axis (n T lanes): the n leaf hashes in one
+    Poseidon launch, then the chains (lm_kernels.smt_chain: on the card
+    only the levels above each lane's leaf are hashed).
+    key_bits: (>=L, T) 0/1; key and each value mont (21, T); each tree's
+    siblings (L, 21, T).  Returns (roots (21, n T), blocks (n * block_len,
+    21, T) in tree order, hashed levels (n T))."""
+    n, T = len(values_mont), key_mont.shape[-1]
+    one = lm.const(FR.one_mont, key_mont.device).expand(N_LIMBS, n * T)
+    leaf, leaf_tr = eval_poseidon_trace(torch.stack(
+        [key_mont.repeat(1, n), torch.cat(values_mont, -1), one], 0))
+    return K.smt_chain(key_bits, torch.cat(siblings_plain, -1),
+                       torch.cat(siblings_mont, -1), leaf, leaf_tr)
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +283,10 @@ class CensusCircuit:
         return self.n_levels + 1
 
     def witness(self, inputs: dict) -> torch.Tensor:
+        """Batched witness generation: witness_counted's witness."""
+        return self.witness_counted(inputs)[0]
+
+    def witness_counted(self, inputs: dict):
         """Batched witness generation.
 
         inputs: dict of plain-form limb-major int32 tensors (T voters on
@@ -323,7 +295,9 @@ class CensusCircuit:
           'sikRoot', 'censusRoot', 'address', 'password', 'signature',
           'voteWeight' (21, T), 'censusSiblings' (L, 21, T),
           'sikSiblings' (L, 21, T).
-        Returns the witness (num_vars, 21, T) in Montgomery form.
+        Returns the witness (num_vars, 21, T) in Montgomery form and the
+        SMT levels each lane of the two trees hashed (2 T,): the SIK
+        tree's lanes, then the census tree's.
         """
         m = lm.to_mont
         eid = m(inputs["electionId"])
@@ -363,11 +337,11 @@ class CensusCircuit:
         # the bit decomposition needs the EXACT [0, p) representative)
         e_const = lm.const(_E_CONST, dev)
         e_val = lm.canon(lm.sub_n(vw_plain + e_const, aw_plain, FR), FR)
-        parts.append(_bits_to_mont(lm.bits_from_plain(e_val, WEIGHT_BITS)))
+        parts.append(lm.bits_to_mont(lm.bits_from_plain(e_val, WEIGHT_BITS)))
 
         # 2. address bits + strict eq chain
         abits = lm.bits_from_plain(addr_plain, KEY_BITS)     # (254, T)
-        parts.append(_bits_to_mont(abits))
+        parts.append(lm.bits_to_mont(abits))
         parts.append(eval_leq_const_trace(abits, P - 1, KEY_BITS))
 
         # 3. SIK poseidon
@@ -375,15 +349,11 @@ class CensusCircuit:
             torch.stack([addr, pwd, sig], 0))
         parts.append(sik_tr)
 
-        # 4. SIK tree
-        _, sik_block = eval_smt_trace(abits, addr, sik_out,
-                                      sik_sib_plain, sik_sib)
-        parts.append(sik_block)
-
-        # 5. census tree
-        _, cens_block = eval_smt_trace(abits, addr, aw,
-                                       cens_sib_plain, cens_sib)
-        parts.append(cens_block)
+        # 4-5. the SIK tree's and the census tree's blocks, side by side
+        _, blocks, hashed = eval_smt_trees(
+            abits, addr, [sik_out, aw], [sik_sib_plain, cens_sib_plain],
+            [sik_sib, cens_sib])
+        parts.append(blocks)
 
         # 6. nullifier poseidon
         _, null_tr = eval_poseidon_trace(
@@ -392,7 +362,7 @@ class CensusCircuit:
 
         w = torch.cat(parts, 0)
         assert w.shape[0] == self.cs.num_vars, (w.shape, self.cs.num_vars)
-        return w
+        return w, hashed
 
     def public_signals(self, w: torch.Tensor) -> torch.Tensor:
         """(8, 21, T) plain form, reference signal order."""

@@ -1,12 +1,12 @@
 """CUDA kernels over the limb-major core: build, bind, launch, count.
 
-Eighteen kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
+Twenty kernels, written by hand for Hopper in ``csrc/lm_kernels.cu``
 (mont_mul, the cooperative adds, scalar_mul and the layout experiments'
 fold2d), ``csrc/lm_ntt.cu`` (one NTT butterfly level),
 ``csrc/lm_chains.cu`` (fold_mul at one and at several levels, inv,
 batch_inv's top and walk down, mont_chain), ``csrc/lm_poseidon.cu`` (the
-Poseidon permutation) and ``csrc/lm_layout.cu`` (the other four of the
-layout experiments):
+Poseidon permutation and the witness's SMT chains on it) and
+``csrc/lm_layout.cu`` (the other four of the layout experiments):
 
   ============  ============================================  =============
   wrapper       what it computes                              plain version
@@ -35,6 +35,10 @@ layout experiments):
                 5, one launch for every lane
   poseidon_     the same from the k = t - 1 inputs, with      poseidon_
     trace       the S-box trace the witness keeps               trace_ref
+  smt_fill      the witness's SMT levels at or below each     smt_fill_ref
+                lane's leaf, from a table, for n trees
+  smt_levels    the SMT levels above each lane's leaf: the    smt_levels_ref
+                chain of t = 3 permutations, for n trees
   mm2d          a * b^chain on a flat (21, T) lane axis,      mm2d_ref
                 `tile` lanes per block
   mm3d          a * b on (B, 21, T), (blk, tile) per block    mm3d_ref
@@ -100,7 +104,8 @@ LAUNCHES = {"mont_mul": 0, "ntt_level": 0, "padd/g1": 0, "padd/g2": 0, "fold_pad
             "mont_chain": 0, "scalar_mul/g1": 0,
             "scalar_mul/g2": 0, "mm2d": 0, "mm3d": 0, "fold2d/g1": 0,
             "fold2d/g2": 0, "add_one": 0, "fused_upsweep": 0,
-            "poseidon/t3": 0, "poseidon/t4": 0, "poseidon/t5": 0}
+            "poseidon/t3": 0, "poseidon/t4": 0, "poseidon/t5": 0,
+            "smt/fill": 0, "smt/levels": 0}
 # mont_mul launches by operand pattern and shape: "full*col/R8192/T128"
 # counts launches of an (8192, 21, 128) plane by a column per row
 # (mont_pattern names the patterns; R is the product of the leading dims)
@@ -218,6 +223,8 @@ def _libs() -> tuple:
     layout.zk_fused_upsweep.argtypes = [P, P, L, L, P]
     pos = ctypes.CDLL(str(paths["lm_poseidon"]))
     pos.zk_poseidon.argtypes = [I, P, P, P, P, P, P, I, L, I, I, P]
+    pos.zk_smt_fill.argtypes = [P, P, P, P, I, I, L, I, L, P]
+    pos.zk_smt_levels.argtypes = [P] * 11 + [I, I, L, I, L, P]
     nttl = ctypes.CDLL(str(paths["lm_ntt"]))
     nttl.zk_ntt_level.argtypes = [P, P, P, P, P, L, L, I, P]
     for fn in (lib.zk_mont_mul, nttl.zk_ntt_level, lib.zk_padd, lib.zk_fold_padd_levels,
@@ -227,7 +234,8 @@ def _libs() -> tuple:
                chains.zk_fold_mul_levels, chains.zk_batch_inv_down,
                chains.zk_batch_inv_top,
                lib.zk_fold2d, layout.zk_mm2d, layout.zk_mm3d,
-               layout.zk_add_one, layout.zk_fused_upsweep, pos.zk_poseidon):
+               layout.zk_add_one, layout.zk_fused_upsweep, pos.zk_poseidon,
+               pos.zk_smt_fill, pos.zk_smt_levels):
         fn.restype = ctypes.c_int
     return lib, chains, layout, pos, nttl
 
@@ -1197,6 +1205,278 @@ def poseidon_trace(inputs_mont: torch.Tensor):
     t = inputs_mont.shape[0] + 1
     out, trace = _poseidon(inputs_mont, t, True, False, True)
     return out[0], trace
+
+
+# ---------------------------------------------------------------------------
+# the witness's SMT chains (models/census.py eval_smt_trees)
+# ---------------------------------------------------------------------------
+# n trees over the same T voters side by side on one lane axis of n T
+# lanes: lane g is voter g mod T of tree g // T.  Inputs: the key's bits
+# (>= L, T) 0/1, shared by the trees; siblings plain and Montgomery (L, 21,
+# n T); the leaves' hashes (21, n T) and their traces (264, 21, n T).  Out:
+# the roots (21, n T), the trees' witness blocks of build_smt_inclusion in
+# tree order (n * smt_block_rows(L), 21, T), and each lane's count of the
+# levels it hashed (n T).  A lane's depth d is one past its last nonzero
+# sibling; at the levels i >= d its sibling and its incoming c are zero
+# forms, and the level's rows are a constant of (i == L - 1, key bit i)
+# (smt_zero_table).  smt_chain_ref hashes every level (today's witness on
+# the CPU); on the card smt_walk hashes only the levels i < d and copies
+# the rest: smt_fill and smt_levels, one launch each.
+
+
+def smt_level_rows() -> int:
+    """Rows of one level: m_sw, the t = 3 trace, m1, m2 (246)."""
+    return 3 + poseidon_trace_rows(3)
+
+
+def smt_head_rows(L: int) -> int:
+    """Rows of a block before its levels: lev, the leaf's trace, c_top."""
+    return L + 1 + poseidon_trace_rows(4) + 1
+
+
+def smt_block_rows(L: int) -> int:
+    return smt_head_rows(L) + L * smt_level_rows()
+
+
+def _trees(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(R, 21, n T) on the lane axis -> (n, R, 21, T), a view."""
+    R, limbs, nT = x.shape
+    return x.view(R, limbs, n, nT // n).permute(2, 0, 1, 3)
+
+
+def smt_depth(sib_plain: torch.Tensor) -> torch.Tensor:
+    """(L, 21, n T) plain siblings -> (n T,) int32: one past the last
+    nonzero sibling of each lane, 0 if none."""
+    L = sib_plain.shape[0]
+    nz = (sib_plain != 0).any(dim=-2)                        # (L, n T)
+    idx = torch.arange(1, L + 1, dtype=lm.DTYPE,
+                       device=sib_plain.device)[:, None]
+    return torch.where(nz, idx, torch.zeros_like(idx)).max(dim=0).values
+
+
+def _smt_level(c, s_m, bit_m, lev_m, after_m, leaf):
+    """One level of build_smt_inclusion: ([m_sw, h trace, m1, m2] rows,
+    the next c).  Every operand (21, lanes) but the trace (243, 21,
+    lanes); c weak-normalized."""
+    one = lm.const(lm.FR.one_mont, c.device)
+    m_sw = lm.mont_mul(bit_m, lm.sub_n(s_m, c, lm.FR), lm.FR)
+    left = lm.weak_norm(c + m_sw)
+    right = lm.sub_n(s_m + c, left, lm.FR)
+    h, h_tr = poseidon_trace(torch.stack([left, right], 0))
+    m1 = lm.mont_mul(lev_m, leaf, lm.FR)
+    m2 = lm.mont_mul(lm.sub_n(one, after_m, lm.FR), h, lm.FR)
+    return [m_sw[None], h_tr, m1[None], m2[None]], lm.weak_norm(m1 + m2)
+
+
+def smt_chain_ref(bits: torch.Tensor, sib_plain: torch.Tensor,
+                  sib_mont: torch.Tensor, leaf: torch.Tensor,
+                  leaf_tr: torch.Tensor):
+    """Plain version: every level of every lane hashed in turn, L - 1 down
+    to 0, as build_smt_inclusion allocates them.  -> (roots, blocks,
+    hashed: L for every lane)."""
+    L, _, nT = sib_mont.shape
+    T = bits.shape[-1]
+    n = nT // T
+    dev = leaf.device
+    d = smt_depth(sib_plain)
+    lev = (torch.arange(L + 1, dtype=lm.DTYPE, device=dev)[:, None]
+           == d[None, :]).to(lm.DTYPE)                        # (L+1, n T)
+    after = torch.cumsum(lev[:L], 0, dtype=lm.DTYPE)           # 1 at i >= d
+    lev_m, after_m = lm.bits_to_mont(lev), lm.bits_to_mont(after)
+    bit_m = lm.bits_to_mont(bits[:L].repeat(1, n))
+    c_top = lm.mont_mul(lev_m[L], leaf, lm.FR)
+    c, levels = c_top, []
+    for i in range(L - 1, -1, -1):
+        rows, c = _smt_level(c, sib_mont[i], bit_m[i], lev_m[i], after_m[i],
+                             leaf)
+        levels += rows
+    full = torch.cat([lev_m, leaf_tr, c_top[None], *levels], 0)
+    blocks = _trees(full, n).reshape(n * smt_block_rows(L), lm.N_LIMBS, T)
+    return c, blocks, torch.full((nT,), L, dtype=lm.DTYPE, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def smt_zero_table(dev: torch.device) -> torch.Tensor:
+    """(4, 246, 21) int32 on `dev`: the rows of a level at or below a
+    lane's leaf (i >= d), entry 2 * (i < L - 1) + key bit i, by the plain
+    level (on the card its launches).  Sibling, lev and m1 are zero there
+    and after is one; the c that comes in is c_top's zero at the top level
+    (i = L - 1) and below it what every such level hands on (m2, p in one
+    form, normalized), so four entries are all there are.  Made at a
+    device's first use (an eager step, before any capture) and held for
+    the life of the process, as the round constants are."""
+    zero = torch.zeros((lm.N_LIMBS, 1), dtype=lm.DTYPE, device=dev)
+    one = lm.bits_to_mont(torch.ones((1,), dtype=lm.DTYPE, device=dev))
+    entries, c_in, below = [], zero, None
+    for _ in ("top", "below"):
+        for bit in (zero, one):
+            rows, c_next = _smt_level(c_in, zero, bit, zero, one, zero)
+            entries.append(torch.cat(rows, 0)[..., 0])
+            if below is None:
+                below = c_next
+            elif not torch.equal(c_next, below):
+                raise RuntimeError("smt_zero_table: levels below a leaf hand "
+                                   "on more than one form of zero")
+        c_in = below
+    return torch.stack(entries).contiguous()
+
+
+def _smt_args(block: torch.Tensor, L: int, bits: torch.Tensor,
+              depth: torch.Tensor):
+    n, rows, limbs, T = block.shape
+    if rows != smt_block_rows(L) or limbs != lm.N_LIMBS or \
+            bits.dim() != 2 or bits.shape[0] < L or bits.shape[1] != T or \
+            depth.shape != (n * T,):
+        raise ValueError(f"smt: block {tuple(block.shape)}, bits "
+                         f"{tuple(bits.shape)}, depth {tuple(depth.shape)} "
+                         f"do not fit L = {L}")
+    return n, T
+
+
+def smt_fill_ref(block: torch.Tensor, bits: torch.Tensor,
+                 depth: torch.Tensor, L: int) -> None:
+    """Plain version of smt_fill: writes every level i >= d of every lane
+    of block (n, rows, 21, T) from smt_zero_table, in place."""
+    n, T = _smt_args(block, L, bits, depth)
+    lr, head = smt_level_rows(), smt_head_rows(L)
+    table = smt_zero_table(block.device)
+    d = depth.view(n, T)
+    for j in range(L):
+        i = L - 1 - j
+        entry = (0 if j == 0 else 2) + bits[i].long()         # (T,)
+        rows = table[entry].permute(1, 2, 0)                  # (lr, 21, T)
+        level = block[:, head + j * lr:head + (j + 1) * lr]
+        level.copy_(torch.where((i >= d)[:, None, None, :], rows, level))
+
+
+def smt_fill(block: torch.Tensor, bits: torch.Tensor, depth: torch.Tensor,
+             L: int) -> None:
+    """Every level at or below each lane's leaf from the table, in place:
+    on the card one launch over all of them."""
+    if not _on_card("smt", block, bits, depth):
+        return smt_fill_ref(block, bits, depth, L)
+    n, T = _smt_args(block, L, bits, depth)
+    if not (block.is_contiguous() and bits.is_contiguous()):
+        raise ValueError("smt_fill: block and bits must be contiguous")
+    table = smt_zero_table(block.device)
+    rc = _poseidon_lib().zk_smt_fill(
+        bits.data_ptr(), depth.data_ptr(), table.data_ptr(),
+        block.data_ptr(), _poseidon_rounds(3)[1], L, T, n, smt_head_rows(L),
+        _stream(block.device))
+    _check(rc, "smt_fill")
+    LAUNCHES["smt/fill"] += 1
+
+
+def smt_levels_ref(block: torch.Tensor, bits: torch.Tensor,
+                   sib: torch.Tensor, leaf: torch.Tensor,
+                   depth: torch.Tensor):
+    """Plain version of smt_levels: c_top, m1 of level d (leaf R) and the
+    levels i < d of every lane written into block (n, rows, 21, T), walking
+    i = max(d) - 1 .. 0 with each lane joining at d - 1.  -> (roots (21,
+    n T), hashed (n T): d)."""
+    L, _, nT = sib.shape
+    n, T = _smt_args(block, L, bits, depth)
+    lr, head = smt_level_rows(), smt_head_rows(L)
+    table = smt_zero_table(block.device)
+    one = lm.const(lm.FR.one_mont, block.device)
+    zero = torch.zeros_like(leaf)
+    d, bits_l = depth.long(), bits[:L].repeat(1, n)
+    leaf_r = lm.mont_mul(one, leaf, lm.FR)
+    block[:, head - 1] = _trees(torch.where(d == L, leaf_r, zero)[None],
+                                n)[:, 0]
+    # a lane's level d: m1 is leaf R, and c = leaf R + m2 (the table's)
+    at = d.clamp(max=L - 1)
+    entry = torch.where(at == L - 1, 0, 2) + \
+        bits_l.gather(0, at[None])[0].long()
+    c = torch.where(d == L, leaf_r,
+                    lm.weak_norm(leaf_r + table[entry, lr - 1].T))
+    for g in torch.nonzero(d < L)[:, 0].tolist():
+        block[g // T, head + (L - 1 - int(d[g])) * lr + lr - 2, :, g % T] = \
+            leaf_r[:, g]
+    for i in range(int(d.max()) - 1, -1, -1):
+        on = i < d
+        rows, c_next = _smt_level(c, sib[i], lm.bits_to_mont(bits_l[i]),
+                                  zero, zero, leaf)
+        level = block[:, head + (L - 1 - i) * lr:head + (L - i) * lr]
+        level.copy_(torch.where(on.view(n, 1, 1, T),
+                                _trees(torch.cat(rows, 0), n), level))
+        c = torch.where(on, c_next, c)
+    return c, depth.clone()
+
+
+def smt_levels(block: torch.Tensor, bits: torch.Tensor, sib: torch.Tensor,
+               leaf: torch.Tensor, depth: torch.Tensor):
+    """The levels above each lane's leaf, hashed in order, and c_top and m1
+    of level d, into block (n, rows, 21, T): on the card one launch, three
+    warps a block of 32 lanes.  -> (roots, hashed)."""
+    if not _on_card("smt", block, bits, sib, leaf, depth):
+        return smt_levels_ref(block, bits, sib, leaf, depth)
+    L, _, nT = sib.shape
+    n, T = _smt_args(block, L, bits, depth)
+    if leaf.shape != (lm.N_LIMBS, nT):
+        raise ValueError(f"smt_levels: leaf {tuple(leaf.shape)}, expected "
+                         f"(21, {nT})")
+    if not all(x.is_contiguous() for x in (block, bits, sib, leaf)):
+        raise ValueError("smt_levels: operands must be contiguous")
+    root = torch.empty_like(leaf)
+    hashed = torch.empty_like(depth)
+    table = smt_zero_table(block.device)
+    c_arr, m_arr = poseidon.tables(3, block.device)
+    rc = _poseidon_lib().zk_smt_levels(
+        bits.data_ptr(), sib.data_ptr(), leaf.data_ptr(), depth.data_ptr(),
+        table.data_ptr(), block.data_ptr(), root.data_ptr(),
+        hashed.data_ptr(), _field_consts("smt", lm.FR, block.device)
+        .data_ptr(), c_arr.data_ptr(), m_arr.data_ptr(),
+        _poseidon_rounds(3)[1], L, T, n, smt_head_rows(L),
+        _stream(block.device))
+    _check(rc, "smt_levels")
+    LAUNCHES["smt/levels"] += 1
+    return root, hashed
+
+
+def smt_walk(bits: torch.Tensor, sib_plain: torch.Tensor,
+             sib_mont: torch.Tensor, leaf: torch.Tensor,
+             leaf_tr: torch.Tensor):
+    """The chains as the card runs them: each lane's depth, the blocks'
+    lev rows and leaf traces, then smt_fill and smt_levels (their plain
+    versions on CPU tensors).  -> (roots, blocks, hashed: d)."""
+    L, _, nT = sib_mont.shape
+    T = bits.shape[-1]
+    n = nT // T
+    dev = leaf.device
+    d = smt_depth(sib_plain)
+    lev = lm.bits_to_mont((torch.arange(L + 1, dtype=lm.DTYPE,
+                                        device=dev)[:, None]
+                           == d[None, :]).to(lm.DTYPE))
+    block = torch.empty((n, smt_block_rows(L), lm.N_LIMBS, T),
+                        dtype=lm.DTYPE, device=dev)
+    head = smt_head_rows(L)
+    block[:, :L + 1] = _trees(lev, n)
+    block[:, L + 1:head - 1] = _trees(leaf_tr, n)
+    bits = bits.contiguous()
+    smt_fill(block, bits, d, L)
+    root, hashed = smt_levels(block, bits, sib_mont.contiguous(),
+                              leaf.contiguous(), d)
+    return root, block.view(n * smt_block_rows(L), lm.N_LIMBS, T), hashed
+
+
+def smt_chain(bits: torch.Tensor, sib_plain: torch.Tensor,
+              sib_mont: torch.Tensor, leaf: torch.Tensor,
+              leaf_tr: torch.Tensor):
+    """The witness's SMT blocks of n trees side by side (see the section's
+    head): the plain version on the CPU, smt_walk's two launches on the
+    card."""
+    if not _on_card("smt", bits, sib_plain, sib_mont, leaf, leaf_tr):
+        return smt_chain_ref(bits, sib_plain, sib_mont, leaf, leaf_tr)
+    L, limbs, nT = sib_mont.shape
+    T = bits.shape[-1]
+    if limbs != lm.N_LIMBS or nT % T or sib_plain.shape != sib_mont.shape \
+            or leaf.shape != (lm.N_LIMBS, nT) or \
+            leaf_tr.shape != (poseidon_trace_rows(4), lm.N_LIMBS, nT):
+        raise ValueError(f"smt_chain: siblings {tuple(sib_mont.shape)}, "
+                         f"bits {tuple(bits.shape)}, leaf "
+                         f"{tuple(leaf.shape)} do not fit")
+    return smt_walk(bits, sib_plain, sib_mont, leaf, leaf_tr)
 
 
 # ---------------------------------------------------------------------------

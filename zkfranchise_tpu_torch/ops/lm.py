@@ -385,6 +385,14 @@ def bits_from_plain(x: torch.Tensor, n: int) -> torch.Tensor:
     return ((limbs >> shift) & 1).movedim(-2, 0)
 
 
+def bits_to_mont(bits: torch.Tensor) -> torch.Tensor:
+    """(..., T) 0/1 -> (..., 21, T) Fr Montgomery field elements: one
+    (R mod p) or zero."""
+    one = const(FR.one_mont, bits.device)                 # (21, 1)
+    zero = torch.zeros((), dtype=DTYPE, device=bits.device)
+    return torch.where((bits == 1)[..., None, :], one, zero)
+
+
 def window_digits(x: torch.Tensor, wbits: int = 8,
                   nwin: int = 32) -> torch.Tensor:
     """x: (N, 21, T) plain exact canonical limbs -> (nwin, N, T) int32

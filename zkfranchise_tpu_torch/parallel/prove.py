@@ -239,7 +239,7 @@ class ShardedProver:
 
     def _step(self, inputs: dict, r_plain, s_plain, mark):
         npub = self.pk_meta[1]
-        w, w_plain = witness_stage(self.circuit, inputs)
+        w, w_plain, _ = witness_stage(self.circuit, inputs)
         mark("witness")
         q_plain = self._quotient(w)
         mark("quotient")

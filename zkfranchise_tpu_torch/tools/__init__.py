@@ -376,3 +376,37 @@ def host_tensors(record: list):
         for name, fn in originals.items():
             setattr(torch, name, fn)
         torch.Tensor.__setitem__ = setitem
+
+
+def smt_inputs(L: int, T: int, depths, seed: int, device="cpu"):
+    """Inputs of lm_kernels.smt_chain for len(depths) // T trees of T
+    voters at L levels, lane g of depth depths[g]: (bits (254, T),
+    siblings plain and Montgomery (L, 21, n T), leaves (21, n T), their
+    traces (264, 21, n T)).  Below a lane's last nonzero sibling (at d - 1)
+    a sibling is nonzero four times in five, so zero siblings under
+    nonzero ones come up too."""
+    import numpy as np
+
+    from ..ops import ff, lm
+    from ..ops.cuda import lm_kernels as K
+
+    rng = np.random.default_rng(seed)
+    nT = len(depths)
+
+    def elements(shape):
+        vals = [int.from_bytes(rng.bytes(32), "big") % ff.P_FR
+                for _ in range(int(np.prod(shape)))]
+        return lm.ints_to_lm(vals).T.reshape(*shape, lm.N_LIMBS)
+
+    sib = np.zeros((L, nT, lm.N_LIMBS), dtype=np.int32)
+    for g, d in enumerate(depths):
+        for i in range(d):
+            if i == d - 1 or rng.random() < 0.8:
+                sib[i, g] = elements((1,))[0]
+    sib_plain = torch.as_tensor(sib.transpose(0, 2, 1).copy(), device=device)
+    bits = torch.as_tensor(rng.integers(0, 2, (254, T)).astype(np.int32),
+                           device=device)
+    leaf_in = torch.as_tensor(elements((3, nT)).transpose(0, 2, 1).copy(),
+                              device=device)
+    leaf, leaf_tr = K.poseidon_trace(lm.to_mont(leaf_in))
+    return bits, sib_plain, lm.to_mont(sib_plain), leaf, leaf_tr

@@ -7,7 +7,9 @@ A span records into the active Metrics: inside a ``recording(m)`` block
 else the process-wide ``PROCESS``, which keeps only its totals (``timers``,
 seconds by span name) and writes no record.  A span opened inside another
 names it as its parent and carries its labels, so the spans of one slice
-all carry the slice's ``base`` and ``batch``.
+all carry the slice's ``base`` and ``batch``.  ``note`` adds values to the
+record of the innermost open span alone (the step's ``step.finalize``
+carries the witness's SMT counts so).
 
 Only the spans in PROFILED also open a ``torch.profiler.record_function``
 range, and only while a profiler is collecting: their bodies are host
@@ -38,7 +40,7 @@ PROFILED = frozenset({"stream.arrays", "stream.files", "ingest.read_zkey",
                       "ingest.arrays_from_zkey"})
 
 _ids = itertools.count(1)
-# (id, labels) of the innermost open span, or None
+# (id, labels, notes) of the innermost open span, or None
 _open: contextvars.ContextVar = contextvars.ContextVar("metrics_open",
                                                        default=None)
 
@@ -62,7 +64,8 @@ class Metrics:
         if parent is not None:
             labels = {**parent[1], **labels}
         sid = next(_ids)
-        token = _open.set((sid, labels))
+        notes: dict = {}
+        token = _open.set((sid, labels, notes))
         ranged = None
         if name in PROFILED and _profiler._is_profiler_enabled:
             ranged = torch.profiler.record_function(name)
@@ -79,11 +82,11 @@ class Metrics:
             if self.writes and kind == "stage":
                 self._emit({"kind": "stage", "stage": name,
                             "seconds": round(t1 - t0, 6), "id": sid,
-                            "t0": t0, "t1": t1, **labels})
+                            "t0": t0, "t1": t1, **labels, **notes})
             elif self.writes:
                 self._emit({"kind": "span", "name": name, "id": sid,
                             "parent": parent and parent[0], "t0": t0,
-                            "t1": t1, **labels})
+                            "t1": t1, **labels, **notes})
 
     def span(self, name: str, **labels):
         """A span of this Metrics: {"kind": "span", "name", "id", "parent",
@@ -115,6 +118,14 @@ def recording(m: Metrics):
 def span(name: str, **labels):
     """A span of the active Metrics (see the module's docstring)."""
     return _active.get().span(name, **labels)
+
+
+def note(**values) -> None:
+    """Adds values to the record of the innermost open span, written when
+    it closes (its children do not carry them); nothing outside a span."""
+    current = _open.get()
+    if current is not None:
+        current[2].update(values)
 
 
 @contextlib.contextmanager
