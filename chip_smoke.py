@@ -19,7 +19,8 @@ Builds the port's CUDA kernels from ``zkfranchise_tpu_torch/csrc`` and then:
      (128, 21, 16384) launch by launch and as a whole, and at every width
      2^0 .. 2^14 the affine tree calls it with, padd at the five
      plane shapes of
-     tools.padd_shapes, the folds at every width of the sum tree and at
+     tools.padd_shapes, the folds at every width of the sum tree (level
+     0 read through the sort's index, as the MSM launches it) and at
      every several-level launch of its plan, tools.fold_shapes, the
      Poseidon permutation at widths 3, 4, 5 with 128 and 4 lanes, the
      scalar_mul ladder with a scalar per lane and one for all), with
@@ -546,13 +547,18 @@ def phase_kernels(np, torch, K, dev) -> dict:
               lambda: K.fold_padd_ref(x, kind),
               4 * (rows * m + rows * m // 2) * B,
               add_mads("padd", kind) * B * m // 2, key("fold_padd"))
-        check(f"fold_padd_aa/{kind}/{B}x{arows}x{m}",
-              lambda: K.fold_padd_aa(a, kind),
-              lambda: K.fold_padd_aa_ref(a, kind),
-              4 * (arows * m + rows * m // 2) * B,
-              add_mads("padd_aa", kind) * B * m // 2,
+        # level 0 as the MSM launches it: a chunk's [P | -P] rows read
+        # through each lane's index (G1 at nlevels=160's chunk of 16,384)
+        ma = 16384 if kind == "g1" else m
+        tab, idx = fold_shapes.fold_at_inputs(kind, B, ma, rng, dev)
+        check(f"fold_padd_aa/{kind} table ({tab.shape[0]},{arows}) at "
+              f"({B},{ma})", lambda: K.fold_padd_aa(tab, kind, idx=idx),
+              lambda: K.fold_padd_aa_ref(
+                  tab[idx.long()].transpose(-1, -2), kind),
+              4 * (arows * ma + rows * ma // 2) * B,
+              add_mads("padd_aa", kind) * B * ma // 2,
               key("fold_padd_aa"))
-        del p, q, a, x
+        del p, q, a, x, tab, idx
         torch.cuda.empty_cache()
 
     # the folds at every width of the main path's sum tree, one level and
@@ -564,6 +570,8 @@ def phase_kernels(np, torch, K, dev) -> dict:
     fold_results = fold_shapes.run(dev, fold_shapes.SHAPES,
                                    fold_shapes.LEVELS, failed)
     fold_shapes.run(dev, edges, edge_levels, failed, timed=False)
+    fold_shapes.run_gathered(dev, fold_shapes.SMALL_GATHERED, failed,
+                             timed=False)
     if failed:
         raise AssertionError(f"folds differ from their plain versions: "
                              f"{failed}")
@@ -1877,20 +1885,31 @@ def _planned_folds(tables, B: int, G=None) -> dict:
     return dict(sorted(planned.items()))
 
 
-def _fold_widths(planned: dict) -> tuple[list, list]:
+def _fold_widths(planned: dict) -> tuple[list, list, list]:
     """msm_lm.msm_fold_launches keys -> fold_shapes.run's shapes (one
-    level) and levels (several a launch)."""
-    shapes, levels = [], []
+    level) and levels (several a launch), and run_gathered's shapes (level
+    0, fold_padd_aa through the index)."""
+    shapes, levels, gathered = [], [], []
     for key in planned:
         name, kind, b, h, n = key.split("/")
         B, h, n = int(b[1:]), int(h[1:]), int(n[1:])
         if name == "fold_padd_aa":
-            shapes.append(("aa", kind, B, h))
+            gathered.append((kind, B, h))
         elif n == 1:
             shapes.append(("fold", kind, B, h))
         else:
             levels.append((kind, B, h, n))
-    return shapes, levels
+    return shapes, levels, gathered
+
+
+def _check_folds(dev, planned: dict, failed: list) -> None:
+    """Every fold launch of `planned` (msm_fold_launches keys) against its
+    plain version, untimed, in the form the MSM launches it."""
+    from zkfranchise_tpu_torch.tools import fold_shapes
+
+    shapes, levels, gathered = _fold_widths(planned)
+    fold_shapes.run(dev, shapes, levels, failed, timed=False)
+    fold_shapes.run_gathered(dev, gathered, failed, timed=False)
 
 
 def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
@@ -1910,7 +1929,7 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
                                                       ReplayProver, draw_rs)
     from zkfranchise_tpu_torch.models.census import CensusCircuit
     from zkfranchise_tpu_torch.ops import lm, msm_lm, sparse
-    from zkfranchise_tpu_torch.tools import bench, fold_shapes, kernel_events
+    from zkfranchise_tpu_torch.tools import bench, kernel_events
     from zkfranchise_tpu_torch.utils.native import Laps
 
     nl, B = N_LEVELS_160, BATCH_160
@@ -2097,13 +2116,12 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
         sparse.spmv(*prover._arrays_dev["a"], n, w),
         sparse.spmv(*prover._arrays_dev["a"], n, w, mul=lm.mont_mul_ref)))
     failed: list = []
-    shapes, levels = _fold_widths(planned)
-    fold_shapes.run(dev, shapes, levels, failed, timed=False)
+    _check_folds(dev, planned, failed)
     seconds["kernel_checks"] = time.perf_counter() - t0
     emit({"phase": "nlevels160_kernels",
           "ntt_levels": table[f"ntt_level/{n}x{B}"]["levels"],
           "spmv_a_equal_plain": spmv_equal,
-          "fold_widths": len(shapes) + len(levels), "folds_failed": failed,
+          "fold_widths": len(planned), "folds_failed": failed,
           "seconds": seconds})
     if not spmv_equal:
         raise AssertionError("nlevels160: the chunked spmv differs from "
@@ -2159,7 +2177,6 @@ def phase_stream160(torch, K, dev, circuit, pk, vk) -> dict:
     from zkfranchise_tpu_torch import inputs as inp
     from zkfranchise_tpu_torch.config import Config
     from zkfranchise_tpu_torch.groth16.device import DeviceProver
-    from zkfranchise_tpu_torch.tools import fold_shapes
     from zkfranchise_tpu_torch.utils import serialize, zkey_compat
     from zkfranchise_tpu_torch.utils.native import Laps
 
@@ -2224,8 +2241,7 @@ def phase_stream160(torch, K, dev, circuit, pk, vk) -> dict:
     del prover
     torch.cuda.empty_cache()
     failed: list = []
-    shapes, levels = _fold_widths(new)
-    fold_shapes.run(dev, shapes, levels, failed, timed=False)
+    _check_folds(dev, new, failed)
     emit({"phase": "stream160_folds", "sizes": STREAM160_TAIL,
           "fold_widths": len(new),
           "by_size": {b: sum(v == b for v in new.values())

@@ -11,7 +11,8 @@ import torch
 
 from zkfranchise_tpu_torch.ops import ec, ec_affine, ec_lm, lm, msm_lm, ntt
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
-from zkfranchise_tpu_torch.tools.fold_shapes import fold_inputs
+from zkfranchise_tpu_torch.tools.fold_shapes import fold_at_inputs, \
+    fold_inputs
 from zkfranchise_tpu_torch.tools.padd_shapes import padd_inputs
 
 pytestmark = pytest.mark.cuda
@@ -192,6 +193,47 @@ def test_fold_forms_at_widths(dev, kind, form, B, h):
     assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), f"{name}/{kind}": 1}
     assert K.FOLD_SHAPES == {f"{name}/{kind}/B{B}/h{h}/n1": 1}
     assert torch.equal(got, ref(x, kind))
+
+
+# (kind, lanes, chunk m): ragged widths, then nlevels=160's level 0 at
+# batch 16 (C's chunk of 262,144 at twice its 32 lanes; A's, B1's, B2's
+# chunks of 65,536 at 128)
+@pytest.mark.parametrize("kind,B,m", [("g1", 1, 2), ("g2", 3, 66),
+                                      ("g1", 64, 262144),
+                                      ("g1", 128, 65536),
+                                      ("g2", 128, 65536)])
+def test_fold_padd_aa_through_the_index_equals_the_plane(dev, kind, B, m):
+    """fold_padd_aa reading the [P | -P] rows through each lane's index
+    equals fold_padd_aa on the plane that index gathers, limb for limb,
+    with identity rows, negative digits (rows m and on), doublings and
+    P + (-P) among the operands, and counts as that plane's launch."""
+    table, idx = fold_at_inputs(kind, B, m, np.random.default_rng(18), dev)
+    assert int((idx >= m).sum()) > 0
+    K.reset_launches()
+    got = K.fold_padd_aa(table, kind, idx=idx)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          f"fold_padd_aa/{kind}": 1}
+    assert K.FOLD_SHAPES == {f"fold_padd_aa/{kind}/B{B}/h{m // 2}/n1": 1}
+    plane = table[idx.long()].transpose(-1, -2).contiguous()
+    assert torch.equal(got, K.fold_padd_aa(plane, kind))
+    if m <= 66:
+        assert torch.equal(got, K.fold_padd_aa_ref(plane, kind))
+
+
+def test_fold_padd_aa_through_an_index_refuses_rows_outside_the_table(dev):
+    """An index past the table's last row, or a negative one, raises
+    IndexError before any launch, as the CPU path does."""
+    table, idx = fold_at_inputs("g1", 2, 8, np.random.default_rng(19), dev)
+    for bad in (table.shape[0], -1):
+        out = idx.clone()
+        out[1, 5] = bad
+        K.reset_launches()
+        with pytest.raises(IndexError):
+            K.fold_padd_aa(table, "g1", idx=out)
+        with pytest.raises(IndexError):
+            K.fold_padd_aa(table.cpu(), "g1", idx=out.cpu())
+        assert not any(K.LAUNCHES.values())
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])
@@ -745,6 +787,21 @@ def test_fused_step_captures_prove_arrays_launches(fused_steps, B):
     K.reset_launches()
     step(sets[0], *rs[0])
     assert not any(K.LAUNCHES.values())            # a replay ticks none
+
+
+def test_captured_fold_launches_follow_the_msm_plan(fused_prover):
+    """A capture (its warm-up and the captured run) launches the folds
+    msm_lm.msm_fold_launches plans for the four tables, twice."""
+    prover, _ = fused_prover
+    planned: dict = {}
+    for tab, kind in ((prover.a_tab, "g1"), (prover.b1_tab, "g1"),
+                      (prover.b2_tab, "g2"), (prover.c_tab, "g1")):
+        for key, v in msm_lm.msm_fold_launches(tab.shape[0], 4, kind,
+                                               prover.window_group).items():
+            planned[key] = planned.get(key, 0) + 2 * v
+    K.reset_launches()
+    prover.capture(4)
+    assert K.FOLD_SHAPES == planned
 
 
 def test_fused_step_prove_batch_equals_prove_batch(fused_steps):

@@ -74,18 +74,24 @@ def test_fold_padd_aa_matches_jax_g2():
 
 @pytest.mark.parametrize("m", [256, 512])
 def test_upsweep_matches_jax_planes(m):
-    """The port's upsweep (fold_padd_aa, then fold_padd_levels by the
-    plan) against the JAX upsweep's planes: fold_padd_aa, then fold_padd
+    """The port's upsweep (fold_padd_aa reading a table's rows through an
+    index, then fold_padd_levels by the plan) against the JAX upsweep's
+    planes over the plane those rows make: fold_padd_aa, then fold_padd
     level by level, to width 128."""
     a = fold_shapes.fold_inputs("aa", "g1", 1, m, np.random.default_rng(
         33), "cpu")
+    # the plane's lanes as rows of a table, in a shuffled order
+    order = torch.as_tensor(np.random.default_rng(35).permutation(m))
+    table = torch.empty((m, a.shape[1]), dtype=torch.int32)
+    table[order] = a[0].T
     y = JK.fold_padd_aa(jnp.asarray(a.numpy()), "g1")
-    want = [a.numpy(), np.asarray(y)]
+    want = [np.asarray(y)]
     while y.shape[-1] > msm_lm.WFLOOR:
         y = JK.fold_padd(y, "g1")
         want.append(np.asarray(y))
-    got = msm_lm.upsweep(a, "g1", msm_lm.WFLOOR)
-    assert len(got) == len(want) == m.bit_length() - 7
+    got = msm_lm.upsweep(table, order[None].to(torch.int32), "g1",
+                         msm_lm.WFLOOR)
+    assert len(got) == len(want) == m.bit_length() - 8
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), w)
 
@@ -168,6 +174,25 @@ def test_fold_padd_levels_rejects_what_it_does_not_take():
         K.fold_padd_levels(x.long(), "g1", 1)
     with pytest.raises(ValueError):
         K.fold_plan("g1", 96, 1)                      # 96 -> 3 is odd
+
+
+def test_fold_padd_aa_through_an_index_rejects_what_it_does_not_take():
+    table = torch.zeros((8, 43), dtype=torch.int32)
+    idx = torch.zeros((2, 6), dtype=torch.int32)
+    assert K.fold_padd_aa(table, "g1", idx=idx).shape == (2, 63, 3)
+    for t, i in ((table, idx[:, :5]), (table[:, :42], idx), (table[None], idx),
+                 (table, idx[0])):
+        with pytest.raises(ValueError):
+            K.fold_padd_aa(t, "g1", idx=i)
+    with pytest.raises(TypeError):
+        K.fold_padd_aa(table, "g1", idx=idx.long())
+    with pytest.raises(ValueError):
+        K.fold_padd_aa(table, "g2", idx=idx)          # G2 rows are 85
+    for bad in (8, -1):                   # past the table, and a negative
+        out = idx.clone()
+        out[1, 4] = bad
+        with pytest.raises(IndexError):
+            K.fold_padd_aa(table, "g1", idx=out)
 
 
 def test_fold_launches_of_a_small_chunk():

@@ -70,3 +70,70 @@ def test_default_window_group_caps():
     assert msm_lm.default_window_group(32768, 128, "cuda") == 1
     assert msm_lm.default_window_group(8192, 16, "cuda") == 8
     assert msm_lm.default_window_group(2048, 64, "cuda") == 2
+
+
+@functools.partial(jax.jit, static_argnums=(2,))
+def _jax_chunk(sc, table, kind):
+    return jmsm.chunk_window_sums(sc, table, kind)
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("chunk", [0, 1])
+def test_chunk_window_sums_on_the_prebuilt_table_equals_the_plane_path(
+        monkeypatch, kind, chunk):
+    """A chunk's window sums from its [P | -P] rows built once
+    (extend_table, read through the sort's index) equal, limb for limb,
+    the JAX package's, which gathers the fold-order plane.  300 points
+    split into a chunk of 256 and one of 44 padded to 64 (the small-tree
+    path); random scalars mix signed digits of both signs, and one point
+    is the identity."""
+    monkeypatch.setattr(msm_lm, "MIN_CHUNK", 4)
+    _, _, sc, table = _case(300, kind, b=2)
+    sc_t, tab_t = torch.as_tensor(sc), torch.as_tensor(table)
+    chunks = msm_lm.plan(tab_t, kind)
+    assert [c[:3] for c in chunks] == [(0, 256, 256), (256, 44, 64)]
+    start, real, m, ext = chunks[chunk]
+    s, tab = msm_lm.pad_chunk(sc_t, tab_t, start, real, m, kind)
+    assert torch.equal(ext, msm_lm.extend_table(tab, kind))
+    got = msm_lm.chunk_window_sums(s, ext, kind)
+    want = _jax_chunk(jnp.asarray(s.numpy()), jnp.asarray(tab.numpy()), kind)
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_device_prover_msm_equals_msm_at_small_chunk_sizes():
+    """DeviceProver._msm over its tables planned once equals the JAX
+    package's msm on the same tables, limb for limb, at the small-tree
+    sizes (A 41 points -> a chunk of 64, B1 and B2 21 of them (one wire
+    compacted away) -> 32) and at one chunk of exactly 128 (C, 101
+    points)."""
+    from zkfranchise_tpu_torch.groth16 import qap
+    from zkfranchise_tpu_torch.groth16 import setup as tsetup
+    from zkfranchise_tpu_torch.groth16.device import DeviceProver
+    from zkfranchise_tpu_torch.models.census import CensusCircuit
+
+    circuit = CensusCircuit(4)
+    cs = circuit.cs
+    g1 = [ec.g1_mul(k + 5) for k in range(110)]
+    g2 = [ec.g2_mul(k + 7) for k in range(21)]
+    b_g1, b_g2 = g1[40:61], g2[:]
+    b_g1[3] = b_g2[3] = None
+    pk = tsetup.ProvingKey(
+        n_vars=cs.num_vars, n_public=cs.num_public,
+        domain=qap.domain_size(cs.num_constraints, cs.num_public),
+        alpha_g1=g1[0], beta_g1=g1[1], beta_g2=g2[0], delta_g1=g1[2],
+        delta_g2=g2[1], a_g1=g1[:40], b_g1=b_g1, b_g2=b_g2,
+        k_g1=g1[:60], h_g1=g1[60:100])
+    prover = DeviceProver(circuit, pk, device="cpu")
+    tables = {"a": (prover.a_tab, "g1"), "b1": (prover.b1_tab, "g1"),
+              "b2": (prover.b2_tab, "g2"), "c": (prover.c_tab, "g1")}
+    assert {k: t.shape[0] for k, (t, _) in tables.items()} == \
+        {"a": 41, "b1": 21, "b2": 21, "c": 101}
+    rng = np.random.default_rng(21)
+    for key, (tab, kind) in tables.items():
+        n = tab.shape[0]
+        sc = torch.as_tensor(np.stack([lm.ints_to_lm(
+            [int.from_bytes(rng.bytes(32), "big") % ff.P_FR])
+            for _ in range(n)]))
+        want = _jax_msm(jnp.asarray(sc.numpy()), jnp.asarray(tab.numpy()),
+                        kind)
+        assert np.array_equal(np.asarray(want), prover._msm(sc, key).numpy())

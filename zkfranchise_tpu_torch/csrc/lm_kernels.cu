@@ -15,7 +15,11 @@
 //   zk_fold_padd_levels  <- fold_padd     (_padd_kernel): x[j] + x[j + m/2],
 //                                          n levels of the tree a launch
 //   zk_fold_padd_aa      <- fold_padd_aa  (_padd_aa_kernel): affine pair ->
-//                                          projective sum, Z1 = Z2 = 1
+//                                          projective sum, Z1 = Z2 = 1; on
+//                                          the MSM's path its operands are
+//                                          a table's rows read through the
+//                                          sort's index (the TPU kernel read
+//                                          a gathered plane)
 //   zk_scalar_mul        <- device_scalar_mul (scripts/verify_lm_device.py
 //                           scalar_mul_kernel): k*P by double-and-add, a
 //                           scalar per lane or one for all; on the main
@@ -59,7 +63,11 @@
 //     lazy Fq2 products (G2) before round 3, all independent of each other
 //     (y3 = x1 + x2 needs none), so it has two product rounds instead of
 //     three; the mask-row selection of ec_lm.padd_aa is applied as the
-//     result is stored.
+//     result is stored.  On the MSM's path (GATHER) an add's two operands
+//     are rows of the [P | -P] table that the sort's index names: the
+//     block reads each row's 43 or 85 words side by side (consecutive
+//     threads, consecutive words), so the fold-order plane the TPU kernel
+//     read is never written, nor transposed; the store is the lanes'.
 //   fold_padd (fold_levels_kernel): n levels of the sum tree in one launch
 //     (n = 1 to 3, ops/cuda/lm_kernels.py fold_plan).  A block owns a
 //     closed subtree (32 lanes of the last level) and adds it level by
@@ -353,6 +361,23 @@ __device__ __forceinline__ void add_offsets(Offsets<TWO>& ofs, i64 total,
     const i64 b = n < total ? n / T : 0, t = n < total ? n - b * T : 0;
     ofs.p[threadIdx.x] = b * pbs + t * pts;
     if (TWO) ofs.q[threadIdx.x] = b * qbs + t * qts;
+    ofs.b[threadIdx.x] = (int)b;
+    ofs.t[threadIdx.x] = (int)t;
+  }
+}
+
+// The same for a level 0 read through the sort's index: add n = b * T + t
+// takes rows idx[b * 2T + t] and idx[b * 2T + T + t] of a table of
+// `width`-word rows (the offsets of their first words)
+__device__ __forceinline__ void gather_offsets(Offsets<true>& ofs, i64 total,
+                                               i64 T, const int* idx,
+                                               int width) {
+  if (threadIdx.x < ADDS) {
+    const i64 n = (i64)blockIdx.x * ADDS + threadIdx.x;
+    const i64 b = n < total ? n / T : 0, t = n < total ? n - b * T : 0;
+    const int* row = idx + b * 2 * T + t;
+    ofs.p[threadIdx.x] = (i64)row[0] * width;
+    ofs.q[threadIdx.x] = (i64)row[T] * width;
     ofs.b[threadIdx.x] = (int)b;
     ofs.t[threadIdx.x] = (int)t;
   }
@@ -788,21 +813,28 @@ constexpr int form_smem() {
 // out (B, ROWS, T) contiguous = p + q for B*T adds; p and q are read
 // through batch, row and lane strides (a stride of 0 reads a broadcast
 // operand in place).  padd (PaddG1, PaddG2) and the one-level fold of
-// affine planes (PaddAaG1, PaddAaG2: p = x, q = x + h, T = h).
-template <class F, bool BY_ROWS>
+// affine planes (PaddAaG1, PaddAaG2: p = x, q = x + h, T = h).  GATHER:
+// the fold's level 0 read through the sort's index instead, p = q the
+// table (rows of ROWS_IN words), idx (B, 2T) (gather_offsets); the rows
+// are staged a row's words side by side, the result stored by lanes.
+template <class F, bool BY_ROWS, bool GATHER>
 __global__ void __launch_bounds__(F::WARPS * 32)
 add_kernel(const int* __restrict__ p, const int* __restrict__ q,
            int* __restrict__ out, i64 total, i64 T, i64 pbs, i64 prs,
-           i64 pts, i64 qbs, i64 qrs, i64 qts) {
+           i64 pts, i64 qbs, i64 qrs, i64 qts,
+           const int* __restrict__ idx) {
   constexpr int NT = F::WARPS * 32;
   __shared__ Offsets<true> ofs;
-  add_offsets(ofs, total, T, pbs, pts, qbs, qts);
+  if (GATHER)
+    gather_offsets(ofs, total, T, idx, F::ROWS_IN);
+  else
+    add_offsets(ofs, total, T, pbs, pts, qbs, qts);
   __syncthreads();
   const i64 first = (i64)blockIdx.x * ADDS;
   const int nvalid = (int)(total - first < ADDS ? total - first : ADDS);
   const int KC = ADDS * F::STRIDE;
-  stage_in<F::ROWS_IN, F::STRIDE, NT, BY_ROWS>(F::IN_AT, p, q, ofs, prs,
-                                               qrs, nvalid);
+  stage_in<F::ROWS_IN, F::STRIDE, NT, BY_ROWS || GATHER>(
+      F::IN_AT, p, q, ofs, prs, qrs, nvalid);
   F::consts(KC);
   __syncthreads();
   F::rounds(KC, 0, threadIdx.x >> 5);
@@ -986,12 +1018,12 @@ static int launch_ladder(const int* pts, int* out, const int* bits, i64 sbi,
   return (int)cudaGetLastError();
 }
 
-// launch add_kernel<F, T == 1> for B*T adds
-template <class F>
+// launch add_kernel<F, BY_ROWS, GATHER> for `total` adds
+template <class F, bool BY_ROWS, bool GATHER>
 static int launch_add(const int* p, const int* q, int* out, i64 total,
                       i64 T, i64 pbs, i64 prs, i64 pts, i64 qbs, i64 qrs,
-                      i64 qts, cudaStream_t s) {
-  auto kernel = T == 1 ? add_kernel<F, true> : add_kernel<F, false>;
+                      i64 qts, const int* idx, cudaStream_t s) {
+  auto kernel = add_kernel<F, BY_ROWS, GATHER>;
   // shared memory above 48 KB must be asked for (per kernel and device)
   const int smem = form_smem<F>();
   cudaError_t rc = cudaFuncSetAttribute(
@@ -999,8 +1031,34 @@ static int launch_add(const int* p, const int* q, int* out, i64 total,
   if (rc != cudaSuccess) return (int)rc;
   const unsigned blocks = (unsigned)((total + ADDS - 1) / ADDS);
   kernel<<<blocks, F::WARPS * 32, smem, s>>>(p, q, out, total, T, pbs, prs,
-                                             pts, qbs, qrs, qts);
+                                             pts, qbs, qrs, qts, idx);
   return (int)cudaGetLastError();
+}
+
+// padd: B*T adds of p and q read through their strides, by rows when T == 1
+template <class F>
+static int launch_padd(const int* p, const int* q, int* out, i64 B, i64 T,
+                       i64 pbs, i64 prs, i64 pts, i64 qbs, i64 qrs, i64 qts,
+                       cudaStream_t s) {
+  return T == 1 ? launch_add<F, true, false>(p, q, out, B * T, T, pbs, prs,
+                                             pts, qbs, qrs, qts, nullptr, s)
+                : launch_add<F, false, false>(p, q, out, B * T, T, pbs, prs,
+                                              pts, qbs, qrs, qts, nullptr,
+                                              s);
+}
+
+// (B, rows, h) projective from affine operands: a plane x (B, arows, 2h),
+// or (idx not null) the rows of the table x that idx (B, 2h) names
+template <class F>
+static int launch_fold_aa(const int* x, const int* idx, int* out, i64 B,
+                          i64 h, cudaStream_t s) {
+  const i64 ar = F::ROWS_IN;
+  if (idx)
+    return launch_add<F, false, true>(x, x, out, B * h, h, 0, 1, 0, 0, 1, 0,
+                                      idx, s);
+  return launch_add<F, false, false>(x, x + h, out, B * h, h, ar * 2 * h,
+                                     2 * h, 1, ar * 2 * h, 2 * h, 1, nullptr,
+                                     s);
 }
 
 // the fold kernels' resident blocks per SM, at least: G1 four (the
@@ -1103,10 +1161,10 @@ int zk_padd(int k, const int* p, const int* q, int* out, i64 B, i64 T,
             i64 pbs, i64 prs, i64 pts, i64 qbs, i64 qrs, i64 qts,
             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return k == 1 ? launch_add<PaddG1>(p, q, out, B * T, T, pbs, prs, pts, qbs,
-                                     qrs, qts, s)
-                : launch_add<PaddG2>(p, q, out, B * T, T, pbs, prs, pts, qbs,
-                                     qrs, qts, s);
+  return k == 1 ? launch_padd<PaddG1>(p, q, out, B, T, pbs, prs, pts, qbs,
+                                      qrs, qts, s)
+                : launch_padd<PaddG2>(p, q, out, B, T, pbs, prs, pts, qbs,
+                                      qrs, qts, s);
 }
 
 // out: the n levels back to back (level l at B*rows*(h + ... + h_(l-1))),
@@ -1118,15 +1176,13 @@ int zk_fold_padd_levels(int k, const int* x, int* out, i64 B, i64 h, int n,
                 : launch_levels<PaddG2, G2_FOLD_BLOCKS>(x, out, B, h, n, s);
 }
 
-// out (B, rows, h) projective from x (B, arows, 2h) affine
-int zk_fold_padd_aa(int k, const int* x, int* out, i64 B, i64 h,
-                    void* stream) {
+// out (B, rows, h) projective from x (B, arows, 2h) affine, or from the
+// rows of the table x (n, arows) that idx (B, 2h) names (idx not null)
+int zk_fold_padd_aa(int k, const int* x, const int* idx, int* out, i64 B,
+                    i64 h, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const i64 ar = 2 * k * NL + 1;
-  return k == 1 ? launch_add<PaddAaG1>(x, x + h, out, B * h, h, ar * 2 * h,
-                                       2 * h, 1, ar * 2 * h, 2 * h, 1, s)
-                : launch_add<PaddAaG2>(x, x + h, out, B * h, h, ar * 2 * h,
-                                       2 * h, 1, ar * 2 * h, 2 * h, 1, s);
+  return k == 1 ? launch_fold_aa<PaddAaG1>(x, idx, out, B, h, s)
+                : launch_fold_aa<PaddAaG2>(x, idx, out, B, h, s);
 }
 
 // out (rows, B*h) from x (rows, B*2h), both flat and contiguous; tile:
@@ -1160,14 +1216,14 @@ int zk_occupancy(int levels, int* blocks) {
       (const void*)fold_levels_kernel<PaddG1, 2, G1_FOLD_BLOCKS>,
       (const void*)fold_levels_kernel<PaddG1, 3, G1_FOLD_BLOCKS>};
   if (levels < 1 || levels > 3) return (int)cudaErrorInvalidValue;
-  blocks[0] = occupancy<PaddG1>((const void*)add_kernel<PaddG1, false>,
-                                form_smem<PaddG1>());
-  blocks[1] = occupancy<PaddG2>((const void*)add_kernel<PaddG2, false>,
-                                form_smem<PaddG2>());
-  blocks[2] = occupancy<PaddAaG1>((const void*)add_kernel<PaddAaG1, false>,
-                                  form_smem<PaddAaG1>());
-  blocks[3] = occupancy<PaddAaG2>((const void*)add_kernel<PaddAaG2, false>,
-                                  form_smem<PaddAaG2>());
+  blocks[0] = occupancy<PaddG1>(
+      (const void*)add_kernel<PaddG1, false, false>, form_smem<PaddG1>());
+  blocks[1] = occupancy<PaddG2>(
+      (const void*)add_kernel<PaddG2, false, false>, form_smem<PaddG2>());
+  blocks[2] = occupancy<PaddAaG1>(
+      (const void*)add_kernel<PaddAaG1, false, true>, form_smem<PaddAaG1>());
+  blocks[3] = occupancy<PaddAaG2>(
+      (const void*)add_kernel<PaddAaG2, false, true>, form_smem<PaddAaG2>());
   blocks[4] = occupancy<PaddG1>(g1[levels - 1], form_smem<PaddG1>());
   blocks[5] = occupancy<PaddG2>(
       (const void*)fold_levels_kernel<PaddG2, 1, G2_FOLD_BLOCKS>,

@@ -218,24 +218,18 @@ class DeviceProver:
                 t(self.arrays[k][1].astype(np.int64)),
                 t(self.arrays[k][2]))
             for k in ("a", "b", "c") if k in self.arrays}
-        self._msm_plans = {}
-        for key, tab, kind in (("a", self.a_tab, "g1"),
-                               ("b1", self.b1_tab, "g1"),
-                               ("b2", self.b2_tab, "g2"),
-                               ("c", self.c_tab, "g1")):
-            plan = msm_lm._chunks(tab.shape[0])
-            tabs = [msm_lm.pad_chunk(None, tab, s, r, m, kind)[1]
-                    for (s, r, m) in plan]
-            self._msm_plans[key] = (plan, tabs, kind)
+        # each table's chunks with their [P | -P] rows, built once
+        self._msm_plans = {
+            key: (msm_lm.plan(tab, kind), kind)
+            for key, tab, kind in (("a", self.a_tab, "g1"),
+                                   ("b1", self.b1_tab, "g1"),
+                                   ("b2", self.b2_tab, "g2"),
+                                   ("c", self.c_tab, "g1"))}
 
     def _msm(self, scalars: torch.Tensor, key: str) -> torch.Tensor:
         """Chunk-dispatched MSM over the proving-key table `key`."""
-        plan, tabs, kind = self._msm_plans[key]
-        ws = [msm_lm.chunk_window_sums(
-            msm_lm.pad_chunk(scalars, None, s, r, m, kind)[0], tab, kind,
-            self.window_group)
-            for (s, r, m), tab in zip(plan, tabs)]
-        return msm_lm.combine_horner(ws, kind, scalars.shape[-1])
+        chunks, kind = self._msm_plans[key]
+        return msm_lm.msm_planned(scalars, chunks, kind, self.window_group)
 
     def _inputs(self, inputs: dict) -> dict:
         return {k: torch.as_tensor(np.asarray(v) if not isinstance(

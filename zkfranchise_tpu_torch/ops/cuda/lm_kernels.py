@@ -19,7 +19,8 @@ Poseidon permutation and the witness's SMT chains on it) and
   fold_padd     x[..., :m/2] + x[..., m/2:], projective       fold_padd_ref
   fold_padd_    n levels of that halving tree in ONE launch   fold_padd_
     levels      (fold_padd is its one-level case)               levels_ref
-  fold_padd_aa  the same from AFFINE planes -> projective     fold_padd_aa_ref
+  fold_padd_aa  the same from AFFINE planes -> projective,     fold_padd_aa_ref
+                or from a table's rows through an index
   fold_mul      x[..., :m/2] * x[..., m/2:], Fr or Fq         fold_mul_ref
   fold_mul_     levels of batch_inv's product tree into its   fold_mul_
     levels      buffer, up to 5 in ONE launch                   levels_ref
@@ -204,7 +205,7 @@ def _libs() -> tuple:
     lib.zk_mont_mul.argtypes = [P, P, P, P] + [L] * 4 + [I] + [L] * 11 + [P]
     lib.zk_padd.argtypes = [I, P, P, P] + [L] * 8 + [P]
     lib.zk_fold_padd_levels.argtypes = [I, P, P, L, L, I, P]
-    lib.zk_fold_padd_aa.argtypes = [I, P, P, L, L, P]
+    lib.zk_fold_padd_aa.argtypes = [I, P, P, P, L, L, P]
     lib.zk_occupancy.argtypes = [I, P]
     lib.zk_ladder_occupancy.argtypes = [P]
     lib.zk_scalar_mul.argtypes = [I, P, P, P, L, L, I, L, P]
@@ -608,20 +609,52 @@ def fold_plan(kind: str, h: int, floor: int) -> list:
     return plan
 
 
-def fold_padd_aa(x: torch.Tensor, kind: str) -> torch.Tensor:
+def fold_padd_aa(x: torch.Tensor, kind: str,
+                 idx: torch.Tensor | None = None) -> torch.Tensor:
     """x: (B, arows, m) AFFINE planes -> (B, rows, m/2) PROJECTIVE:
     out[..., j] = x[..., j] (+) x[..., j + m/2] (level 0 of the MSM sum
     tree: 10 products instead of 12, 43/85-row reads instead of 63/126).
-    On the card a cooperative add of two product rounds."""
+    On the card a cooperative add of two product rounds.
+
+    With idx (B, m) int32, x is a (rows, arows) table of affine points,
+    one a row, and the plane is the table read through idx: out[b, :, j] =
+    x[idx[b, j]] (+) x[idx[b, j + m/2]], as fold_padd_aa(x[idx].transpose(
+    -1, -2)) gives.  On the card the same kernel stages each add's two
+    operands straight from the rows idx names, a row's words side by side;
+    the plane is never written.  Counted as the plane's launch would be.
+    Every index lies in [0, rows of x), else IndexError, on the card as
+    off it: checked before the launch (a read of idx's least and greatest
+    entry), except while a CUDA graph is captured, where an index out of
+    range would read outside the table (the MSM's are in range by
+    construction)."""
     k = _k(kind)
-    if not _on_card("fold_padd_aa", x):
-        return fold_padd_aa_ref(x, kind)
     rows, arows = ec_lm.ROWS[kind], 2 * k * lm.N_LIMBS + 1
-    x, B, h = _fold_args("fold_padd_aa", x, arows)
+    if idx is None:
+        if not _on_card("fold_padd_aa", x):
+            return fold_padd_aa_ref(x, kind)
+        x, B, h = _fold_args("fold_padd_aa", x, arows)
+    else:
+        on_card = _on_card("fold_padd_aa", x, idx)
+        if x.dim() != 2 or x.shape[1] != arows or idx.dim() != 2 or \
+                idx.shape[1] % 2:
+            raise ValueError(f"fold_padd_aa: expected a table (n, {arows}) "
+                             f"and idx (B, even m), got {tuple(x.shape)} "
+                             f"and {tuple(idx.shape)}")
+        if idx.numel() and not (on_card and
+                                torch.cuda.is_current_stream_capturing()):
+            lo, hi = (int(v) for v in torch.aminmax(idx))
+            if lo < 0 or hi >= x.shape[0]:
+                raise IndexError(f"fold_padd_aa: idx spans [{lo}, {hi}], "
+                                 f"the table has {x.shape[0]} rows")
+        if not on_card:
+            return fold_padd_aa_ref(x[idx.long()].transpose(-1, -2), kind)
+        x, idx = x.contiguous(), idx.contiguous()
+        B, h = idx.shape[0], idx.shape[1] // 2
     out = torch.empty((B, rows, h), dtype=torch.int32, device=x.device)
     if out.numel():
-        rc = _lib().zk_fold_padd_aa(k, x.data_ptr(), out.data_ptr(), B, h,
-                                    _stream(x.device))
+        rc = _lib().zk_fold_padd_aa(k, x.data_ptr(), None if idx is None
+                                    else idx.data_ptr(), out.data_ptr(), B,
+                                    h, _stream(x.device))
         _check(rc, "fold_padd_aa")
         _count_fold("fold_padd_aa", kind, B, h, 1)
     return out

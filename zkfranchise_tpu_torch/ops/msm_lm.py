@@ -4,13 +4,17 @@ The structure is the JAX package's (ops/msm_lm.py there), kept step for
 step so that every intermediate plane compares bit for bit:
 
   * 8-bit SIGNED-DIGIT windows (e in [-128, 127], carry-recoded): bucket
-    magnitudes are 0..128, and a negative digit is a gather offset into
-    the doubled [P | -P] affine table;
+    magnitudes are 0..128, and a negative digit is a row offset into
+    the doubled [P | -P] affine table (extend_table, built once per
+    chunk by plan where the table is fixed);
   * per window: a stable argsort of the digit magnitudes, composed with a
-    BIT-REVERSAL, so that every level of the sum tree is a contiguous
-    fold-in-half add x[..., :m/2] + x[..., m/2:] (kernels fold_padd_aa for
-    level 0, fold_padd_levels above it, several levels a launch as
-    fold_plan says);
+    BIT-REVERSAL, gives each lane an index into that table in FOLD ORDER,
+    so that every level of the sum tree is a contiguous fold-in-half add
+    x[..., :m/2] + x[..., m/2:] (fold_padd_levels, several levels a
+    launch as fold_plan says).  The leaves are never laid out as a plane:
+    level 1 is fold_padd_aa reading its two affine operands from the
+    table's rows through the index, and the path walks read their level-0
+    leaves the same way, 128 rows a lane;
   * the upsweep stops at width 128; the 128 bucket-boundary prefix sums
     come from a shifted-add prefix scan over that level plus root-to-leaf
     walks over the retained levels (kernel padd);
@@ -127,18 +131,25 @@ def default_window_group(m: int, B: int, device) -> int:
     return 1 << (G.bit_length() - 1)       # a divisor of N_WINDOWS
 
 
-def chunk_window_sums(scalars_chunk: torch.Tensor, table_chunk: torch.Tensor,
+def extend_table(table: torch.Tensor, kind: str) -> torch.Tensor:
+    """(m, arows) affine rows -> (2m, arows) rows [P | -P]: the point of a
+    negative digit lies m rows after its own."""
+    return torch.cat([table, ec_affine.neg_affine(
+        table.transpose(0, 1), kind).transpose(0, 1)], 0)
+
+
+def chunk_window_sums(scalars_chunk: torch.Tensor, table_ext: torch.Tensor,
                       kind: str,
                       window_group: int | None = None) -> torch.Tensor:
     """Per-window signed-bucket sums for ONE pow2-sized chunk.
     scalars_chunk: (m, 21, B) canonical plain (zero-padded to pow2 m);
-    table_chunk: (m, arows) affine rows (identity-padded).
+    table_ext: (2m, arows) the identity-padded chunk's extend_table.
     Returns (32, B, rows, 1) projective planes."""
     m = scalars_chunk.shape[0]
-    assert table_chunk.shape[0] == m and m == _next_pow2(m)
+    assert table_ext.shape[0] == 2 * m and m == _next_pow2(m)
     digits = lm.window_digits(scalars_chunk, WBITS, N_WINDOWS)  # (32, m, B)
     signs, mags = _signed_digits(digits.transpose(-1, -2))      # (32, B, m)
-    return _window_sums(signs, mags, table_chunk, kind, window_group, m)
+    return _window_sums(signs, mags, table_ext, kind, window_group, m)
 
 
 def combine_horner(w_chunks: list, kind: str, B: int) -> torch.Tensor:
@@ -174,20 +185,36 @@ def pad_chunk(scalars: torch.Tensor | None, table, start: int, real: int,
     return sc, tab
 
 
+def plan(table: torch.Tensor, kind: str) -> list:
+    """An n-point AFFINE table (n, arows) -> its chunks [(start, real, m,
+    table_ext)] for msm_planned: each chunk identity-padded to pow2 m and
+    extended by its negation (extend_table).  Built once where the table
+    is fixed (the provers' keys)."""
+    assert table.shape[-1] == ec_affine.AROWS[kind], \
+        "msm expects an AFFINE table"
+    return [(s, r, m, extend_table(pad_chunk(None, table, s, r, m, kind)[1],
+                                   kind))
+            for s, r, m in _chunks(table.shape[0])]
+
+
+def msm_planned(scalars_plain: torch.Tensor, chunks: list, kind: str,
+                window_group: int | None = None) -> torch.Tensor:
+    """scalars_plain: (n, 21, B) int32 canonical plain limbs over the
+    table that plan(table, kind) made `chunks` of.
+    Returns (B, rows, 1) packed PROJECTIVE result planes."""
+    ws = [chunk_window_sums(pad_chunk(scalars_plain, None, s, r, m, kind)[0],
+                            ext, kind, window_group)
+          for s, r, m, ext in chunks]
+    return combine_horner(ws, kind, scalars_plain.shape[-1])
+
+
 def msm(scalars_plain: torch.Tensor, table: torch.Tensor, kind: str,
         window_group: int | None = None) -> torch.Tensor:
     """scalars_plain: (n, 21, B) int32 canonical plain limbs;
-    table: (n, arows) int32 AFFINE point rows.
+    table: (n, arows) int32 AFFINE point rows, planned on every call.
     Returns (B, rows, 1) packed PROJECTIVE result planes."""
-    assert table.shape[-1] == ec_affine.AROWS[kind], \
-        "msm expects an AFFINE table"
-    n, B = scalars_plain.shape[0], scalars_plain.shape[-1]
-    assert table.shape[0] == n
-    ws = []
-    for start, real, m in _chunks(n):
-        sc, tab = pad_chunk(scalars_plain, table, start, real, m, kind)
-        ws.append(chunk_window_sums(sc, tab, kind, window_group))
-    return combine_horner(ws, kind, B)
+    assert table.shape[0] == scalars_plain.shape[0]
+    return msm_planned(scalars_plain, plan(table, kind), kind, window_group)
 
 
 def fold_launches(m: int, B: int, kind: str, G: int | None = None) -> dict:
@@ -236,28 +263,34 @@ def _chunks(n: int):
     return [(0, c, c), (c, n - c, _next_pow2(n - c))]
 
 
-def upsweep(x: torch.Tensor, kind: str, floor: int) -> list:
-    """(B, arows, m) affine plane in fold order -> the sum tree's levels
-    from x down to width `floor`: level 0 by fold_padd_aa (projective from
-    here on), then fold_padd_levels, several levels a launch as fold_plan
-    says.  Every level is kept: fine_walk reads them all."""
-    levels = [x]
-    if x.shape[-1] > floor:
-        levels.append(K.fold_padd_aa(x, kind))
-        for n in K.fold_plan(kind, levels[-1].shape[-1], floor):
-            levels += K.fold_padd_levels(levels[-1], kind, n)
+def upsweep(table_ext: torch.Tensor, idx: torch.Tensor, kind: str,
+            floor: int) -> list:
+    """The sum tree over the leaves table_ext[idx] (lane b's leaf j is row
+    idx[b, j] of the (rows, arows) affine table; idx (B, m) int32, fold
+    order) -> its levels above the leaves down to width `floor`, [level 1,
+    level 2, ...] (projective): level 1 by fold_padd_aa reading the table
+    through idx, so the leaves are never laid out as a plane, then
+    fold_padd_levels, several levels a launch as fold_plan says.  Every
+    level is kept: fine_walk reads them all."""
+    if idx.shape[-1] <= floor:
+        return []
+    levels = [K.fold_padd_aa(table_ext, kind, idx=idx)]
+    for n in K.fold_plan(kind, levels[-1].shape[-1], floor):
+        levels += K.fold_padd_levels(levels[-1], kind, n)
     return levels
 
 
-def _window_sums(signs, mags, table, kind, G, m):
-    """signs/mags (32, B, m); table (m, arows) affine -> (32, B, rows, 1).
+def _window_sums(signs, mags, table_ext, kind, G, m):
+    """signs/mags (32, B, m); table_ext (2m, arows) affine -> (32, B, rows,
+    1).
 
-    Per window group: sort by magnitude -> affine gather in fold order ->
-    upsweep down to width 128 (level 0 through fold_padd_aa) -> unscramble
-    the width-128 level and take its inclusive prefix scan -> per-bucket
-    prefix = coarse prefix + fine path walk over the stored levels ->
-    u = scan over the bucket prefixes.  W = 128*total - u then runs once
-    on the stacked 32-window plane."""
+    Per window group: sort by magnitude -> each lane's signed index into
+    table_ext in fold order -> upsweep down to width 128 (level 1 through
+    fold_padd_aa on the indexed rows) -> unscramble the width-128 level
+    and take its inclusive prefix scan -> per-bucket prefix = coarse
+    prefix + fine path walk over the stored levels (level 0: 128 indexed
+    rows a lane) -> u = scan over the bucket prefixes.  W = 128*total - u
+    then runs once on the stacked 32-window plane."""
     rows = ec_lm.ROWS[kind]
     dev = signs.device
     B = signs.shape[1]
@@ -265,35 +298,39 @@ def _window_sums(signs, mags, table, kind, G, m):
         G = default_window_group(m, B, dev)
     assert N_WINDOWS % G == 0
     log_m = m.bit_length() - 1
-    table_ext = torch.cat(
-        [table, ec_affine.neg_affine(table.transpose(0, 1),
-                                     kind).transpose(0, 1)], 0)  # (2m, arows)
     br = lm.const(_bitrev(m), dev)
     small = m < WFLOOR                 # tiny chunks (tests): full tree
     k = 0 if small else log_m - 7      # coarse block size 2^k
     buckets = torch.arange(N_MAGS, dtype=torch.int32,
                            device=dev).expand(G * B, N_MAGS).contiguous()
 
-    def sort_gather(sg, d):
+    def sort_index(sg, d):
         order = torch.argsort(d, dim=-1, stable=True)
         d_sorted = torch.take_along_dim(d, order, -1)
-        perm = order[..., br]                           # fold-order gather
+        perm = order[..., br]                           # fold order
         sg_fold = torch.take_along_dim(sg, perm, -1)
-        idx = (perm + m * sg_fold).reshape(G * B, m)    # signed: 2nd half
-        x = table_ext[idx].transpose(-1, -2).contiguous()  # (G*B, arows, m)
+        idx = (perm + m * sg_fold).reshape(G * B, m).to(torch.int32)
         counts = torch.searchsorted(d_sorted.reshape(G * B, m).contiguous(),
                                     buckets, right=True).to(torch.int32)
-        return x, counts                                # counts (G*B, 128)
+        return idx, counts                      # signed: 2nd half; (G*B, 128)
 
-    def fine_walk(levels, acc, counts, offset, top_lvl):
-        """Root-to-leaf path adds for levels < top_lvl (width-128 ops)."""
+    def leaves(rows_at):
+        """The table's rows at rows_at (G*B, w) -> (G*B, rows, w)
+        projective leaves."""
+        x = table_ext[rows_at.long()].transpose(-1, -2)
+        return ec_affine.to_projective(x, kind)
+
+    def fine_walk(idx, levels, acc, counts, offset, top_lvl):
+        """Root-to-leaf path adds for levels < top_lvl (width-128 ops);
+        levels[l - 1] holds level l."""
         for lvl in range(top_lvl - 1, -1, -1):
             take = (counts >> lvl) & 1                  # (G*B, 128)
-            src = _bitrev_values(offset >> lvl, log_m - lvl)
-            node = torch.take_along_dim(levels[lvl], src[:, None, :].long(),
-                                        -1)             # (G*B, rows, 128)
-            if lvl == 0 and levels[0].shape[-2] != rows:
-                node = ec_affine.to_projective(node, kind)
+            src = _bitrev_values(offset >> lvl, log_m - lvl).long()
+            if lvl == 0:
+                node = leaves(torch.take_along_dim(idx, src, -1))
+            else:
+                node = torch.take_along_dim(levels[lvl - 1], src[:, None, :],
+                                            -1)         # (G*B, rows, 128)
             added = K.padd(acc, node, kind)
             acc = torch.where((take == 1)[:, None, :], added, acc)
             offset = offset + (take << lvl)
@@ -301,22 +338,18 @@ def _window_sums(signs, mags, table, kind, G, m):
 
     def group_small(sg, d):
         """Full tree to width 1 (m < 128: tests and tiny chunks)."""
-        x, counts = sort_gather(sg, d)
-        levels = upsweep(x, kind, 1)
-        if levels[-1].shape[-2] != rows:                # m == 1
-            levels[-1] = ec_affine.to_projective(levels[-1], kind)
-        total = levels[-1]
+        idx, counts = sort_index(sg, d)
+        levels = upsweep(table_ext, idx, kind, 1)
+        total = levels[-1] if levels else leaves(idx)   # m == 1
         acc = ec_lm.identity_plane(kind, (G * B,), N_MAGS, dev)
-        acc = fine_walk(levels, acc, counts, torch.zeros_like(counts),
+        acc = fine_walk(idx, levels, acc, counts, torch.zeros_like(counts),
                         log_m + 1)
         return total, _tree_reduce_lanes(acc, kind)
 
     def group(sg, d):
-        x, counts = sort_gather(sg, d)
-        levels = upsweep(x, kind, WFLOOR)
-        coarse = levels[-1]                             # width 128
-        if coarse.shape[-2] != rows:                    # m == 128: affine
-            coarse = ec_affine.to_projective(coarse, kind)
+        idx, counts = sort_index(sg, d)
+        levels = upsweep(table_ext, idx, kind, WFLOOR)
+        coarse = levels[-1] if levels else leaves(idx)  # width 128
         # storage position j holds sorted block bitrev7(j): unscramble,
         # then inclusive prefix over the sorted coarse blocks
         br7 = lm.const(_bitrev(WFLOOR), dev)
@@ -327,7 +360,7 @@ def _window_sums(signs, mags, table, kind, G, m):
             cp, torch.clamp(q - 1, min=0)[:, None, :].long(), -1)
         idp = ec_lm.identity_plane(kind, (G * B,), N_MAGS, dev)
         acc = torch.where((q >= 1)[:, None, :], node_c, idp)
-        acc = fine_walk(levels, acc, counts & ((1 << k) - 1),
+        acc = fine_walk(idx, levels, acc, counts & ((1 << k) - 1),
                         (q << k) if k else torch.zeros_like(q), k)
         return total, _lane_scan_padd(acc, kind)[..., -1:]
 

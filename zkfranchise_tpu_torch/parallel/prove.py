@@ -190,16 +190,13 @@ class ShardedProver:
             "b2": ([pk.b_g2[i] for i in nz] + [pk.delta_g2], "g2"),
             "c": (pk.k_g1 + pk.h_g1 + [pk.delta_g1], "g1")}
         # this rank's table shards, the padded length of each whole table,
-        # and each shard's MSM chunk plan (as DeviceProver._msm_plans)
+        # and each shard's MSM chunks (as DeviceProver._msm_plans)
         self.tabs, self.padded, self._msm_plans = {}, {}, {}
         for key, (pts, kind) in points.items():
             tab = t(_table_shard(pts, nm, mi, kind))
             self.tabs[key] = tab
             self.padded[key] = tab.shape[0] * nm
-            plan = msm_lm._chunks(tab.shape[0])
-            chunks = [msm_lm.pad_chunk(None, tab, s, r, m, kind)[1]
-                      for (s, r, m) in plan]
-            self._msm_plans[key] = (plan, chunks, kind)
+            self._msm_plans[key] = (msm_lm.plan(tab, kind), kind)
         self.alpha = t(ec_lm.g1_table([pk.alpha_g1]).T)
         self.beta1 = t(ec_lm.g1_table([pk.beta_g1]).T)
         self.beta2 = t(ec_lm.g2_table([pk.beta_g2]).T)
@@ -208,14 +205,11 @@ class ShardedProver:
     def _msm(self, scalars_full: torch.Tensor, key: str) -> torch.Tensor:
         """The MSM of this rank's shard of table `key` over its slice of
         the scalars, gathered over 'model' and reduced."""
-        plan, chunks, kind = self._msm_plans[key]
+        chunks, kind = self._msm_plans[key]
         s = self.tabs[key].shape[0]
         i = self.mesh.model.index
-        sc = scalars_full[i * s:(i + 1) * s]
-        ws = [msm_lm.chunk_window_sums(
-            msm_lm.pad_chunk(sc, None, st, r, m, kind)[0], tab, kind)
-            for (st, r, m), tab in zip(plan, chunks)]
-        partial = msm_lm.combine_horner(ws, kind, sc.shape[-1])
+        partial = msm_lm.msm_planned(scalars_full[i * s:(i + 1) * s], chunks,
+                                     kind)
         return _tree_reduce_axis0(self.mesh.model.all_gather(partial), kind)
 
     def _quotient(self, w: torch.Tensor) -> torch.Tensor:

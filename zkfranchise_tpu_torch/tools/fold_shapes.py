@@ -1,5 +1,6 @@
 """fold_padd and fold_padd_aa (G1 and G2) at the widths the MSM sum tree
-launches them with.
+launches them with, and fold_padd_aa through the sort's index at the
+shapes the MSM launches it with at nlevels=160.
 
 At batch 128 every window of the main path folds planes of G*B = 128
 rows: ``fold_padd_aa`` once per chunk (output widths 16384, 4096 and 1024
@@ -11,7 +12,10 @@ levels, outputs h, h/2, ..., h/2^(n-1)) at B = 128 and at the stream
 tail's 32 and 64, and three that it does not make (three levels from
 8192, 4096 and 1024): ``FOLD_WIDE`` rests on them.  Every plane mixes
 real points with identity, doubling and P + (-P) lanes, and the affine
-planes carry infinity-flagged lanes.
+planes carry infinity-flagged lanes.  ``GATHERED`` lists the main path's
+level 0 at nlevels=160, batch 16 (``fold_padd_aa`` reading a chunk's
+[P | -P] rows through each lane's index); each of those lines also times
+the same adds on the plane the index gathers (``plane_*``).
 
 Each shape is first held against its plain version (``torch.equal``);
 then, on the card only, one JSON line per shape gives the median
@@ -68,6 +72,12 @@ LEVELS = [("g1", B, h, n) for B in (128, 64, 32)
 # input's size, so a wide plane goes through it a few batch rows (or
 # lanes) at a time, which gives the same result
 PLAIN_LANES = 1 << 20
+# (kind, B, h): fold_padd_aa through the index at nlevels=160, batch 16:
+# G*B lanes, output width h, for A's chunks of 65,536 and 16,384 points,
+# B1's and B2's of 65,536 (G = 8) and C's of 262,144 (G = 2)
+GATHERED = [("g1", 128, 32768), ("g1", 128, 8192), ("g2", 128, 32768),
+            ("g1", 32, 131072)]
+SMALL_GATHERED = [("g1", 4, 16), ("g2", 2, 8), ("g1", 1, 33)]
 SMALL_SHAPES = [("fold", "g1", 4, 16), ("fold", "g2", 2, 8),
                 ("aa", "g1", 4, 16), ("aa", "g2", 2, 8),
                 ("fold", "g1", 1, 33), ("aa", "g2", 1, 33)]
@@ -109,6 +119,26 @@ def fold_inputs(form: str, kind: str, B: int, m: int, rng, dev):
     x[..., idl] = ident
     x[..., h + idr] = ident
     return x
+
+
+def fold_at_inputs(kind: str, B: int, m: int, rng, dev):
+    """A chunk's [P | -P] rows (2m, arows) (msm_lm.extend_table of m
+    points drawn from a pool of real points, a sixteenth of them the
+    identity) and idx (B, m) int32: each lane takes the m points in an
+    order of its own, each with a random sign (row j or m + j).  Pool
+    points repeat, so doublings and P + (-P) pairs are among the adds."""
+    mul = ec.g1_mul if kind == "g1" else ec.g2_mul
+    pool = [mul(int(k)) for k in rng.integers(1, 1 << 60, size=32)]
+    table = torch.as_tensor(ec_affine.affine_table(pool, kind), device=dev)[
+        torch.as_tensor(rng.integers(0, len(pool), size=m), device=dev)]
+    table[torch.as_tensor(rng.permutation(m)[:max(1, m // 16)],
+                          device=dev)] = torch.as_tensor(
+        ec_affine.identity_rows(kind, 1), device=dev)
+    order = rng.permuted(np.tile(np.arange(m, dtype=np.int32), (B, 1)),
+                         axis=1)
+    sign = rng.integers(0, 2, size=(B, m), dtype=np.int32)
+    return msm_lm.extend_table(table, kind), \
+        torch.as_tensor(order + m * sign, device=dev)
 
 
 def plain_by_rows(ref, x, kind: str, *args):
@@ -224,6 +254,40 @@ def run(dev, shapes, levels, failed: list, timed: bool = True) -> list:
     return results
 
 
+def run_gathered(dev, shapes, failed: list, timed: bool = True) -> list:
+    """fold_padd_aa through the index at each (kind, B, h) of `shapes`,
+    held against the plain version on the plane the index gathers, then
+    timed on the card unless `timed` is False, beside fold_padd_aa on that
+    plane; one JSON line each."""
+    timed = timed and dev.type == "cuda"
+    rng = np.random.default_rng(6)
+    results = []
+    for kind, B, h in shapes:
+        rows = ec_lm.ROWS[kind]
+        table, idx = fold_at_inputs(kind, B, 2 * h, rng, dev)
+        plane = table[idx.long()].transpose(-1, -2).contiguous()
+        tag = f"fold_padd_aa/{kind} table ({table.shape[0]}," \
+              f"{table.shape[1]}) at ({B},{2 * h}) -> h {h}"
+        check(failed, tag, torch.equal(
+            K.fold_padd_aa(table, kind, idx=idx),
+            plain_by_rows(K.fold_padd_aa_ref, plane, kind)))
+        res = {"form": "aa_at", "kind": kind, "B": B, "h": h, "levels": 1,
+               "adds": B * h}
+        if timed:
+            _time(res, tag, lambda: K.fold_padd_aa(table, kind, idx=idx),
+                  "aa", kind, B * h, plane.numel(), B * rows * h)
+            plane_res: dict = {}
+            _time(plane_res, tag + " plane",
+                  lambda: K.fold_padd_aa(plane, kind), "aa", kind, B * h,
+                  plane.numel(), B * rows * h)
+            res.update({f"plane_{k}": plane_res[k] for k in
+                        ("ms", "device_ms", "invalid", "host_ms")})
+        print(json.dumps(res), flush=True)
+        results.append(res)
+        del table, idx, plane
+    return results
+
+
 def _cuobjdump() -> str | None:
     path = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if pathlib.Path(path).exists():
@@ -282,6 +346,7 @@ def main(device=None, small: bool = False) -> int:
         print(json.dumps({"sass_mix": sass_mix(lib)}), flush=True)
     run(dev, SMALL_SHAPES if small else SHAPES,
         SMALL_LEVELS if small else LEVELS, failed)
+    run_gathered(dev, SMALL_GATHERED if small else GATHERED, failed)
     if dev.type != "cuda":
         print("no card: nothing timed")
     return verdict(failed)
