@@ -1212,7 +1212,7 @@ def phase_main_path(np, torch, K, dev) -> tuple[dict, tuple, tuple]:
     first_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     folds = dict(sorted(K.FOLD_SHAPES.items()))
-    planned = _planned_folds(_msm_tables(prover).values(), BATCH,
+    planned = _planned_folds(prover.msm_rows().values(), BATCH,
                              prover.window_group)
     emit({"phase": "main_path", "inputs_s": inputs_s,
           "prover_init_s": prover_init_s, "first_prove_batch_s": first_s,
@@ -1452,7 +1452,7 @@ def phase_fused_step(torch, K, dev, prover, vk, arrs, r, s) -> dict:
     # the path: counts start at 0 here and are read right after the capture
     K.reset_launches()
     t0 = time.perf_counter()
-    step = prover.capture(BATCH, probe=probe)
+    step = prover.capture(BATCH, cut=prover.takes_cut(arrs), probe=probe)
     build_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     nodes = step.node_counts()
@@ -1562,14 +1562,16 @@ class _RecordingProver:
             raise RuntimeError("injected crash")
         steps = getattr(self.prover, "steps", None)
         batch = int(arrs["address"].shape[-1])
-        new = steps is not None and batch not in steps
+        key = (batch, self.prover.prover.takes_cut(arrs)) \
+            if steps is not None else None
+        new = steps is not None and key not in steps
         before = dict(self.K.LAUNCHES)
         out = self.prover.prove_batch(arrs, seed=seed)
         issued = {k: v - before[k] for k, v in self.K.LAUNCHES.items()
                   if v != before[k]}
         record = {"batch": len(out[0]), "seed": seed, "launches": issued}
         if steps is not None:
-            record.update(launches=steps[batch].launches, issued=issued,
+            record.update(launches=steps[key].launches, issued=issued,
                           captured=new)
         self.slices.append(record)
         return out
@@ -1742,10 +1744,11 @@ def _stream_pair(torch, K, dev, name, prover, voters, batch, tail, vk_path,
             "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
             "pool": _pool_bytes(torch, dev, replay.pool)}
-        if list(replay.steps) != [batch, *tail]:
-            raise AssertionError(f"{name}: sizes captured "
+        cut = prover.cut is not None
+        if list(replay.steps) != [(b, cut) for b in (batch, *tail)]:
+            raise AssertionError(f"{name}: steps captured "
                                  f"{list(replay.steps)}, expected each of "
-                                 f"{[batch, *tail]} once")
+                                 f"{[batch, *tail]} once, cut {cut}")
         # (c) the same stream on the eager prover, same voters and seed
         torch.cuda.reset_peak_memory_stats(dev)
         eager = _serve(torch, K, prover, voters, tmp / "eager", eager_sink,
@@ -1763,7 +1766,7 @@ def _stream_pair(torch, K, dev, name, prover, voters, batch, tail, vk_path,
         # (d) each size's captured launches against one eager prove_arrays
         # at that size on the same prover
         eager_step = {}
-        for size in replay.steps:
+        for size, _ in replay.steps:
             arrs = inp.batch_to_arrays(voters[:size], n_levels)
             r, s = (torch.as_tensor(x, device=dev)
                     for x in draw_rs(1, size))
@@ -1786,7 +1789,7 @@ def _stream_pair(torch, K, dev, name, prover, voters, batch, tail, vk_path,
         cross = gverify.verify_files(str(vk_path), files(0)[0], files(1)[1])
         verify_s = time.perf_counter() - t0
     capture_s = {b: st.warmup_s + st.capture_s + st.instantiate_s
-                 for b, st in replay.steps.items()}
+                 for (b, _), st in replay.steps.items()}
     captures = {b: {"warmup_s": st.warmup_s, "capture_s": st.capture_s,
                     "instantiate_s": st.instantiate_s,
                     "total_s": capture_s[b],
@@ -1795,7 +1798,7 @@ def _stream_pair(torch, K, dev, name, prover, voters, batch, tail, vk_path,
                     "launches_equal_prove_arrays":
                         st.launches == eager_step[b],
                     **pool_after[b]}
-                for b, st in replay.steps.items()}
+                for (b, _), st in replay.steps.items()}
     captures_s = sum(capture_s.values())
     streams = {}
     for run, served, sink in (("graph", graph, graph_sink),
@@ -1816,7 +1819,8 @@ def _stream_pair(torch, K, dev, name, prover, voters, batch, tail, vk_path,
                             proving_s)
     emit({"phase": name, "nvidia_smi": smi_line(), "nlevels": n_levels,
           "batch": batch, "voters": n_voters,
-          "captured_sizes": list(replay.steps), "captures": captures,
+          "captured_sizes": [b for b, _ in replay.steps],
+          "captured_cut": [c for _, c in replay.steps], "captures": captures,
           "graph_memory": graph_memory, "eager_memory": eager_memory,
           "files_equal": True, "files": len(trees[0]),
           "streams": streams,
@@ -1866,21 +1870,14 @@ def _spmv_chunks(nnz: int) -> int:
     return 1 if nnz <= 2 * MAX_NNZ_CHUNK else -(-nnz // MAX_NNZ_CHUNK)
 
 
-def _msm_tables(prover) -> dict:
-    """{name: (table, kind)} of a DeviceProver's four MSMs."""
-    return {"a": (prover.a_tab, "g1"), "b1": (prover.b1_tab, "g1"),
-            "b2": (prover.b2_tab, "g2"), "c": (prover.c_tab, "g1")}
-
-
 def _planned_folds(tables, B: int, G=None) -> dict:
-    """msm_lm.msm_fold_launches summed over the MSM tables [(table,
-    kind)] at batch B, keys sorted."""
+    """msm_lm.msm_fold_launches summed over the MSM tables [(rows, kind)]
+    (DeviceProver.msm_rows) at batch B, keys sorted."""
     from zkfranchise_tpu_torch.ops import msm_lm
 
     planned: dict = {}
-    for tab, kind in tables:
-        for key, v in msm_lm.msm_fold_launches(tab.shape[0], B, kind,
-                                               G).items():
+    for rows, kind in tables:
+        for key, v in msm_lm.msm_fold_launches(rows, B, kind, G).items():
             planned[key] = planned.get(key, 0) + v
     return dict(sorted(planned.items()))
 
@@ -1953,20 +1950,24 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
     vk_equal = dev_vk.to_dict() == vk_committed
     prover = DeviceProver(circuit, pk, arrays=arrays, device=dev)
     lap("prover_init")
-    tables = _msm_tables(prover)
+    # the mock voters' leaves lie far above the cut depth: every step of
+    # this phase and of stream160 runs on the cut tables
+    tables = prover.msm_rows(cut=True)
     emit({"phase": "nlevels160_setup", "nlevels": nl, "batch": B,
           "wires": cs.num_vars, "constraints": cs.num_constraints,
           "domain": pk.domain,
           "nnz": {k: int(arrays[k][0].shape[0]) for k in ("a", "b", "c")},
           "spmv_chunks": {k: _spmv_chunks(int(arrays[k][0].shape[0]))
                           for k in ("a", "b", "c")},
-          "msm_tables": {k: int(t.shape[0]) for k, (t, _) in tables.items()},
+          "msm_tables_full": {k: rows for k, (rows, _) in
+                              prover.msm_rows().items()},
+          "msm_tables": {k: rows for k, (rows, _) in tables.items()},
+          "msm_leaves": prover.msm_leaves(cut=True),
           "msm_chunks": {k: [{"real": real, "padded": m,
                               "window_group": msm_lm.default_window_group(
                                   m, B, dev)}
-                             for _, real, m in msm_lm._chunks(
-                                 int(t.shape[0]))]
-                         for k, (t, _) in tables.items()},
+                             for _, real, m in msm_lm._chunks(rows)]
+                         for k, (rows, _) in tables.items()},
           "seconds": seconds, "dev_setup_parts": setup_parts,
           "vk_equals_committed": vk_equal})
     if not vk_equal:
@@ -1980,6 +1981,9 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
     t0 = time.perf_counter()
     arrs = inp.batch_to_arrays(inp.mock_batch(nl, B, seed=7, device=dev), nl)
     seconds["inputs"] = time.perf_counter() - t0
+    if not prover.takes_cut(arrs):
+        raise AssertionError("nlevels160: the mock voters do not take the "
+                             "cut tables")
     t0 = time.perf_counter()
     proofs, pubs = prover.prove_batch(arrs, seed=1)
     torch.cuda.synchronize(dev)
@@ -2024,7 +2028,7 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
     seconds["first_replay_prove_batch"] = time.perf_counter() - t0
     got2, got_pubs2 = replay.prove_batch(arrs, seed=2)
     launches = dict(K.LAUNCHES)
-    step = replay.steps[B]
+    step = replay.steps[B, True]
     nodes = step.node_counts()
 
     def text(ps):
@@ -2050,6 +2054,14 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
                              f"prove_batch's: {equal}")
     require_launches("nlevels160", launches)
 
+    # the same slice on the full tables, after the path's counts were read:
+    # the same proofs and signals
+    full = prover.finalize(*prover.prove_arrays(
+        arrs, *(torch.as_tensor(x, device=dev) for x in draw_rs(1, B)),
+        cut=False)[:4])
+    cut_equals_full = text(full[0]) == text(proofs) and full[1] == pubs
+    torch.cuda.empty_cache()
+
     # correctness by the repo's own means: the pairing verifier, against
     # the committed key
     t0 = time.perf_counter()
@@ -2061,9 +2073,13 @@ def phase_nlevels160(np, torch, K, dev) -> tuple[dict, dict, tuple]:
     tampered = gverify.verify(vk, got[0], tampered_pub)
     seconds["verify"] = time.perf_counter() - t0
     emit({"phase": "nlevels160_verify", "accepted": ok,
-          "cross_voter_accepted": cross, "tampered_accepted": tampered})
+          "cross_voter_accepted": cross, "tampered_accepted": tampered,
+          "cut_proofs_equal_full": cut_equals_full})
     if not all(ok.values()) or cross or tampered:
         raise AssertionError("nlevels160: proof verification failed")
+    if not cut_equals_full:
+        raise AssertionError("nlevels160: the cut tables' proofs differ from "
+                             "the full tables'")
 
     # eager and replay in turns (one round: phase stream160's per-slice
     # rates repeat the reading), one profiled replay, the bench's line
@@ -2231,7 +2247,7 @@ def phase_stream160(torch, K, dev, circuit, pk, vk) -> dict:
     # the folds the tail sizes launch at the 160 tables that batch 16 does
     # not (phase nlevels160 checks those), against their plain versions
     t0 = time.perf_counter()
-    tables = _msm_tables(prover).values()
+    tables = prover.msm_rows(cut=True).values()
     checked = _planned_folds(tables, B, prover.window_group)
     new: dict = {}
     for size in STREAM160_TAIL:

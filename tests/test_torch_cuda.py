@@ -738,7 +738,7 @@ def fused_steps(fused_prover):
             sets = [voters(range(1, n + 1)), voters(range(n + 1, B + 1))]
             rs = [tuple(torch.as_tensor(x, device=dev)
                         for x in draw_rs(seed, B)) for seed in (5, 6)]
-            cache[B] = (prover, prover.capture(B), sets, rs)
+            cache[B] = (prover, prover.capture(B, cut=False), sets, rs)
         return cache[B]
     return get
 
@@ -800,7 +800,7 @@ def test_captured_fold_launches_follow_the_msm_plan(fused_prover):
                                                prover.window_group).items():
             planned[key] = planned.get(key, 0) + 2 * v
     K.reset_launches()
-    prover.capture(4)
+    prover.capture(4, cut=False)
     assert K.FOLD_SHAPES == planned
 
 
@@ -836,7 +836,7 @@ def test_replay_prover_sizes_in_one_pool_replay_in_any_order(fused_prover):
              for B, seed in ((2, 1), (4, 3), (8, 5))}
     for B in (2, 4, 8):                  # captured in this order
         replay.step(B)
-    assert list(replay.steps) == [2, 4, 8]
+    assert list(replay.steps) == [(2, False), (4, False), (8, False)]
     assert all(st.pool is replay.pool for st in replay.steps.values())
     assert all(st.launches for st in replay.steps.values())
     got = []
@@ -848,7 +848,7 @@ def test_replay_prover_sizes_in_one_pool_replay_in_any_order(fused_prover):
     # every clone survives the replays of the other sizes after it
     for B, planes in got:
         assert all(torch.equal(g, w) for g, w in zip(planes, cases[B][3]))
-    assert list(replay.steps) == [2, 4, 8]
+    assert list(replay.steps) == [(2, False), (4, False), (8, False)]
 
 
 def test_replay_prover_stream_equals_eager_stream(fused_prover, tmp_path):
@@ -871,7 +871,7 @@ def test_replay_prover_stream_equals_eager_stream(fused_prover, tmp_path):
         root = tmp_path / name
         trees.append({str(f.relative_to(root)): f.read_bytes()
                       for f in sorted(root.rglob("*")) if f.is_file()})
-    assert list(replay.steps) == [4, 1]
+    assert list(replay.steps) == [(4, False), (1, False)]
     assert trees[0] == trees[1] and len(trees[0]) == 2 * 5 + 1
 
 
@@ -907,7 +907,7 @@ def test_replay_prover_on_an_ingested_zkey(fused_prover):
     eager = {k: v for k, v in K.LAUNCHES.items() if v}
     got = replay.step(4)(arrs, r, s)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert replay.steps[4].launches == eager
+    assert replay.steps[4, False].launches == eager
     proofs, pubs = replay.prove_batch(arrs, seed=9)
     wproofs, wpubs = zprover.prove_batch(arrs, seed=9)
     assert [p.to_dict() for p in proofs] == [p.to_dict() for p in wproofs]
@@ -1212,7 +1212,7 @@ def test_nl160_captured_step_equals_eager(nl160):
     K.reset_launches()
     prover.prove_arrays(arrs, *(torch.as_tensor(x, device=prover.device)
                                 for x in draw_rs(1, B160)))
-    assert replay.steps[B160].launches == \
+    assert replay.steps[B160, True].launches == \
         {k: v for k, v in K.LAUNCHES.items() if v}
 
 
@@ -1238,5 +1238,118 @@ def test_nl160_replay_stream_equals_eager_stream(nl160, tmp_path):
         root = tmp_path / name
         trees.append({str(f.relative_to(root)): f.read_bytes()
                       for f in sorted(root.rglob("*")) if f.is_file()})
-    assert list(replay.steps) == [4, 2, 1]
+    assert list(replay.steps) == [(4, True), (2, True), (1, True)]
     assert trees[0] == trees[1] and len(trees[0]) == 2 * 7 + 1
+
+
+# ---------------------------------------------------------------------------
+# the cut tables at nlevels=160 (groth16.device.SmtCut)
+# ---------------------------------------------------------------------------
+
+def _texts(proofs):
+    import json
+
+    return [json.dumps(p.to_dict()) for p in proofs]
+
+
+@pytest.fixture(scope="module")
+def nl160_steps(nl160):
+    """(the shallow mock batch's arrays, the step captured on the cut
+    tables, the step captured on the full ones) at batch 16."""
+    from zkfranchise_tpu_torch import inputs as tinputs
+
+    prover, _ = nl160
+    arrs = tinputs.batch_to_arrays(
+        tinputs.mock_batch(NL160, B160, seed=7, device=prover.device), NL160)
+    return arrs, prover.capture(B160, cut=True), \
+        prover.capture(B160, cut=False)
+
+
+def test_nl160_cut_tables_and_their_captured_folds(nl160, nl160_steps):
+    """The tables without the SMT levels 160 .. 65 of both trees: A 34,341
+    rows, B 23,332, C 165,404, so 256,000 G1 and 24,576 G2 leaves a window
+    (280,576 of the full tables' 475,136); the cut capture launches the
+    folds msm_lm.msm_fold_launches plans for them, twice (warm-up and
+    capture)."""
+    prover, _ = nl160
+    _, cut, full = nl160_steps
+    assert prover.cut.depth == 64 and cut.cut and not full.cut
+    rows = prover.msm_rows(cut=True)
+    assert {k: r for k, (r, _) in rows.items()} == \
+        {"a": 34341, "b1": 23332, "b2": 23332, "c": 165404}
+    assert prover.msm_leaves(cut=True) == {"msm_leaves": 280576,
+                                           "msm_leaves_full": 475136}
+    planned: dict = {}
+    for n, kind in rows.values():
+        for key, v in msm_lm.msm_fold_launches(n, B160, kind,
+                                               prover.window_group).items():
+            planned[key] = planned.get(key, 0) + 2 * v
+    K.reset_launches()
+    step = prover.capture(B160, cut=True)
+    assert K.FOLD_SHAPES == planned
+    del step
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_nl160_cut_step_proofs_equal_the_full_steps(nl160, nl160_steps,
+                                                     seed):
+    """At batch 16 the captured step on the cut tables and the one on the
+    full tables give the same proofs and signals byte for byte, and so do
+    the eager prove_batch (which takes the cut) and prove_arrays on the full
+    tables."""
+    from zkfranchise_tpu_torch.groth16.device import draw_rs
+
+    prover, _ = nl160
+    arrs, cut, full = nl160_steps
+    assert prover.takes_cut(arrs)
+    got, got_pubs = cut.prove_batch(arrs, seed=seed)
+    want, want_pubs = full.prove_batch(arrs, seed=seed)
+    assert _texts(got) == _texts(want) and got_pubs == want_pubs
+    eager, eager_pubs = prover.prove_batch(arrs, seed=seed)
+    planes = prover.prove_arrays(arrs, *(torch.as_tensor(
+        x, device=prover.device) for x in draw_rs(seed, B160)), cut=False)
+    plain, plain_pubs = prover.finalize(*planes[:4])
+    assert _texts(eager) == _texts(want) == _texts(plain)
+    assert eager_pubs == want_pubs == plain_pubs
+
+
+def test_nl160_deep_voter_takes_the_full_step(nl160, nl160_steps):
+    """A slice with two leaves at depth 101: the host's test sends it to
+    the full tables, ReplayProver captures and replays the full step there
+    (after the cut one of a shallow slice), its proofs equal the eager
+    prover's and verify; the cut step refuses the slice, and a cut step
+    forced on it is stopped by finish's guard."""
+    import json
+    import pathlib
+
+    from zkfranchise_tpu_torch import inputs as tinputs
+    from zkfranchise_tpu_torch.groth16 import verify as gverify
+    from zkfranchise_tpu_torch.groth16.device import ReplayProver, draw_rs
+    from zkfranchise_tpu_torch.tools import deep_pair_batch
+
+    prover, _ = nl160
+    shallow, cut, _ = nl160_steps
+    dev = prover.device
+    arrs = tinputs.batch_to_arrays(
+        deep_pair_batch(NL160, B160, 100, 11, dev), NL160)
+    depth = K.smt_depth(torch.as_tensor(np.concatenate(
+        [arrs["sikSiblings"], arrs["censusSiblings"]], -1)))
+    assert depth.max() == 101 and (depth > 64).sum() == 4
+    assert not prover.takes_cut(arrs) and prover.takes_cut(shallow)
+    replay = ReplayProver(prover)
+    replay.prove_batch(shallow, seed=1)
+    got, got_pubs = replay.prove_batch(arrs, seed=3)
+    assert list(replay.steps) == [(B160, True), (B160, False)]
+    want, want_pubs = prover.prove_batch(arrs, seed=3)
+    assert _texts(got) == _texts(want) and got_pubs == want_pubs
+    vk = gverify.VerifyingKey(json.loads((
+        pathlib.Path(__file__).resolve().parent.parent / "artifacts" /
+        "zkCensus" / "dev" / str(NL160) / "verification_key.json")
+        .read_text()))
+    assert all(gverify.verify(vk, got[i], got_pubs[i]) for i in (0, 1))
+    r, s = (torch.as_tensor(x, device=dev) for x in draw_rs(3, B160))
+    with pytest.raises(ValueError, match="cut tables"):
+        cut(arrs, r, s)
+    *planes, hashed = prover.prove_arrays(arrs, r, s, cut=True)
+    with pytest.raises(RuntimeError, match="smt cut"):
+        prover.finish(planes, hashed, True)

@@ -55,7 +55,7 @@ def fused(prover, arrs):
     made: list = []
     K.reset_launches()
     with host_tensors(made):
-        planes = prover.fused_step(inputs, r, s)
+        planes = prover.fused_step(inputs, r, s, cut=False)
     assert all(v == 0 for v in K.LAUNCHES.values())   # CPU: no kernels
     return planes, made
 
@@ -90,9 +90,9 @@ def test_fused_step_makes_host_tensors_only_in_constant_caches(fused):
 
 def test_fused_step_refuses_the_cpu(prover):
     with pytest.raises(RuntimeError, match="on the card"):
-        tdevice.FusedStep(prover, 1)
+        tdevice.FusedStep(prover, 1, cut=False)
     with pytest.raises(RuntimeError, match="on the card"):
-        prover.capture(2)
+        prover.capture(2, cut=False)
 
 
 def test_input_spec_is_batch_to_arrays(arrs):
@@ -199,6 +199,6 @@ def test_fused_step_planes_equal_jax_fused_step():
     got = prover.fused_step(
         {k: torch.as_tensor(np.asarray(v)) for k, v in jarrs.items()},
         torch.as_tensor(lm.ints_to_lm([3, 5])),
-        torch.as_tensor(lm.ints_to_lm([7, 11])))
+        torch.as_tensor(lm.ints_to_lm([7, 11])), cut=False)
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))

@@ -23,6 +23,7 @@ import torch
 from zkfranchise_tpu_torch import inputs as tinputs
 from zkfranchise_tpu_torch.groth16 import device as tdevice
 from zkfranchise_tpu_torch.groth16 import setup as tsetup
+from zkfranchise_tpu_torch.models import census
 from zkfranchise_tpu_torch.models.census import CensusCircuit
 from zkfranchise_tpu_torch.ops.cuda import lm_kernels as K
 from zkfranchise_tpu_torch.stream import ProofStream
@@ -118,9 +119,9 @@ def test_replay_prover_refuses_a_cpu_prover(cpu_prover):
 def test_fused_step_takes_a_pool_and_refuses_the_cpu(cpu_prover):
     token = object()
     with pytest.raises(RuntimeError, match="on the card"):
-        tdevice.FusedStep(cpu_prover, 2, pool=token)
+        tdevice.FusedStep(cpu_prover, 2, cut=False, pool=token)
     with pytest.raises(RuntimeError, match="on the card"):
-        cpu_prover.capture(2, probe=lambda stage: None)
+        cpu_prover.capture(2, cut=False, probe=lambda stage: None)
 
 
 # ---------------------------------------------------------------------------
@@ -139,13 +140,21 @@ def _proofs(arrs, seed, batch):
 
 class _EagerStub:
     """A DeviceProver as ProofStream sees it; .device claims the card so
-    that ReplayProver takes it."""
+    that ReplayProver takes it.  With a cut depth it claims cut tables
+    (DeviceProver.cut) and routes as DeviceProver.takes_cut."""
 
     class _C:
         n_levels = 16
 
     circuit = _C()
     device = torch.device("cuda")
+
+    def __init__(self, cut_depth=None):
+        self.cut = cut_depth and type("Cut", (), {"depth": cut_depth})()
+
+    def takes_cut(self, arrs):
+        return self.cut is not None and \
+            census.leaves_within(arrs, self.cut.depth)
 
     def prove_batch(self, arrs, seed=0):
         return _proofs(arrs, seed, arrs["address"].shape[-1])
@@ -157,8 +166,9 @@ class _StubStep:
 
     made = []
 
-    def __init__(self, prover, batch, *, pool=None, probe=None):
-        self.prover, self.batch, self.pool = prover, batch, pool
+    def __init__(self, prover, batch, *, pool=None, probe=None, cut=None):
+        self.prover, self.batch, self.pool, self.cut = prover, batch, pool, \
+            cut
         self.warmup_s = self.capture_s = self.instantiate_s = 0.0
         self.launches = {}
         _StubStep.made.append(self)
@@ -230,16 +240,40 @@ def test_replay_stream_captures_each_size_once_in_one_pool(tmp_path,
 
     _serve(replay, tmp_path / "graph", voters, batch)
     assert [s.batch for s in _StubStep.made] == sizes
-    assert list(replay.steps) == sizes
-    assert all(s.pool is token and s.prover is eager
+    assert list(replay.steps) == [(b, False) for b in sizes]
+    assert all(s.pool is token and s.prover is eager and s.cut is False
                for s in _StubStep.made)
-    assert replay.steps == {s.batch: s for s in _StubStep.made}
+    assert replay.steps == {(s.batch, False): s for s in _StubStep.made}
     assert probed == [(b, stage) for b in sizes
                       for stage in ("start", "warmup", "capture",
                                     "instantiate")]
-    assert replay.step(sizes[1]) is replay.steps[sizes[1]]  # kept, not again
+    assert replay.step(sizes[1]) is \
+        replay.steps[sizes[1], False]                   # kept, not again
     assert len(_StubStep.made) == len(sizes)
 
     _serve(eager, tmp_path / "eager", voters, batch)
     graph, plain = _tree(tmp_path / "graph"), _tree(tmp_path / "eager")
     assert graph == plain and len(graph) == 2 * n + 1
+
+
+def test_replay_routes_a_slice_with_a_deep_leaf_to_a_full_step(monkeypatch):
+    """Behind a prover with cut tables at depth 4, the set-up's step(B) is
+    the cut one; a slice whose leaves all lie at depth <= 4 replays it, and
+    a slice with one sibling at index 4 (a leaf at depth 5) has a step on
+    the full tables captured and replayed; each is kept."""
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(tdevice, "FusedStep", _StubStep)
+    _StubStep.made.clear()
+    arrs = tinputs.batch_to_arrays(
+        tinputs.mock_batch(16, 4, seed=6, device="cpu"), 16)
+    for key in ("sikSiblings", "censusSiblings"):
+        arrs[key][4:] = 0                       # every leaf at depth <= 4
+    deep = {k: v.copy() for k, v in arrs.items()}
+    deep["censusSiblings"][4, 0, 2] = 1
+    replay = tdevice.ReplayProver(_EagerStub(cut_depth=4))
+    assert replay.step(4).cut is True
+    for a in (arrs, deep, arrs, deep):
+        replay.prove_batch(a, seed=1)
+    assert list(replay.steps) == [(4, True), (4, False)]
+    assert [(s.batch, s.cut) for s in _StubStep.made] == [(4, True),
+                                                          (4, False)]

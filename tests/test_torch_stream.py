@@ -186,7 +186,7 @@ def _step_stand_ins(monkeypatch):
                                                       ReplayProver)
     stub = _StubProver()
 
-    def planes(inputs, r, s):
+    def planes(inputs, r, s, cut=False):
         # the step's outputs: four planes, then the SMT levels each lane
         # of the two trees hashed (here one level a lane)
         lanes = 2 * inputs["address"].shape[-1]
@@ -199,6 +199,7 @@ def _step_stand_ins(monkeypatch):
     prover = object.__new__(DeviceProver)
     prover.device = torch.device("cpu")
     prover.circuit = _StubProver.circuit
+    prover.cut, prover._msm_plans = None, {}      # no cut tables, no MSM
     prover.prove_arrays = planes
     prover.finalize = finalize
     monkeypatch.setattr(FusedStep, "__call__",
@@ -208,8 +209,8 @@ def _step_stand_ins(monkeypatch):
     replay.device = prover.device
     replay.steps = {}
     for size in (1, 2, 4, 8):
-        replay.steps[size] = step = object.__new__(FusedStep)
-        step.prover, step.batch = prover, size
+        replay.steps[size, False] = step = object.__new__(FusedStep)
+        step.prover, step.batch, step.cut = prover, size, False
     return {"eager": prover, "replay": replay}
 
 
@@ -244,6 +245,7 @@ def test_stream_spans_of_each_slice(tmp_path, voters, monkeypatch, path):
             assert r["parent"] == stage["id"]
         assert (finalize["smt_hashed"], finalize["smt_levels"]) == \
             (2 * batch, 2 * 17 * batch)
+        assert (finalize["msm_leaves"], finalize["msm_leaves_full"]) == (0, 0)
         assert "smt_hashed" not in enqueue and "smt_hashed" not in stage
         assert arrays["parent"] is None and files["parent"] is None
         assert arrays["t1"] <= stage["t0"] <= enqueue["t0"] and \

@@ -24,15 +24,24 @@ pool, behind ``prove_batch``: the stream's prover on captured steps.
 The B1/B2 tables are compacted: wires whose B polynomial is zero carry
 identity points (None in the key), and dropping them roughly halves the
 padded MSM size.
+
+Past nlevels = SMT_CUT_DEPTH the step has a second set of tables (SmtCut):
+the four without the SMT levels below that depth, whose witness is one
+constant for every voter above it, and the sum of those rows as one point
+a table.  A slice takes them when every lane's leaf lies at or above the
+cut depth (models/census.py leaves_within, read on the host), and the full
+tables otherwise.
 """
 from __future__ import annotations
 
 import ctypes
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..models import census
 from ..models.census import CensusCircuit
 from ..ops import ec_affine, ec_lm, ff, lm, msm_lm, ntt, sparse
 from ..ops.cuda import lm_kernels as K
@@ -164,6 +173,29 @@ def _no_mark(stage: str) -> None:
     pass
 
 
+@dataclass
+class SmtCut:
+    """The MSM tables without the SMT levels below `depth`
+    (census.smt_cut_vars) and what the step needs to run on them: `index`
+    gathers each table's scalars from the full path's ("a": wa, "b": ws
+    for B1 and B2, "c": the C scalars); `plans` {table: (chunks, kind)} as
+    DeviceProver._msm_plans; `consts` {table: (1, rows, 1)} the cut rows'
+    sum times their one witness, added to the table's MSM."""
+    depth: int
+    index: dict
+    plans: dict
+    consts: dict
+
+
+def check_cut_depths(hashed: list, depth: int) -> None:
+    """The guard of a step on cut tables: raises unless every lane's count
+    of hashed SMT levels (on the card its depth) is at most `depth`."""
+    if max(hashed, default=0) > depth:
+        raise RuntimeError(f"smt cut: a lane's leaf lies at depth "
+                           f"{max(hashed)}, below the cut tables' {depth}: "
+                           f"its proof would be wrong")
+
+
 # the assembly's ladder as plain PyTorch, (rows, B) points and (nbits, B)
 # bits: the plain version of K.scalar_mul
 scalar_mul_plane = K.scalar_mul_ref
@@ -225,11 +257,83 @@ class DeviceProver:
                                    ("b1", self.b1_tab, "g1"),
                                    ("b2", self.b2_tab, "g2"),
                                    ("c", self.c_tab, "g1"))}
+        self.cut = self._smt_cut(census.SMT_CUT_DEPTH)
 
-    def _msm(self, scalars: torch.Tensor, key: str) -> torch.Tensor:
-        """Chunk-dispatched MSM over the proving-key table `key`."""
-        chunks, kind = self._msm_plans[key]
-        return msm_lm.msm_planned(scalars, chunks, kind, self.window_group)
+    def _smt_cut(self, depth: int) -> SmtCut | None:
+        """The cut tables (SmtCut), None where the circuit has no SMT level
+        below `depth`.  The cut rows' witness is the witness generator's
+        own for two synthetic voters (census.shallow_voters), checked to be
+        one constant (census.cut_witness)."""
+        n_levels = self.circuit.n_levels
+        wires = census.smt_cut_vars(self.circuit.cs, n_levels, depth)
+        if not len(wires):
+            return None
+        inputs = {k: torch.as_tensor(v, device=self.device) for k, v in
+                  census.shallow_voters(n_levels, depth).items()}
+        wires_dev = torch.as_tensor(wires, device=self.device)
+        w_cut = census.cut_witness(
+            lm.from_mont(self.circuit.witness(inputs), FR)[wires_dev],
+            n_levels - depth)
+        # each table's cut rows and their witness: A's rows are the wires,
+        # B's the positions of the cut wires among the B wires, C's the
+        # private wires' from npub + 1
+        b_pos = np.searchsorted(self.b_nz, wires)
+        in_b = self.b_nz[b_pos] == wires
+        in_b_dev = torch.as_tensor(in_b, device=self.device)
+        cut_rows = {"a": (wires, w_cut), "b1": (b_pos[in_b], w_cut[in_b_dev]),
+                    "b2": (b_pos[in_b], w_cut[in_b_dev]),
+                    "c": (wires - (self.pk_meta[1] + 1), w_cut)}
+        keep, plans, consts = {}, {}, {}
+        for key, (chunks, kind) in self._msm_plans.items():
+            rows, scalars = cut_rows[key]
+            keep[key], chunks, consts[key] = msm_lm.plan_cut(
+                getattr(self, f"{key}_tab"), kind, rows, scalars)
+            plans[key] = (chunks, kind)
+
+        def t(x):
+            return torch.as_tensor(x, device=self.device)
+
+        return SmtCut(depth, {"a": t(keep["a"]), "b": t(self.b_nz[keep["b1"]]),
+                              "c": t(keep["c"])}, plans, consts)
+
+    def takes_cut(self, inputs: dict) -> bool:
+        """Whether a slice's step runs on the cut tables: the prover has
+        them and every lane's leaf lies at or above their depth (read on
+        the host from the input arrays)."""
+        return self.cut is not None and \
+            census.leaves_within(inputs, self.cut.depth)
+
+    def msm_leaves(self, cut: bool) -> dict:
+        """The sum-tree leaves a window of the step's four MSMs as planned,
+        on the cut tables or the full ones, beside the full ones':
+        step.finalize's record."""
+        def leaves(plans):
+            return sum(msm_lm.plan_leaves(chunks)
+                       for chunks, _ in plans.values())
+        full = leaves(self._msm_plans)
+        return {"msm_leaves": leaves(self.cut.plans) if cut else full,
+                "msm_leaves_full": full}
+
+    def msm_rows(self, cut: bool = False) -> dict:
+        """{table: (rows, kind)} of the step's four MSMs, on the cut tables
+        or the full ones."""
+        plans = self.cut.plans if cut else self._msm_plans
+        return {key: (sum(real for _, real, _, _ in chunks), kind)
+                for key, (chunks, kind) in plans.items()}
+
+    def _msm(self, scalars: torch.Tensor, key: str,
+             cut: SmtCut | None = None) -> torch.Tensor:
+        """Chunk-dispatched MSM over the proving-key table `key`; with a
+        cut, over the cut table (scalars over its rows) plus the cut rows'
+        sum."""
+        if cut is None:
+            chunks, kind = self._msm_plans[key]
+            return msm_lm.msm_planned(scalars, chunks, kind,
+                                      self.window_group)
+        chunks, kind = cut.plans[key]
+        return K.padd(msm_lm.msm_planned(scalars, chunks, kind,
+                                         self.window_group),
+                      cut.consts[key], kind)
 
     def _inputs(self, inputs: dict) -> dict:
         return {k: torch.as_tensor(np.asarray(v) if not isinstance(
@@ -238,36 +342,46 @@ class DeviceProver:
 
     # -- full pipeline -------------------------------------------------------
     def fused_step(self, inputs: dict, r_plain: torch.Tensor,
-                   s_plain: torch.Tensor):
+                   s_plain: torch.Tensor, cut: bool):
         """The whole pipeline as one function: witness, quotient, the four
         MSMs, -r*s and the assembly.  inputs: the dict of
         inputs.batch_to_arrays as int32 tensors, and r/s (21, B) plain
         canonical, all already on the prover's device.  No host copy, no
         synchronisation and no value read back, so it can be captured as
-        one CUDA graph (FusedStep).  Returns (pi_a (63, B), pi_b (126, B),
-        pi_c (63, B), publics (npub, 21, B), the SMT levels each lane of
-        the two trees hashed (2 B,))."""
-        return self._step(inputs, r_plain, s_plain, _no_mark)
+        one CUDA graph (FusedStep).  cut: the MSMs on the cut tables
+        (SmtCut), right only where takes_cut(inputs).  Returns (pi_a (63,
+        B), pi_b (126, B), pi_c (63, B), publics (npub, 21, B), the SMT
+        levels each lane of the two trees hashed (2 B,))."""
+        return self._step(inputs, r_plain, s_plain, _no_mark, cut)
 
     def prove_arrays(self, inputs: dict, r_plain: torch.Tensor,
                      s_plain: torch.Tensor,
-                     stage_seconds: dict | None = None):
+                     stage_seconds: dict | None = None,
+                     cut: bool | None = None):
         """Batched prove; r/s: (21, B) plain canonical.  Returns limb-major
         planes (pi_a (63, B), pi_b (126, B), pi_c (63, B), publics) and
         the SMT levels hashed, as fused_step.
         Inputs may lie anywhere (numpy arrays or tensors): they are copied
-        to the prover's device first; then the body of fused_step runs.
+        to the prover's device first; then the body of fused_step runs, on
+        the cut tables where `cut` says so (by default where
+        takes_cut(inputs)).
 
         stage_seconds: if a dict is given, the device is synchronized after
         every stage and each stage's seconds are stored in it under
         witness, quotient, msm_a, msm_b1, msm_b2, msm_c, assemble."""
+        if cut is None:
+            cut = self.takes_cut(inputs)
         clock = _StageClock(stage_seconds, self.device)
         return self._step(self._inputs(inputs), r_plain.to(self.device),
-                          s_plain.to(self.device), clock.mark)
+                          s_plain.to(self.device), clock.mark, cut)
 
-    def _step(self, inputs: dict, r_plain, s_plain, mark):
+    def _step(self, inputs: dict, r_plain, s_plain, mark, cut: bool):
         """The body of fused_step and prove_arrays; mark(stage) is called
         after each stage."""
+        if cut and self.cut is None:
+            raise ValueError("the prover has no cut tables: its circuit has "
+                             "no SMT level below the cut depth")
+        cut = self.cut if cut else None
         w, w_plain, hashed = witness_stage(self.circuit, inputs)
         mark("witness")
         q_plain = quotient_stage(self._arrays_dev, self.pk_meta[2], w)
@@ -276,16 +390,17 @@ class DeviceProver:
         npub = self.pk_meta[1]
         wa = torch.cat([w_plain, r_plain[None]], 0)
         ws = torch.cat([w_plain, s_plain[None]], 0)
-        ws_b = ws[self._b_nz_dev]
-        pa = self._msm(wa, "a")
+        ws_b = ws[self._b_nz_dev if cut is None else cut.index["b"]]
+        pa = self._msm(wa if cut is None else wa[cut.index["a"]], "a", cut)
         mark("msm_a")
-        pb1 = self._msm(ws_b, "b1")
+        pb1 = self._msm(ws_b, "b1", cut)
         mark("msm_b1")
-        pb2 = self._msm(ws_b, "b2")
+        pb2 = self._msm(ws_b, "b2", cut)
         mark("msm_b2")
         neg_rs = neg_rs_scalar(r_plain, s_plain)
         c_scalars = torch.cat([w_plain[npub + 1:], q_plain, neg_rs[None]], 0)
-        pc = self._msm(c_scalars, "c")
+        pc = self._msm(c_scalars if cut is None else
+                       c_scalars[cut.index["c"]], "c", cut)
         mark("msm_c")
         pi_a, pi_b, pi_c = assemble_stage(pa, pb1, pb2, pc, r_plain, s_plain,
                                           self.alpha, self.beta1, self.beta2)
@@ -294,28 +409,43 @@ class DeviceProver:
         # alive (a captured step's outputs stay allocated in its pool)
         return pi_a, pi_b, pi_c, w_plain[1:1 + npub].clone(), hashed
 
-    def capture(self, batch: int, probe=None) -> "FusedStep":
+    def capture(self, batch: int, *, cut: bool,
+                probe=None) -> "FusedStep":
         """fused_step captured as one CUDA graph at this batch size (see
-        FusedStep for `probe`)."""
-        return FusedStep(self, batch, probe=probe)
+        FusedStep for `cut` and `probe`)."""
+        return FusedStep(self, batch, cut=cut, probe=probe)
 
     # -- host wrapper --------------------------------------------------------
     def prove_batch(self, inputs: dict, seed: int = 0):
         """Returns (proofs: list[Proof], public_signals: list[list[int]]).
         r and s come from numpy.random.default_rng(seed), as in the JAX
-        package, so one seed gives the same proofs.  Spans: step.enqueue
-        (r and s drawn, the step issued), step.wait (until the device has
-        finished it), step.finalize (its record carries smt_counts)."""
+        package, so one seed gives the same proofs.  The step runs on the
+        cut tables where takes_cut(inputs).  Spans: step.enqueue (r and s
+        drawn, the step issued), step.wait (until the device has finished
+        it), step.finalize (finish)."""
         with metrics.span("step.enqueue"):
             count = int(np.asarray(inputs["address"]).shape[-1])
+            cut = self.takes_cut(inputs)
             r_arr, s_arr = (torch.as_tensor(x, device=self.device)
                             for x in draw_rs(seed, count))
-            *planes, hashed = self.prove_arrays(inputs, r_arr, s_arr)
+            *planes, hashed = self.prove_arrays(inputs, r_arr, s_arr, cut=cut)
         with metrics.span("step.wait"):
             metrics.force(self.device)
         with metrics.span("step.finalize"):
-            metrics.note(**smt_counts(hashed, self.circuit.n_levels))
-            return self.finalize(*planes)
+            return self.finish(planes, hashed, cut)
+
+    def finish(self, planes, hashed: torch.Tensor, cut: bool):
+        """step.finalize's body: its record's counts (smt_counts and
+        msm_leaves, through metrics.note), the guard of a step on the cut
+        tables, then finalize.  The guard reads the hashed levels, which on
+        the card are each lane's depth; on the CPU the plain chain hashes
+        every level, and takes_cut alone routes."""
+        hashed = hashed.cpu()
+        metrics.note(**smt_counts(hashed, self.circuit.n_levels),
+                     **self.msm_leaves(cut))
+        if cut and self.device.type == "cuda":
+            check_cut_depths(hashed.tolist(), self.cut.depth)
+        return self.finalize(*planes)
 
     def finalize(self, pa, pb, pc, publics):
         """pa/pc: (63, B); pb: (126, B) planes; publics (8, 21, B) plain
@@ -358,10 +488,15 @@ class FusedStep:
     use their space when it replays (ReplayProver).  probe(stage), if
     given, is called before the warm-up ("start") and after the warm-up,
     the capture and the instantiation ("warmup", "capture",
-    "instantiate"), so a caller can read the allocator at each point."""
+    "instantiate"), so a caller can read the allocator at each point.
 
-    def __init__(self, prover: DeviceProver, batch: int, *, pool=None,
-                 probe=None):
+    cut: the step on the prover's cut tables (SmtCut), or on the full
+    ones.  A cut step refuses inputs with a leaf below the
+    cut depth (DeviceProver.takes_cut), and its prove_batch checks the
+    depths the witness reports (DeviceProver.finish)."""
+
+    def __init__(self, prover: DeviceProver, batch: int, *, cut: bool,
+                 pool=None, probe=None):
         dev = prover.device
         if dev.type != "cuda":
             raise RuntimeError(f"FusedStep: a CUDA graph needs a prover on "
@@ -370,6 +505,7 @@ class FusedStep:
         self.prover = prover
         self.batch = batch
         self.pool = pool
+        self.cut = cut
         self.spec = input_spec(prover.circuit.n_levels, batch)
         self.inputs = {k: torch.zeros(shape, dtype=torch.int32, device=dev)
                        for k, shape in self.spec.items()}
@@ -382,7 +518,7 @@ class FusedStep:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            prover.fused_step(self.inputs, self.r, self.s)
+            prover.fused_step(self.inputs, self.r, self.s, self.cut)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
@@ -392,7 +528,8 @@ class FusedStep:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph, pool=pool):
-            self.outputs = prover.fused_step(self.inputs, self.r, self.s)
+            self.outputs = prover.fused_step(self.inputs, self.r, self.s,
+                                             self.cut)
         self.capture_s = time.perf_counter() - t0
         self.launches = {k: v - before[k] for k, v in K.LAUNCHES.items()
                          if v != before[k]}
@@ -407,6 +544,10 @@ class FusedStep:
         """-> clones of (pi_a, pi_b, pi_c, publics, hashed) for these
         inputs."""
         check_step_inputs(self.spec, inputs, r_plain, s_plain)
+        if self.cut and not self.prover.takes_cut(inputs):
+            raise ValueError(f"step inputs: a leaf below depth "
+                             f"{self.prover.cut.depth}, on a step on the "
+                             f"cut tables")
         for key, buf in self.inputs.items():
             buf.copy_(_tensor(inputs[key]))
         self.r.copy_(_tensor(r_plain))
@@ -425,9 +566,7 @@ class FusedStep:
         with metrics.span("step.wait"):
             metrics.force(self.prover.device)
         with metrics.span("step.finalize"):
-            metrics.note(**smt_counts(hashed,
-                                      self.prover.circuit.n_levels))
-            return self.prover.finalize(*planes)
+            return self.prover.finish(planes, hashed, self.cut)
 
     def node_counts(self) -> dict:
         """{node type: count} of the captured graph (graph_node_counts)."""
@@ -438,19 +577,22 @@ class ReplayProver:
     """A DeviceProver behind one captured step per batch size: the port's
     counterpart of the JAX prover's programs compiled once per shape.
 
-    ProofStream's duck type (.circuit, .device, prove_batch).  step(B)
-    captures a FusedStep the first time size B is asked for and keeps it;
-    prove_batch replays it with the r and s that DeviceProver.prove_batch
-    draws from the same seed, so the proofs are the same.  Every size is
-    captured into one memory pool (one torch.cuda.graph_pool_handle()), so
-    the sizes share the space of their intermediates.  A later capture
+    ProofStream's duck type (.circuit, .device, prove_batch).  step(B,
+    cut) captures a FusedStep the first time size B is asked for on the
+    cut tables (cut True) or the full ones, and keeps it; prove_batch
+    replays the one its slice takes (DeviceProver.takes_cut) with the r
+    and s that DeviceProver.prove_batch draws from the same seed, so the
+    proofs are the same.  Every step is captured into one memory pool
+    (one torch.cuda.graph_pool_handle()), so the steps share the space of
+    their intermediates.  A later capture
     may place its outputs where an earlier graph keeps intermediates, so
     a graph's outputs hold only until the next replay of any size; each
     call clones them right after its own replay, on the same stream,
     which makes any order of replays safe (never two at once).  There is
     no eager or CPU fallback: a prover off the card or a failed capture
     raises, and a size with no graph is captured, never run eagerly.
-    `steps` holds the steps by size in the order they were captured."""
+    `steps` holds the steps by (size, cut) in the order they were
+    captured."""
 
     def __init__(self, prover: DeviceProver, probe=None):
         """probe(batch, stage), if given, is called at every FusedStep
@@ -464,18 +606,24 @@ class ReplayProver:
         self.probe = probe
         self.steps: dict = {}
 
-    def step(self, batch: int) -> FusedStep:
-        """The captured step of this batch size, captured at first use."""
-        if batch not in self.steps:
+    def step(self, batch: int, cut: bool = True) -> FusedStep:
+        """The captured step of this batch size, captured at first use: on
+        the cut tables where `cut` asks for them and the prover has them
+        (the default, what a stream's set-up captures ahead of its
+        slices), else on the full ones."""
+        cut = cut and self.prover.cut is not None
+        if (batch, cut) not in self.steps:
             probe = self.probe and (lambda stage: self.probe(batch, stage))
-            self.steps[batch] = FusedStep(self.prover, batch, pool=self.pool,
-                                          probe=probe)
-        return self.steps[batch]
+            self.steps[batch, cut] = FusedStep(
+                self.prover, batch, cut=cut, pool=self.pool, probe=probe)
+        return self.steps[batch, cut]
 
     def prove_batch(self, inputs: dict, seed: int = 0):
-        """DeviceProver.prove_batch through the step of this batch size."""
+        """DeviceProver.prove_batch through the step of this batch size on
+        the tables the slice takes."""
         batch = int(np.asarray(inputs["address"]).shape[-1])
-        return self.step(batch).prove_batch(inputs, seed=seed)
+        return self.step(batch, self.prover.takes_cut(inputs)).prove_batch(
+            inputs, seed=seed)
 
 
 # CUgraphNodeType (cuda.h)

@@ -183,39 +183,45 @@ def mock_batch(n_levels: int, n_voters: int, *, seed: int = 0,
     through the same vectorized kernel.  Per-voter proofs are extracted
     from the shared trees.  The hashes run on `device` (default: the
     card)."""
-    device = devices.resolve(device)
     rng = random.Random(seed)
     voters = []
-    pwd_b = DEFAULT_PASSWORD
-    pwd = ff.big_to_ff(int.from_bytes(pwd_b, "big"))
     for _ in range(n_voters):
         acct = eth.Account(rng.randrange(1, eth.SECP_N))
-        sig64 = acct.sik_signature()
-        sig = ff.big_to_ff(int.from_bytes(sig64, "big"))
-        addr_b = acct.address
-        addr = arbo.bytes_to_bigint(addr_b)
-        voters.append((acct, sig64, sig, addr_b, addr))
+        voters.append((acct.address, acct.sik_signature()))
+    return shared_trees_batch(voters, n_levels,
+                              available_weight=available_weight,
+                              vote_weight=vote_weight,
+                              election_id=election_id, device=device)
+
+
+def shared_trees_batch(voters: list, n_levels: int, *,
+                       available_weight: int = 10, vote_weight: int = 5,
+                       election_id: bytes = DEFAULT_ELECTION_ID,
+                       device=None) -> list[CircuitInputs]:
+    """The circuit inputs of `voters`, (address bytes, 64-byte SIK
+    signature) pairs, in ONE census and ONE SIK tree built from them all
+    (mock_batch's trees), with the default password."""
+    device = devices.resolve(device)
+    pwd = ff.big_to_ff(int.from_bytes(DEFAULT_PASSWORD, "big"))
+    addrs = [arbo.bytes_to_bigint(addr_b) for addr_b, _ in voters]
     siks = smt_batch.hash_batch(
-        [[addr, pwd, sig] for _, _, sig, _, addr in voters], device)
+        [[addr, pwd, ff.big_to_ff(int.from_bytes(sig64, "big"))]
+         for addr, (_, sig64) in zip(addrs, voters)], device)
     census = smt_batch.BatchSMT(
-        [(addr, available_weight) for *_, addr in voters],
+        [(addr, available_weight) for addr in addrs],
         max_levels=n_levels, device=device)
-    sik_tree = smt_batch.BatchSMT(
-        [(addr, sik) for (*_, addr), sik in zip(voters, siks)],
-        max_levels=n_levels, device=device)
-    out = []
-    for acct, sig64, sig, addr_b, addr in voters:
-        out.append(generate_circuit_inputs(
-            address_bytes=addr_b, password=pwd_b, signature64=sig64,
-            available_weight=available_weight, vote_weight=vote_weight,
-            election_id=election_id,
-            census_root=census.root,
-            census_siblings=census.padded_siblings(addr, n_levels),
-            sik_root=sik_tree.root,
-            sik_siblings=sik_tree.padded_siblings(addr, n_levels),
-            n_levels=n_levels,
-        ))
-    return out
+    sik_tree = smt_batch.BatchSMT(list(zip(addrs, siks)),
+                                  max_levels=n_levels, device=device)
+    return [generate_circuit_inputs(
+        address_bytes=addr_b, password=DEFAULT_PASSWORD, signature64=sig64,
+        available_weight=available_weight, vote_weight=vote_weight,
+        election_id=election_id,
+        census_root=census.root,
+        census_siblings=census.padded_siblings(addr, n_levels),
+        sik_root=sik_tree.root,
+        sik_siblings=sik_tree.padded_siblings(addr, n_levels),
+        n_levels=n_levels,
+    ) for (addr_b, sig64), addr in zip(voters, addrs)]
 
 
 def batch_to_arrays(batch: list[CircuitInputs], n_levels: int) -> dict:

@@ -218,6 +218,95 @@ def build_census_cs(n_levels: int) -> r1cs.ConstraintSystem:
 
 
 # ---------------------------------------------------------------------------
+# the SMT levels no voter reaches (the provers' cut MSM tables)
+# ---------------------------------------------------------------------------
+# A level strictly below a voter's leaf (i > d) has one witness for every
+# voter and every such level: m_sw 0, the trace of Poseidon(0, 0), m1 0 and
+# m2 0.  A leaf lies below depth SMT_CUT_DEPTH only where two keys share
+# their first 64 path bits: for N random 160-bit keys that happens with
+# probability about N^2 / 2^65 (2^-17 at 16 million voters).  So the
+# provers' MSMs run on tables without the levels i = L - 1 .. 65 of both
+# trees and add those rows' sum, one point a table, where every voter of a
+# slice lies at depth <= 64 (groth16/device.py), and on the full tables
+# otherwise.
+
+SMT_CUT_DEPTH = 64
+
+
+def smt_cut_vars(cs: r1cs.ConstraintSystem, n_levels: int,
+                 depth: int) -> np.ndarray:
+    """The wires of the SMT levels i = L - 1 .. depth + 1 (L = n_levels + 1
+    siblings) of the SIK tree, then of the census tree, ascending: in each
+    tree one contiguous block at the start of its levels (build_smt_inclusion
+    allocates them from i = L - 1 down).  Empty where n_levels <= depth."""
+    L = n_levels + 1
+    lr = K.smt_level_rows()
+    n_cut = max(0, L - 1 - depth)
+    blocks = []
+    for tree in ("sik_tree", "census_tree"):
+        v0, v1 = cs.gadget_rows[tree]["vars"]
+        if v1 - v0 != K.smt_block_rows(L):
+            raise ValueError(f"{tree}: {v1 - v0} wires, not the "
+                             f"{K.smt_block_rows(L)} of {L} levels")
+        start = v0 + K.smt_head_rows(L)
+        blocks.append(np.arange(start, start + n_cut * lr, dtype=np.int64))
+    return np.concatenate(blocks)
+
+
+def leaves_within(inputs: dict, depth: int) -> bool:
+    """True when every sibling at index >= depth is zero in both trees of
+    every lane: each lane's depth (lm_kernels.smt_depth, one past its last
+    nonzero sibling) is at most `depth`.  inputs: batch_to_arrays' dict
+    (numpy arrays or tensors)."""
+    return not any(bool(inputs[key][depth:].any())
+                   for key in ("sikSiblings", "censusSiblings"))
+
+
+def shallow_voters(n_levels: int, depth: int, seed: int = 0) -> dict:
+    """Witness inputs (plain limb-major int32 numpy, two lanes) of two
+    synthetic voters: lane 0's leaf at depth 0 (no sibling), lane 1's at
+    `depth` (a nonzero sibling at every i < depth) in both trees, and key
+    bits 0 .. 252 of lane 1 the complement of lane 0's.  The other inputs
+    are random field elements: only the SMT levels below the leaves are
+    read from their witness (cut_witness)."""
+    rng = np.random.default_rng(seed)
+
+    def elements(*shape, low=0):
+        """(*shape, 21, 2) field elements in [low, p)."""
+        vals = [low + int.from_bytes(rng.bytes(32), "big") % (P - low)
+                for _ in range(int(np.prod(shape)) * 2)]
+        return np.ascontiguousarray(np.moveaxis(
+            lm.ints_to_lm(vals).reshape(N_LIMBS, *shape, 2), 0, -2))
+
+    addr = int.from_bytes(rng.bytes(32), "big") % (1 << 253)
+    out = {key: elements() for key in (
+        "nullifier", "availableWeight", "sikRoot", "censusRoot", "password",
+        "signature", "voteWeight")}
+    out.update(electionId=elements(2), voteHash=elements(2),
+               address=lm.ints_to_lm([addr, addr ^ ((1 << 253) - 1)]))
+    for key in ("sikSiblings", "censusSiblings"):
+        sib = elements(n_levels + 1, low=1)
+        sib[..., 0] = 0
+        sib[depth:, :, 1] = 0
+        out[key] = sib
+    return out
+
+
+def cut_witness(w_plain: torch.Tensor, n_cut_levels: int) -> torch.Tensor:
+    """The witness of the cut levels (smt_cut_vars' wires, (2 n_cut_levels
+    levels of smt_level_rows(), 21, T) plain canonical) -> its first lane
+    (n, 21, 1), after checking the premise of the cut: every cut level of
+    both trees has the same values, in every lane.  Raises otherwise."""
+    lr = K.smt_level_rows()
+    levels = w_plain.reshape(2 * n_cut_levels, lr, *w_plain.shape[1:])
+    if not torch.equal(levels, levels[:1, ..., :1].expand_as(levels)):
+        raise RuntimeError("smt cut: the SMT levels below the voters' leaves "
+                           "do not hold one witness; the cut tables would "
+                           "give wrong proofs")
+    return w_plain[..., :1].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # eval-side gadgets (limb-major Montgomery planes, voters on the last axis)
 # ---------------------------------------------------------------------------
 # A field element is (21, T); signal blocks stack elements on the LEADING

@@ -197,6 +197,26 @@ def plan(table: torch.Tensor, kind: str) -> list:
             for s, r, m in _chunks(table.shape[0])]
 
 
+def plan_cut(table: torch.Tensor, kind: str, cut: np.ndarray,
+             scalars: torch.Tensor):
+    """An n-point AFFINE table without the rows `cut` (ascending), whose
+    scalars are the same for every lane: `scalars` (len(cut), 21, 1) plain
+    canonical.  -> (the rows kept, ascending (numpy), plan() of the table
+    over them, the cut rows' sum sum_j scalars_j * table[cut_j] (1, rows,
+    1) projective, by msm at one lane).  msm_planned over the kept rows'
+    scalars plus that sum is the msm over the whole table."""
+    keep = np.setdiff1d(np.arange(table.shape[0]), cut)
+    rows = torch.as_tensor(keep, device=table.device)
+    return (keep, plan(table[rows], kind),
+            msm(scalars, table[torch.as_tensor(cut, device=table.device)],
+                kind))
+
+
+def plan_leaves(chunks: list) -> int:
+    """The sum tree's leaves a window of a plan: its padded chunk sizes."""
+    return sum(m for _, _, m, _ in chunks)
+
+
 def msm_planned(scalars_plain: torch.Tensor, chunks: list, kind: str,
                 window_group: int | None = None) -> torch.Tensor:
     """scalars_plain: (n, 21, B) int32 canonical plain limbs over the

@@ -147,7 +147,10 @@ def _no_mark(stage: str) -> None:
 
 class ShardedProver:
     """Batched prover on one rank of a mesh: voter lanes over 'data',
-    proving-key tables, R1CS rows and the NTT domain over 'model'."""
+    proving-key tables, R1CS rows and the NTT domain over 'model'.  Its
+    MSMs always run on the full tables: it has no counterpart of
+    DeviceProver's cut tables (groth16/device.py SmtCut), which leave out
+    the SMT levels below census.SMT_CUT_DEPTH."""
 
     def __init__(self, circuit: CensusCircuit, pk, mesh: Mesh):
         self.circuit = circuit

@@ -410,3 +410,24 @@ def smt_inputs(L: int, T: int, depths, seed: int, device="cpu"):
                               device=device)
     leaf, leaf_tr = K.poseidon_trace(lm.to_mont(leaf_in))
     return bits, sib_plain, lm.to_mont(sib_plain), leaf, leaf_tr
+
+
+def deep_pair_batch(n_levels: int, n_voters: int, shared_bits: int,
+                    seed: int, device=None) -> list:
+    """n_voters voters in one census and one SIK tree
+    (inputs.shared_trees_batch) from random addresses, of which voters 0
+    and 1 differ only in path bit `shared_bits`: their leaves lie at depth
+    shared_bits + 1 in both trees (below the provers' cut depth where that
+    is larger).  Signatures are random bytes: the circuit reads a
+    signature only as a field element."""
+    import random
+
+    from .. import inputs as inp
+
+    rng = random.Random(seed)
+    addrs = [bytearray(rng.randbytes(20)) for _ in range(n_voters)]
+    addrs[1] = bytearray(addrs[0])
+    addrs[1][shared_bits // 8] ^= 1 << (shared_bits % 8)
+    return inp.shared_trees_batch(
+        [(bytes(a), rng.randbytes(64)) for a in addrs], n_levels,
+        device=device)

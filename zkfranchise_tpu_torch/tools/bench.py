@@ -114,7 +114,7 @@ def measure(prover: DeviceProver, vk: gverify.VerifyingKey, arrs: dict,
     batch = arrs["address"].shape[-1]
     if step is None:
         t0 = time.perf_counter()
-        step = prover.capture(batch)
+        step = prover.capture(batch, cut=prover.takes_cut(arrs))
         log(f"capture (warm-up, capture, instantiation): "
             f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
